@@ -1,0 +1,135 @@
+"""The PyTorch port stands alone and never falls back to the CPU.
+
+``lambdagap_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
+``lambdagap_tpu``: a subprocess with both blocked in ``sys.modules`` loads
+a JAX-saved model, predicts and serves on the CPU. Asking for the card
+where there is none raises instead of quietly running on the CPU.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import lambdagap_tpu as lgb
+import lambdagap_tpu_torch as lgt
+
+REPO = Path(__file__).resolve().parents[1]
+
+_CHILD = r"""
+import sys
+sys.modules["jax"] = None            # any import of jax now raises
+sys.modules["lambdagap_tpu"] = None
+sys.path.insert(0, {repo!r})
+import numpy as np
+import lambdagap_tpu_torch as lgt
+text = open({model!r}).read()
+X = np.load({rows!r})
+bst = lgt.Booster(model_str=text, params={{"device_type": "cpu"}})
+raw = bst.predict(X, raw_score=True)
+with bst.as_server(raw_score=True) as server:
+    served = server.predict(X)
+assert np.array_equal(raw, served)
+np.save({out!r}, raw)
+bad = sorted(m for m in sys.modules
+             if (m == "jax" or m.startswith("jax.")
+                 or m == "lambdagap_tpu" or m.startswith("lambdagap_tpu."))
+             and sys.modules[m] is not None)
+assert not bad, bad
+print("ISOLATED_OK")
+"""
+
+
+def _model():
+    rng = np.random.RandomState(0)
+    X = rng.randn(600, 6).astype(np.float32)
+    X[::7, 2] = np.nan
+    y = (X[:, 0] - X[:, 1] > 0).astype(np.float32)
+    b = lgb.train({"verbose": -1, "objective": "binary", "num_leaves": 7,
+                   "tpu_fast_predict_rows": 0, "predict_engine": "compiled"},
+                  lgb.Dataset(X, label=y), num_boost_round=5)
+    return b, X
+
+
+def test_port_runs_with_jax_and_reference_blocked(tmp_path):
+    b, X = _model()
+    model = tmp_path / "m.txt"
+    model.write_text(b.model_to_string())
+    rows, out = tmp_path / "x.npy", tmp_path / "raw.npy"
+    np.save(rows, X)
+    code = _CHILD.format(repo=str(REPO), model=str(model), rows=str(rows),
+                         out=str(out))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ISOLATED_OK" in proc.stdout
+    assert np.array_equal(np.load(out), b.predict(X, raw_score=True))
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(REPO).as_posix()
+     for p in (REPO / "lambdagap_tpu_torch").rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    for name in _imports(REPO / path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "lambdagap_tpu"), (path, name)
+
+
+def test_cuda_default_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default runs on it")
+    b, _X = _model()
+    with pytest.raises(RuntimeError, match="device_type=cpu"):
+        lgt.Booster(model_str=b.model_to_string(), params={})
+    with pytest.raises(RuntimeError, match="device_type=cpu"):
+        lgt.Booster(model_str=b.model_to_string())
+
+
+def test_cuda_tensor_never_reaches_the_plain_traversal():
+    """A tensor on any non-CPU device goes to the kernel or raises: the
+    wrapper has no fallback to the plain version."""
+    from lambdagap_tpu_torch.infer import compile_forest
+    from lambdagap_tpu_torch.infer import engine as eng
+    b, X = _model()
+    port = lgt.Booster(model_str=b.model_to_string(),
+                       params={"device_type": "cpu"})
+    tables = eng.device_tables(compile_forest(port._booster),
+                               torch.device("cpu"))
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        eng.traverse_forest(torch.from_numpy(X).to("meta"), tables)
+
+
+@pytest.mark.parametrize("params, exc, match", [
+    ({"predict_engine": "tensor", "device_type": "cpu"},
+     NotImplementedError, "not ported"),
+    ({"device_type": "tpu"}, RuntimeError, "device_type must be one of"),
+])
+def test_config_refuses_what_the_port_does_not_run(params, exc, match):
+    with pytest.raises(exc, match=match):
+        lgt.Config.from_params(params)
+
+
+def test_port_defaults_differ_in_exactly_two_places():
+    from lambdagap_tpu.config import Config as JaxConfig
+    port, ref = lgt.Config().to_dict(), JaxConfig().to_dict()
+    assert sorted(port) == sorted(ref)
+    diff = {k for k in ref if port[k] != ref[k]}
+    assert diff == {"device_type", "predict_engine"}
+    assert port["device_type"] == "cuda"
+    assert port["predict_engine"] == "compiled"
