@@ -2,20 +2,27 @@
 
 A package of its own beside the JAX package (which stays the reference):
 it imports ``torch`` and ``numpy`` and nothing of ``lambdagap_tpu``. This
-slice serves a LightGBM v4 text model on the card::
+slice trains a binary or L2 forest on the card and serves it::
 
     import lambdagap_tpu_torch as lgt
-    bst = lgt.Booster(model_file="model.txt")   # device_type="cuda" default
-    server = bst.as_server()                     # compiled engine, CUDA kernel
-    y = server.predict(rows)
+    train = lgt.Dataset(X, label=y)
+    valid = lgt.Dataset(Xv, label=yv, reference=train)
+    bst = lgt.train({"objective": "binary", "metric": ["auc"]}, train,
+                    100, valid_sets=[valid],
+                    callbacks=[lgt.early_stopping(10)])  # CUDA histograms
+    server = lgt.Booster(model_str=bst.model_to_string()).as_server()
+    y = server.predict(rows)                     # CUDA traversal
 
 Entry points run on the card unless ``device_type="cpu"`` is passed; the
 CPU runs every kernel's plain PyTorch version. See README.md ("The PyTorch
 port") for what is ported and ROADMAP.md for what is not yet.
 """
-from .basic import Booster
+from .basic import Booster, Dataset
+from .callback import early_stopping, log_evaluation, record_evaluation
 from .config import Config
+from .engine import train
 from .serve import ForestServer
 
-__all__ = ["Booster", "Config", "ForestServer"]
-__version__ = "0.1.0"
+__all__ = ["Booster", "Config", "Dataset", "ForestServer", "early_stopping",
+           "log_evaluation", "record_evaluation", "train"]
+__version__ = "0.2.0"

@@ -492,20 +492,21 @@ class Config:
 
     # TPU-specific knobs (no reference analog; tuning surface for XLA/Pallas)
     tpu_rows_per_block: int = 4096
-    tpu_hist_impl: str = "auto"               # auto / onehot / pallas; auto resolves to the Pallas VMEM kernel on TPU, one-hot contraction elsewhere
+    tpu_hist_impl: str = "auto"               # kept for parity with the JAX package's config; the port reads it nowhere: every histogram comes from ops/hist_cuda.hist_rows (the CUDA kernel on the card, its plain version on the CPU)
     # physical row layout during training (docs/performance.md):
     #   gather — rows stay in dataset order; the histogram pass gathers by
     #            the leaf permutation (the differential oracle)
     #   sorted — the packed row matrix is physically reordered by leaf
     #            after each split, so histogram reads are contiguous
     #            streams instead of row gathers
-    #   auto   — sorted at shapes where gather-issue dominates (>= 2^20
-    #            rows), gather below (the extra resident copy + per-tree
-    #            rebuild is not worth it on small data)
+    #   auto   — the JAX package picks sorted at >= 2^20 rows; the port
+    #            resolves auto to gather (the JAX package holds the two
+    #            layouts bit-identical) and raises NotImplementedError for
+    #            an explicit sorted until that layout is ported
     tree_layout: str = "auto"                 # auto / gather / sorted
     tpu_num_devices: int = 0                  # 0 = all visible devices
     mesh_shape: str = ""                      # device mesh extents "DATAxFEATURE" over parallel/sharding.py axes ("8", "8x1", "1x8", "4x2", wildcard "0x4"/"2x0" = all remaining devices on that axis); an explicit AxB grid routes distributed training through the fused 2-D data x feature learner; "" = 1-D on the learner's natural axis with tpu_num_devices devices
-    tpu_fused_learner: str = "auto"           # auto / 1 / 0: whole-tree-on-device
+    tpu_fused_learner: str = "auto"           # auto / 1 / 0: auto and 1 train with the device-resident FusedTreeLearner on the card and on the CPU alike; 0 (the host-driven SerialTreeLearner) raises NotImplementedError until it is ported
     tpu_fast_predict_rows: int = 10000        # route predict batches up to this many rows through the threaded native traverser
     # -- out-of-core streaming training (docs/performance.md) -------------
     # where the packed binned matrix lives during training:

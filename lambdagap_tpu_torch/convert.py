@@ -1,4 +1,4 @@
-"""Carry a model across from its per-tree numpy arrays.
+"""Carry a model, or a binned dataset, across from numpy arrays.
 
 A forest is the model's weights. The LightGBM v4 text format is the shared
 format (``Booster(model_str=...)``); this module is the second route: the
@@ -7,6 +7,11 @@ JAX package's ``Tree`` included — become the port's :class:`Tree`\\s, and
 :func:`booster_from_numpy` assembles a port :class:`Booster` from them and
 a model-text header dict. Both routes give the same booster: the same tree
 fields, the same text, the same predictions.
+
+Training state comes across the same way: :func:`dataset_fields` reads a
+binned dataset's mappers, binned matrix and labels as numpy, and
+:func:`dataset_from_numpy` builds the port's :class:`BinnedDataset` from
+them.
 """
 from __future__ import annotations
 
@@ -16,6 +21,8 @@ import numpy as np
 
 from .basic import Booster
 from .config import Config
+from .data.binning import BinMapper
+from .data.dataset import BinnedDataset
 from .models.gbdt import GBDT
 from .models.tree import Tree
 
@@ -123,6 +130,63 @@ def trees_from_numpy(fields: Sequence[Mapping[str, Any]]) -> List[Tree]:
     (``split_gain``, ``internal_*``, ``leaf_weight``, ``leaf_count``,
     ``shrinkage``), plus the optional bin-space fields."""
     return [_tree_from_fields(f) for f in fields]
+
+
+MAPPER_FIELDS = ("bin_type", "missing_type", "bin_upper_bound",
+                 "bin_2_categorical", "categorical_2_bin", "num_bin",
+                 "default_bin", "most_freq_bin", "min_val", "max_val",
+                 "is_trivial")
+
+
+def dataset_fields(ds) -> Dict[str, Any]:
+    """The fields :func:`dataset_from_numpy` reads, as numpy arrays and
+    plain values, from any binned dataset with the reference dataset's
+    attribute names (the JAX package's ``BinnedDataset`` included)."""
+    md = ds.metadata
+    return {
+        "binned": np.asarray(ds.binned),
+        "mappers": [{k: getattr(m, k) for k in MAPPER_FIELDS}
+                    for m in ds.mappers],
+        "used_features": [int(j) for j in ds.used_features],
+        "feature_names": list(ds.feature_names),
+        "max_bin": int(ds.max_bin),
+        "label": None if md.label is None else np.asarray(md.label),
+        "weight": None if md.weight is None else np.asarray(md.weight),
+        "init_score": (None if md.init_score is None
+                       else np.asarray(md.init_score)),
+    }
+
+
+def dataset_from_numpy(fields: Mapping[str, Any]) -> BinnedDataset:
+    """A port :class:`BinnedDataset` from :func:`dataset_fields`: the same
+    mappers (boundaries, missing types, default bins, categorical maps),
+    the same binned matrix and labels — so a learner can be held to another
+    implementation on an identical binned matrix."""
+    ds = BinnedDataset()
+    ds.binned = np.ascontiguousarray(fields["binned"])
+    ds.num_data, ds.num_total_features = (ds.binned.shape[0],
+                                          len(fields["mappers"]))
+    ds.mappers = []
+    for mf in fields["mappers"]:
+        m = BinMapper()
+        for k in MAPPER_FIELDS:
+            v = mf[k]
+            setattr(m, k, list(v) if isinstance(v, (list, tuple, np.ndarray))
+                    else dict(v) if isinstance(v, dict) else v)
+        ds.mappers.append(m)
+    ds.used_features = [int(j) for j in fields["used_features"]]
+    ds.feature_num_bins = [ds.mappers[j].num_bin for j in ds.used_features]
+    ds.bin_offsets = [int(v) for v in np.concatenate(
+        [[0], np.cumsum(ds.feature_num_bins)[:-1]])]
+    ds.feature_names = list(fields["feature_names"])
+    ds.max_bin = int(fields["max_bin"])
+    md = ds.metadata
+    for k, dt in (("label", np.float32), ("weight", np.float32),
+                  ("init_score", np.float64)):
+        if fields.get(k) is not None:
+            setattr(md, k, np.asarray(fields[k], dt).reshape(-1))
+    md.check(ds.num_data)
+    return ds
 
 
 def booster_from_numpy(header: Mapping[str, str], trees: Sequence[Tree],

@@ -1,40 +1,138 @@
-"""The loaded-model side of the GBDT booster.
+"""The GBDT booster: training and the loaded-model side.
 
-The port of ``lambdagap_tpu/models/gbdt.py`` for a model loaded from
-LightGBM v4 text: parse (``from_model_string`` / ``from_model_file``),
-slice, predict on the configured device engine, and save back. Training
-(``train_one_iter`` and everything around it) waits for the training
-slice.
+The port of ``lambdagap_tpu/models/gbdt.py``. A loaded model (LightGBM v4
+text: ``from_model_string`` / ``from_model_file``) is sliced, predicted on
+the configured device engine and saved back. Training (``GBDT(config,
+train_set)``) runs the JAX package's fused fast path: per iteration the
+objective's gradients, one tree grown on the device by
+:class:`~lambdagap_tpu_torch.models.fused_learner.FusedTreeLearner`, the
+training scores updated on the device with ``f32(leaf_value *
+shrinkage)[row_leaf]``, and every validation set scored tree by tree over
+its binned matrix. Trees stay on the device until a host view is needed
+(save, predict), then materialize in one batched transfer with the
+f32-rounded shrinkage of ``_finalize_tree``.
 
-Every predict goes to the device engine: the JAX package's <=512-row native
-``fastpred`` shortcut is not ported. ``predict_engine=compiled`` runs the
-compiled artifact through the CUDA traversal kernel; ``scan`` runs the
-per-tree oracle. Both return bit-identical raw scores.
+Validation scores take each tree's ``f32(leaf_value * shrinkage)``, the
+same values the training scores take; the boost-from-average init score
+is added to them once, before the first tree. (The JAX package's fast path
+adds that init score a second time through the first tree's bias when a
+validation set is attached; ROADMAP.md, Queue 3.)
+
+Options the port does not train yet raise NotImplementedError naming the
+knob (:func:`_refuse_unported`). Every predict goes to the device engine:
+the JAX package's <=512-row native ``fastpred`` shortcut is not ported.
+``predict_engine=compiled`` runs the compiled artifact through the CUDA
+traversal kernel; ``scan`` runs the per-tree oracle. Both return
+bit-identical raw scores.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..metrics import create_metrics
 from ..objectives import ObjectiveFunction, create_objective
-from ..ops.predict import forest_to_arrays, predict_forest
+from ..ops.predict import (TreeArrays, forest_to_arrays, predict_forest,
+                           predict_tree_binned)
 from ..utils import log
 from ..utils.device import resolve_device
 from .tree import Tree
 
+K_EPSILON = 1e-15
+_ROADMAP = "(ROADMAP.md, port slice 3)"
+
+
+def _finalize_tree(tree: Tree, shrinkage: float, bias: float) -> Tree:
+    """Shrinkage + boost-from-average bias fold (reference: Tree::Shrinkage
+    + Tree::AddBias, gbdt.cpp:415-421). The leaf multiply is rounded in
+    float32: the device training scores already took ``f32(leaf_value *
+    shrinkage)``, so the serialized leaf values must be those products or a
+    reload would disagree with training by an ulp."""
+    lv32 = (tree.leaf_value[:tree.num_leaves].astype(np.float32)
+            * np.float32(shrinkage)).astype(np.float32)
+    tree.leaf_value[:tree.num_leaves] *= shrinkage
+    tree.internal_value = [v * shrinkage for v in tree.internal_value]
+    tree.shrinkage *= shrinkage
+    tree.leaf_value[:tree.num_leaves] = lv32.astype(np.float64)
+    if abs(bias) > K_EPSILON:
+        tree.leaf_value[:tree.num_leaves] += bias
+        tree.internal_value = [v + bias for v in tree.internal_value]
+    return tree
+
+
+class _LazyTree:
+    """A trained tree still on the device; materializes to a host Tree on
+    first access."""
+
+    __slots__ = ("learner", "rec", "shrinkage", "bias")
+
+    def __init__(self, learner, rec, shrinkage: float, bias: float) -> None:
+        self.learner = learner
+        self.rec = rec
+        self.shrinkage = shrinkage
+        self.bias = bias
+
+
+def _refuse_unported(cfg: Config) -> None:
+    """Raise NotImplementedError, naming the knob, for every training option
+    the port does not carry yet: none is ignored silently."""
+    def no(knob: str) -> None:
+        raise NotImplementedError(
+            f"{knob} is not ported to lambdagap_tpu_torch yet {_ROADMAP}")
+
+    if cfg.boosting != "gbdt":
+        no(f"boosting={cfg.boosting}")
+    if cfg.tree_learner != "serial":
+        no(f"tree_learner={cfg.tree_learner}")
+    if str(cfg.tpu_fused_learner).lower() in ("0", "false", "off", "no"):
+        no("tpu_fused_learner=0 (the host-driven SerialTreeLearner)")
+    if cfg.data_residency == "stream":
+        no("data_residency=stream")
+    if cfg.use_quantized_grad:
+        no("use_quantized_grad")
+    if cfg.data_sample_strategy == "goss":
+        no("data_sample_strategy=goss")
+    if cfg.bagging_freq > 0 and (cfg.bagging_fraction < 1.0
+                                 or cfg.pos_bagging_fraction < 1.0
+                                 or cfg.neg_bagging_fraction < 1.0):
+        no("bagging (bagging_fraction<1 with bagging_freq>0)")
+    if cfg.extra_trees:
+        no("extra_trees")
+    if cfg.feature_fraction_bynode < 1.0:
+        no("feature_fraction_bynode<1")
+    if cfg.forcedsplits_filename:
+        no("forcedsplits_filename (forced splits)")
+    if cfg.monotone_constraints and any(int(m) != 0
+                                        for m in cfg.monotone_constraints):
+        no("monotone_constraints")
+    if cfg.interaction_constraints:
+        no("interaction_constraints")
+    if cfg.cegb_tradeoff > 0 and (cfg.cegb_penalty_split > 0
+                                  or cfg.cegb_penalty_feature_coupled
+                                  or cfg.cegb_penalty_feature_lazy):
+        no("cegb (cegb_penalty_*)")
+    if cfg.linear_tree:
+        no("linear_tree")
+    if cfg.feature_contri:
+        no("feature_contri")
+    if cfg.snapshot_freq > 0:
+        no("snapshot_freq (crash-safe snapshots)")
+    if cfg.objective not in ("binary", "regression"):
+        no(f"training with objective={cfg.objective}")
+
 
 class GBDT:
-    """Gradient Boosting Decision Tree booster (loaded model)."""
+    """Gradient Boosting Decision Tree booster."""
 
     average_output = False   # True for RF (reference: rf.hpp average_output_)
 
-    def __init__(self, config: Config) -> None:
+    def __init__(self, config: Config, train_set=None) -> None:
         self.config = config
         self.device = resolve_device(config.device_type)
-        self.models: List[Tree] = []           # flat: iter-major, class-minor
+        self.models: List = []           # flat: iter-major, class-minor
         self.max_feature_idx = 0
         # predict caches + model generation id: the generation bumps on any
         # in-place mutation of the served forest, and the caches key on it
@@ -46,15 +144,161 @@ class GBDT:
         self.num_class = (self.objective.num_class if self.objective
                           else config.num_class)
         self.num_tree_per_iteration = max(self.num_class, 1)
+        self.train_set = train_set
+        self.iter_ = 0
+        self.shrinkage_rate = config.learning_rate
+        self.train_metrics = []
+        self.valid_sets: List[Tuple[str, object]] = []
+        self.valid_binned: List[torch.Tensor] = []
+        self.valid_metrics: List[list] = []
+        self.valid_scores: List[torch.Tensor] = []
+        if train_set is not None:
+            self._setup_training(train_set)
 
     # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def _setup_training(self, ds) -> None:
+        cfg = self.config
+        _refuse_unported(cfg)
+        from .fused_learner import FusedTreeLearner
+        self.num_data = ds.num_data
+        self.max_feature_idx = ds.num_total_features - 1
+        self.objective.init(ds.metadata, ds.num_data, self.device)
+        self.learner = FusedTreeLearner(ds, cfg, self.device)
+        self.has_init_score = ds.metadata.init_score is not None
+        self.scores = self._init_scores(ds.metadata.init_score, ds.num_data)
+        if cfg.is_provide_training_metric:
+            self.train_metrics = create_metrics(cfg, ds.metadata,
+                                                ds.num_data)
+
+    def _init_scores(self, init_score, n: int) -> torch.Tensor:
+        K = self.num_tree_per_iteration
+        if init_score is None:
+            return torch.zeros((K, n), dtype=torch.float32,
+                               device=self.device)
+        s = np.asarray(init_score, dtype=np.float32)
+        s = s.reshape(K, n) if s.size == K * n else np.tile(s, (K, 1))
+        return torch.from_numpy(np.ascontiguousarray(s)).to(self.device)
+
+    def add_valid_set(self, ds, name: str) -> None:
+        if self.models:
+            raise NotImplementedError(
+                "adding a validation set after training began is not "
+                f"ported to lambdagap_tpu_torch yet {_ROADMAP}")
+        self.valid_sets.append((name, ds))
+        self.valid_binned.append(torch.from_numpy(
+            np.ascontiguousarray(ds.binned)).to(self.device))
+        self.valid_metrics.append(create_metrics(self.config, ds.metadata,
+                                                 ds.num_data))
+        self.valid_scores.append(self._init_scores(ds.metadata.init_score,
+                                                   ds.num_data))
+
+    def boosting(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Gradients at the current scores (reference: GBDT::Boosting,
+        gbdt.cpp:222-237)."""
+        return self.objective.get_gradients_fast(self.scores)
+
+    def train_one_iter(self) -> bool:
+        """One boosting iteration (the JAX package's fused fast path).
+        Returns False: like the JAX package's fast path, a converged run
+        appends constant trees instead of paying a sync to stop."""
+        cfg = self.config
+        K = self.num_tree_per_iteration
+        init_scores = [0.0] * K
+        if not self.models and not self.has_init_score \
+                and cfg.boost_from_average:
+            for k in range(K):
+                init = self.objective.boost_from_score(k)
+                if abs(init) > K_EPSILON:
+                    init_scores[k] = init
+                    self.scores[k] += init
+                    for vs in self.valid_scores:
+                        vs[k] += init
+                    log.info("Start training from score %f", init)
+        grad, hess = self.boosting()
+        for k in range(K):
+            rec = self.learner.train_device(grad[k], hess[k])
+            lv = rec.leaf_value * self.shrinkage_rate
+            self.scores[k] += lv[rec.row_leaf]
+            if self.valid_sets:
+                t = self._device_tree_arrays(rec, lv)
+                for vi in range(len(self.valid_sets)):
+                    self.valid_scores[vi][k] += predict_tree_binned(
+                        self.valid_binned[vi], t, max(rec.max_depth, 1))
+            # drop the O(N) row -> leaf map from the kept record
+            self.models.append(_LazyTree(self.learner,
+                                         rec._replace(row_leaf=None),
+                                         self.shrinkage_rate,
+                                         init_scores[k]))
+        self.iter_ += 1
+        return False
+
+    def _device_tree_arrays(self, rec, leaf_values: torch.Tensor):
+        """A DeviceTree as the binned TreeArrays of ``ops/predict`` on the
+        device, without a host round trip."""
+        lr = self.learner
+        f = rec.node_feature
+        return TreeArrays(
+            split_feature=f, threshold=None, threshold_bin=rec.node_threshold,
+            default_left=rec.node_default_left,
+            missing_type=lr.missing_types_arr[f],
+            default_bin=lr.default_bins_arr[f], num_bin=lr.num_bins_arr[f],
+            left_child=rec.node_left, right_child=rec.node_right,
+            is_categorical=rec.node_is_cat, cat_bitset=rec.node_cat_bits,
+            cat_bitset_real=None, leaf_value=leaf_values, leaf_const=None,
+            leaf_feat=None, leaf_coeff=None)
+
+    def _converted_scores(self, raw: torch.Tensor) -> np.ndarray:
+        out = self.objective.convert_output(raw) if self.objective else raw
+        out = out.cpu().numpy().astype(np.float64)
+        return out[0] if self.num_tree_per_iteration == 1 else out
+
+    def eval_train(self) -> List[Tuple[str, str, float, bool]]:
+        return self._eval("training", self.train_metrics,
+                          self._converted_scores(self.scores))
+
+    def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
+        out = []
+        for vi, (name, _) in enumerate(self.valid_sets):
+            out.extend(self._eval(name, self.valid_metrics[vi],
+                                  self._converted_scores(
+                                      self.valid_scores[vi])))
+        return out
+
+    @staticmethod
+    def _eval(data_name, metrics, converted):
+        return [(data_name, mname, val, m.greater_is_better)
+                for m in metrics for mname, val in m.eval(converted)]
+
+    # ------------------------------------------------------------------
+    # host views of the forest
+    # ------------------------------------------------------------------
+    def _materialize_lazy(self) -> None:
+        """Every device-resident tree to a host Tree, one batched transfer."""
+        lazy = [i for i, m in enumerate(self.models)
+                if isinstance(m, _LazyTree)]
+        if not lazy:
+            return
+        trees = self.learner.materialize_batch(
+            [self.models[i].rec for i in lazy])
+        for i, t in zip(lazy, trees):
+            m = self.models[i]
+            self.models[i] = _finalize_tree(t, m.shrinkage, m.bias)
+
     def _tree(self, i: int) -> Tree:
+        if isinstance(self.models[i], _LazyTree):
+            self._materialize_lazy()
         return self.models[i]
 
     @property
     def host_models(self) -> List[Tree]:
+        self._materialize_lazy()
         return self.models
 
+    # ------------------------------------------------------------------
+    # prediction
+    # ------------------------------------------------------------------
     def _model_slice(self, start_iteration: int, num_iteration: int):
         K = self.num_tree_per_iteration
         end = len(self.models) if num_iteration < 0 else min(
@@ -71,7 +315,7 @@ class GBDT:
         if cached is None or cached[0] != key:
             need = 1 + max(
                 (max(t.split_feature[:t.num_internal], default=0)
-                 for t in self.models), default=0) if self.models else 0
+                 for t in self.host_models), default=0) if self.models else 0
             self._need_feats = (key, need)
         need = self._need_feats[1]
         if data.ndim != 2:
@@ -134,6 +378,7 @@ class GBDT:
         cache = self._compiled_cache
         if cache is None or cache[0] != key:
             from ..infer import CompiledForest, compile_forest
+            self._materialize_lazy()
             artifact = compile_forest(self, start_iteration, num_iteration)
             self._compiled_cache = (key, CompiledForest(
                 artifact, self.device, early_stop_freq=es_freq,
@@ -192,6 +437,8 @@ class GBDT:
     # ------------------------------------------------------------------
     @property
     def feature_names(self) -> List[str]:
+        if self.train_set is not None:
+            return self.train_set.feature_names
         return getattr(self, "_feature_names",
                        [f"Column_{i}" for i in range(self.max_feature_idx + 1)])
 
@@ -211,8 +458,20 @@ class GBDT:
         return name
 
     def feature_infos(self) -> List[str]:
-        """Per-feature value ranges, as the loaded text carried them."""
-        return getattr(self, "_feature_infos", [])
+        """Per-feature value ranges (reference: Dataset feature_infos /
+        bin.h:224 bin_info_string), or as the loaded text carried them."""
+        if self.train_set is None:
+            return getattr(self, "_feature_infos", [])
+        out = []
+        for m in self.train_set.mappers:
+            if m.is_trivial:
+                out.append("none")
+            elif m.bin_type == "categorical":
+                cats = [str(c) for c in m.bin_2_categorical[1:]]
+                out.append(":".join(cats) if cats else "none")
+            else:
+                out.append(f"[{m.min_val:g}:{m.max_val:g}]")
+        return out
 
     def save_model_to_string(self, start_iteration: int = 0,
                              num_iteration: int = -1,

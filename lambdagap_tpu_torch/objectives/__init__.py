@@ -1,5 +1,5 @@
-"""Objectives: output conversions for loaded models (gradients wait for
-the training slice)."""
+"""Objectives: output conversions for loaded models; gradients for the
+objectives that train (binary, L2 regression)."""
 from . import binary, multiclass, regression  # noqa: F401  (registration)
 from .base import ObjectiveFunction, create_objective
 

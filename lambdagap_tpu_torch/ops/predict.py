@@ -14,8 +14,8 @@ NumericalDecision / CategoricalDecision): NaN converts to 0 unless the
 node is NaN-missing, missing values follow ``default_left``, and a
 categorical value goes left iff its bit is set in the node's bitset.
 
-The binned traversal (training-score replay) and linear leaves wait for
-later slices.
+The binned traversal (:func:`predict_tree_binned`) scores a validation
+set tree by tree during training. Linear leaves wait for later slices.
 """
 from __future__ import annotations
 
@@ -232,6 +232,42 @@ def _traverse_leaf_id(x: torch.Tensor, t: TreeArrays,
         nxt = torch.where(go, t.left_child[n], t.right_child[n]).long()
         node = torch.where(node < 0, node, nxt)
     return ~node
+
+
+def _traverse_leaf_id_binned(x_binned: torch.Tensor, t: TreeArrays,
+                             max_depth: int) -> torch.Tensor:
+    """Traversal of one tree over binned rows (inner-feature columns)
+    -> leaf index [N] (int64), routing exactly like the train-time
+    partition (``ops/partition.decision_go_left``)."""
+    N = x_binned.shape[0]
+    if x_binned.dtype == torch.uint16:      # torch gathers no u16 on the CPU
+        x_binned = x_binned.int()
+    nbits = t.cat_bitset.shape[-1] * 32
+    node = torch.zeros(N, dtype=torch.int64, device=x_binned.device)
+    for _ in range(max_depth):
+        n = node.clamp(min=0)
+        f = t.split_feature[n].long()
+        b = torch.gather(x_binned, 1, f[:, None])[:, 0].long()
+        mt = t.missing_type[n]
+        missing = ((mt == MT_ZERO) & (b == t.default_bin[n])) | \
+                  ((mt == MT_NAN) & (b == t.num_bin[n] - 1))
+        go_num = torch.where(missing, t.default_left[n],
+                             b <= t.threshold_bin[n])
+        go_cat = cat_go_left(b, t.cat_bitset[n], nbits)
+        go = torch.where(t.is_categorical[n], go_cat, go_num)
+        nxt = torch.where(go, t.left_child[n], t.right_child[n]).long()
+        node = torch.where(node < 0, node, nxt)
+    return ~node
+
+
+def predict_tree_binned(x_binned: torch.Tensor, t: TreeArrays,
+                        max_depth: int) -> torch.Tensor:
+    """One tree's leaf values [N] f32 over the binned matrix [N, F] (the
+    validation-set scoring of training, gbdt.py's per-tree eval update).
+    ``t`` holds tensors on the matrix's device, built with
+    ``use_inner_feature=True`` and the dataset's ``feature_meta``;
+    ``max_depth`` is at least the tree's depth."""
+    return t.leaf_value[_traverse_leaf_id_binned(x_binned, t, max_depth)]
 
 
 def _tree(forest: TreeArrays, i: int) -> TreeArrays:

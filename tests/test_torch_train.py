@@ -1,0 +1,276 @@
+"""Training on the CPU: the port's ``lgt.train`` held to the JAX package's
+fused learner (``tpu_fused_learner=1``) on the same numpy inputs.
+
+The JAX side runs its one-hot histograms in full f32
+(``tpu_hist_impl=onehot``, ``tpu_hist_precision=f32``), so a near-tie does
+not flip a split through the bf16 split precision alone, and once on its
+Pallas kernel in interpret mode (at 400 rows: interpret mode is ~100x
+slow).
+
+Predictions are compared on the TRAINING rows at rtol 1e-4 / atol 1e-5
+(``tests/test_fused.py:54``'s bar): the two sides sum histograms in
+different orders, and two thresholds separated only by bins that hold no
+training row of the leaf split the training rows identically with gains
+equal up to the last bits — either may win. Such a pair routes no training
+row differently, but may route a validation row differently, which is why
+validation predictions are not held to this bar.
+"""
+import numpy as np
+import pytest
+import torch
+
+import lambdagap_tpu as lgb
+import lambdagap_tpu_torch as lgt
+from lambdagap_tpu_torch.convert import dataset_fields, dataset_from_numpy
+
+CPU = {"device_type": "cpu"}
+JAX_F32 = {"tpu_fused_learner": "1", "tpu_hist_impl": "onehot",
+           "tpu_hist_precision": "f32"}
+
+
+def _fused_data(n=1200, d=8, seed=11, cat=False):
+    """tests/test_fused.py's data."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d)
+    if cat:
+        X[:, 0] = rng.randint(0, 12, n)
+    y = (X[:, 1] + np.sin(X[:, 2] * 2)
+         + (X[:, 0] % 3 if cat else X[:, 3]) * 0.5 + 0.1 * rng.randn(n))
+    return X, y
+
+
+@pytest.mark.parametrize("extra", [
+    {},
+    {"max_depth": 3},
+    {"_cat": True},
+    {"lambda_l1": 0.5, "lambda_l2": 2.0},
+    {"feature_fraction": 0.6, "feature_fraction_seed": 3,
+     "min_data_in_leaf": 5, "num_leaves": 31},
+])
+def test_regression_matches_jax_fused(extra):
+    """tests/test_fused.py's shapes and options (its bagging case is a
+    refusal here, below)."""
+    extra = dict(extra)
+    cat = extra.pop("_cat", False)
+    X, y = _fused_data(cat=cat)
+    params = {"objective": "regression", "num_leaves": 15,
+              "min_data_in_leaf": 20, "learning_rate": 0.1, "verbose": -1,
+              **extra}
+    cf = [0] if cat else "auto"
+    bj = lgb.train({**params, **JAX_F32},
+                   lgb.Dataset(X, label=y, categorical_feature=cf), 8)
+    bt = lgt.train({**params, **CPU},
+                   lgt.Dataset(X, label=y, categorical_feature=cf), 8)
+    np.testing.assert_allclose(bt.predict(X), bj.predict(X), rtol=1e-4,
+                               atol=1e-5)
+    tj, tt = bj._booster.host_models, bt._booster.host_models
+    assert [t.num_leaves for t in tt] == [t.num_leaves for t in tj]
+    if extra.get("max_depth"):
+        assert max(t.max_depth for t in tt) <= extra["max_depth"]
+    if cat:
+        assert any(any(t.is_categorical) for t in tt)
+
+
+def _binary_data():
+    rng = np.random.RandomState(0)
+    X = rng.randn(5000, 20)
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + 0.8 * rng.randn(5000) > 0.3
+         ).astype(np.float64)
+    return X[:4000], y[:4000], X[4000:], y[4000:]
+
+
+def _train_binary(mod, params, Xt, yt, Xv, yv, device):
+    ev = {}
+    tr = mod.Dataset(Xt, label=yt)
+    extra = CPU if device else JAX_F32
+    bst = mod.train({**params, **extra}, tr, 60,
+                    valid_sets=[mod.Dataset(Xv, label=yv, reference=tr)],
+                    callbacks=[mod.early_stopping(5, verbose=False),
+                               mod.record_evaluation(ev)])
+    return bst, ev["valid_0"]
+
+
+def test_binary_example_early_stopping_matches_jax():
+    """The binary example's flow with a validation set and early stopping:
+    the same best_iteration and the same evaluation history. The history is
+    held at rtol 1e-6: its values are float64 metrics of f32 scores that
+    differ in the last bits (histogram summation order, and torch's exp
+    against XLA's)."""
+    Xt, yt, Xv, yv = _binary_data()
+    params = {"objective": "binary", "metric": ["auc", "binary_logloss"],
+              "num_leaves": 15, "learning_rate": 0.3, "verbose": -1,
+              "boost_from_average": False}
+    bj, hj = _train_binary(lgb, params, Xt, yt, Xv, yv, None)
+    bt, ht = _train_binary(lgt, params, Xt, yt, Xv, yv, "cpu")
+    assert bt.best_iteration == bj.best_iteration > 0
+    assert bt.best_iteration < 60           # early stopping fired
+    for m in ("auc", "binary_logloss"):
+        assert len(ht[m]) == len(hj[m])
+        np.testing.assert_allclose(ht[m], hj[m], rtol=1e-6)
+    np.testing.assert_allclose(bt.predict(Xt), bj.predict(Xt), rtol=1e-4,
+                               atol=1e-5)
+    assert bt.best_score["valid_0"] == pytest.approx(
+        bj.best_score["valid_0"], rel=1e-6)
+
+
+def test_boost_from_average_counted_once_on_validation_scores():
+    """With boost_from_average the init score enters the validation scores
+    once. A validation set holding the training rows therefore scores
+    exactly like the training set — the port's validation history equals
+    the JAX package's TRAINING history (whose fused fast path adds the init
+    score to its own validation scores a second time; ROADMAP.md Queue 3)."""
+    Xt, yt, _, _ = _binary_data()
+    Xt, yt = Xt[:2000], yt[:2000]
+    params = {"objective": "binary", "metric": ["binary_logloss"],
+              "num_leaves": 7, "learning_rate": 0.3, "verbose": -1}
+    ej, et = {}, {}
+    trj = lgb.Dataset(Xt, label=yt)
+    lgb.train({**params, **JAX_F32}, trj, 6,
+              valid_sets=[trj, lgb.Dataset(Xt, label=yt, reference=trj)],
+              valid_names=["training", "copy"],
+              callbacks=[lgb.record_evaluation(ej)])
+    trt = lgt.Dataset(Xt, label=yt)
+    lgt.train({**params, **CPU}, trt, 6,
+              valid_sets=[lgt.Dataset(Xt, label=yt, reference=trt)],
+              callbacks=[lgt.record_evaluation(et)])
+    np.testing.assert_allclose(et["valid_0"]["binary_logloss"],
+                               ej["training"]["binary_logloss"], rtol=1e-6)
+    # the reference's own copy of the training rows scores worse: the
+    # init score counted twice
+    assert all(c > t * 1.001 for c, t in zip(
+        ej["copy"]["binary_logloss"], ej["training"]["binary_logloss"]))
+
+
+def test_matches_jax_on_its_pallas_kernel():
+    """One small run against the JAX package on its Pallas histogram
+    kernel (interpret mode on the CPU)."""
+    rng = np.random.RandomState(4)
+    X = rng.randn(400, 5)
+    X[::9, 1] = np.nan
+    y = (X[:, 0] - np.nan_to_num(X[:, 1]) > 0.2).astype(np.float64)
+    params = {"objective": "binary", "num_leaves": 7, "min_data_in_leaf": 10,
+              "verbose": -1}
+    bj = lgb.train({**params, "tpu_fused_learner": "1",
+                    "tpu_hist_impl": "pallas"}, lgb.Dataset(X, label=y), 3)
+    bt = lgt.train({**params, **CPU}, lgt.Dataset(X, label=y), 3)
+    np.testing.assert_allclose(bt.predict(X), bj.predict(X), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_identical_binned_matrix_through_convert():
+    """The JAX package's binned dataset carried across as numpy: the port's
+    learner on the identical matrix gives the JAX learner's model."""
+    X, y = _fused_data(seed=12)
+    X[::5, 4] = 0.0
+    params = {"objective": "regression", "num_leaves": 15, "verbose": -1,
+              "zero_as_missing": True}
+    dj = lgb.Dataset(X, label=y)
+    bj = lgb.train({**params, **JAX_F32}, dj, 6)
+    ds = dataset_from_numpy(dataset_fields(dj.construct()))
+    bt = lgt.train({**params, **CPU}, lgt.Dataset(ds), 6)
+    np.testing.assert_allclose(bt.predict(X), bj.predict(X), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_train_save_reload_serve(tmp_path):
+    """Train -> save -> Booster(model_str=) -> served raw scores equal to
+    the trained booster's own predictions, and the reload's trees are
+    byte-stable."""
+    X, y = _fused_data(seed=13, cat=True)
+    X[::11, 5] = np.nan
+    params = {"objective": "binary", "num_leaves": 15, "verbose": -1,
+              **CPU}
+    bst = lgt.train(params, lgt.Dataset(X, label=(y > 0.5).astype(float),
+                                        categorical_feature=[0]), 6)
+    raw = bst.predict(X, raw_score=True)
+    path = tmp_path / "model.txt"
+    bst.save_model(str(path))
+    text = path.read_text()
+    re = lgt.Booster(model_str=text, params=CPU)
+    # the trees region round-trips byte for byte (the parameters section
+    # is written from each booster's own config)
+    trees = text.split("end of trees")[0]
+    assert re.model_to_string().split("end of trees")[0] == trees
+    np.testing.assert_array_equal(re.predict(X, raw_score=True), raw)
+    with re.as_server(raw_score=True) as server:
+        np.testing.assert_array_equal(server.predict(X), raw)
+    scan = lgt.Booster(model_file=str(path),
+                       params={**CPU, "predict_engine": "scan"})
+    np.testing.assert_array_equal(scan.predict(X, raw_score=True), raw)
+    # the JAX package reads the port's model text to the same raw scores
+    jb = lgb.Booster(model_str=text, params={"tpu_fast_predict_rows": 0,
+                                             "predict_engine": "scan"})
+    np.testing.assert_allclose(jb.predict(X, raw_score=True), raw,
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_training_scores_equal_model_predictions():
+    """The device scores training accumulated (f32 leaf * shrinkage per
+    tree) equal the saved model's raw predictions on the training rows —
+    _finalize_tree's f32 rounding keeps them bit-for-bit."""
+    X, y = _fused_data(seed=14)
+    bst = lgt.train({"objective": "regression", "num_leaves": 15,
+                     "verbose": -1, **CPU}, lgt.Dataset(X, label=y), 7)
+    scores = bst._booster.scores[0].numpy()
+    re = lgt.Booster(model_str=bst.model_to_string(),
+                     params={**CPU, "predict_engine": "scan"})
+    np.testing.assert_array_equal(re.predict(X.astype(np.float32),
+                                             raw_score=True), scores)
+
+
+@pytest.mark.parametrize("params", [
+    {"use_quantized_grad": True},
+    {"bagging_fraction": 0.7, "bagging_freq": 1},
+    {"data_sample_strategy": "goss"},
+    {"extra_trees": True},
+    {"feature_fraction_bynode": 0.5},
+    {"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0]},
+    {"interaction_constraints": [[0, 1], [2, 3]]},
+    {"cegb_tradeoff": 1.0, "cegb_penalty_split": 0.1},
+    {"linear_tree": True},
+    {"data_residency": "stream"},
+    {"tree_learner": "data"},
+    {"tpu_fused_learner": "0"},
+    {"tree_layout": "sorted"},
+    {"boosting": "dart"},
+    {"objective": "multiclass", "num_class": 3},
+    {"objective": "regression_l1"},
+    {"feature_contri": [1.0] * 8},
+    {"snapshot_freq": 1},
+])
+def test_unported_options_refuse_loudly(params, tmp_path):
+    X, y = _fused_data(seed=15)
+    if params.get("objective") == "multiclass":
+        y = np.abs(y).astype(int) % 3
+    with pytest.raises(NotImplementedError, match="not ported"):
+        lgt.train({"verbose": -1, **CPU, **params},
+                  lgt.Dataset(X, label=y), 2)
+
+
+def test_forced_splits_refuse_loudly(tmp_path):
+    path = tmp_path / "forced.json"
+    path.write_text('{"feature": 0, "threshold": 0.0}')
+    X, y = _fused_data(seed=16)
+    with pytest.raises(NotImplementedError, match="forcedsplits_filename"):
+        lgt.train({"verbose": -1, "forcedsplits_filename": str(path), **CPU},
+                  lgt.Dataset(X, label=y), 2)
+
+
+def test_a_formed_bundle_refuses_loudly():
+    rng = np.random.RandomState(17)
+    which = rng.randint(0, 6, 2000)
+    X = np.zeros((2000, 6))
+    X[np.arange(2000), which] = rng.rand(2000) + 0.5
+    y = X.sum(1) + rng.randn(2000) * 0.1
+    with pytest.raises(NotImplementedError, match="enable_bundle=false"):
+        lgt.train({"verbose": -1, **CPU}, lgt.Dataset(X, label=y), 2)
+    lgt.train({"verbose": -1, "enable_bundle": False, **CPU},
+              lgt.Dataset(X, label=y), 2)
+
+
+def test_training_default_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default trains on it")
+    X, y = _fused_data(seed=18)
+    with pytest.raises(RuntimeError, match="device_type=cpu"):
+        lgt.train({"verbose": -1}, lgt.Dataset(X, label=y), 1)
