@@ -8,9 +8,9 @@ Run from the root of a checkout. Phases, each fatal on failure:
 
 1. the card (name and power limit, as nvidia-smi reports them) and the
    torch / CUDA / nvcc versions;
-2. build every kernel of both paths from ``lambdagap_tpu_torch/csrc/``
-   (traverse.cu and hist.cu: one nvcc per source, all started together)
-   into the git-ignored build dir;
+2. build every kernel of every path from ``lambdagap_tpu_torch/csrc/``
+   (traverse.cu, hist.cu, hist_q.cu: one nvcc per source, all started
+   together) into the git-ignored build dir;
 3. build a HIGGS-width forest from ``--seed`` (binary, 28 features, 500
    trees of 255 leaves, thresholds on a 254-boundary grid per feature,
    NaN- and zero-missing nodes) and round-trip it through the port's text
@@ -25,24 +25,40 @@ Run from the root of a checkout. Phases, each fatal on failure:
    on the card answers requests of 1..4096 rows from 4 threads, each
    answer ``array_equal`` to the port's scan oracle on the card; the launch
    counts are zeroed just before and read just after;
-T2. the histogram kernel against its plain version on the card at four
-   shapes (the HIGGS root, a leaf behind a permutation slice with
+T2. the f32 histogram kernel (K1) against its plain version on the card at
+   five shapes (the HIGGS root, a leaf behind a permutation slice with
    out-of-range junk past ``count``, u16 bins with a ragged count, count
-   0): the count channel ``torch.equal``, grad/hess within rtol 2e-3 /
-   atol 1e-4, a rerun ``torch.equal`` to the first run; then the kernel's,
-   the plain version's and ``index_add_``'s times and the bound;
+   0, the root with a bagging mask): the count channel ``torch.equal``,
+   grad/hess within rtol 2e-3 / atol 1e-4, a rerun ``torch.equal``; then
+   the kernel's, the plain version's and ``index_add_``'s times and the
+   bound;
+T2q. the int8 histogram kernel (K2) against its plain version at four
+   shapes (the masked HIGGS root, the leaf with junk past ``count``, u16
+   bins with a ragged count, count 0): ``torch.equal``, reruns
+   ``torch.equal``; the same four times;
 T3. the training path: ``lgt.train`` on the card, binary, HIGGS width (28
    features, ``num_leaves=255``, ``max_bin=255``), ``--rows`` seeded
    synthetic rows (10,500,000, HIGGS's count, by default) plus a 500,000-row
    validation set, 10 rounds with ``early_stopping(5)``; the launch counts
-   are zeroed just before and read just after, and the histogram launches
-   must equal the leaf histograms the learner built;
+   are zeroed just before and read just after, and the K1 launches must
+   equal the leaf histograms the learner built;
+T6. T3's configuration and Datasets with ``use_quantized_grad`` (4
+   levels, stochastic rounding, ``quant_train_renew_leaf``) and bagging
+   0.8/1: the K2 launches equal the leaf histograms built, no K1 launch,
+   the validation logloss falls; one tree's phases, the threefry draw's
+   time, peak memory; the model served back against the scan oracle;
 T4. the example shape (16,000 x 20, 63 leaves, 30 rounds, validation set,
-   early stopping) trained on the card and on the CPU: predictions on the
-   training rows within rtol 1e-4 / atol 1e-5, ``best_iteration`` equal;
+   early stopping) trained on the card and on the CPU, f32, quantized (16
+   levels, renew), GOSS and bagging 0.7/1: predictions on the training
+   rows within rtol 1e-4 / atol 1e-5, ``best_iteration`` equal; the
+   quantized validation AUC within 0.02 of the f32 one;
 T5. the T3 model through ``model_to_string`` -> ``Booster(model_str=)`` ->
    ``as_server(raw_score=True)``: a burst, each answer ``array_equal`` to
    the scan oracle on the card;
+T7. EFB: 200,000 rows of 8 dense features and 4 groups of 6 mutually
+   exclusive sparse columns (bundles form, fewer columns than features),
+   f32 and quantized, on the card and on the CPU at T4's bar, K1 and K2
+   launched;
 6. the kernels line (one JSON object) and, last, the device line.
 
 Needs one card; exits non-zero, printing no result, when there is none.
@@ -69,6 +85,7 @@ SIZES = (1, 7, 64, 512, 601, 4096)   # request rows, cycled
 REQUESTS = 240
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
+H100_F64_OPS_PER_S = 34e12      # f64 outside the tensor cores (data sheet)
 HIGGS_ROWS = 10_500_000         # HIGGS's training rows (bench.py)
 VALID_ROWS = 500_000
 MAX_BIN = 255
@@ -206,24 +223,31 @@ def higgs_like(seed: int, n: int, f: int = F):
 # ---------------------------------------------------------------------------
 # T2: the histogram kernel against its plain version
 # ---------------------------------------------------------------------------
-def hist_bound(bins, rows, count: int, num_bins: int):
-    """Least time for hist_rows: each live row's bins, grad and hess (and
-    its row id when there is a row list) read once, the [F, B, 3] result
-    written once; three f32 adds per (row, feature)."""
+def hist_bound(bins, rows, count: int, num_bins: int, mask=None,
+               chan_bytes: int = 8, ops_per_s: float = H100_F64_OPS_PER_S):
+    """Least time for hist_rows (chan_bytes 8: f32 grad and hess, summed
+    in f64) or hist_rows_q (2: int8 levels, integer adds at the f32 rate):
+    each live row's bins and channels (and its row id when there is a row
+    list, its mask byte when there is a mask) read once, the [F, B, 3]
+    result written once; three adds per (row, feature) at the card's rate
+    for their type outside the tensor cores."""
     F_ = bins.shape[1]
-    nbytes = (count * (F_ * bins.element_size() + 8
-                       + (4 if rows is not None else 0))
+    nbytes = (count * (F_ * bins.element_size() + chan_bytes
+                       + (4 if rows is not None else 0)
+                       + (1 if mask is not None else 0))
               + F_ * num_bins * 3 * 4)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = count * F_ * 3 / H100_F32_OPS_PER_S * 1e3
+    t_ops = count * F_ * 3 / ops_per_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", nbytes)
 
 
-def index_add_call(bins, grad, hess, rows, count: int, num_bins: int):
+def index_add_call(bins, grad, hess, rows, count: int, num_bins: int,
+                   mask=None):
     """One ``index_add_`` that computes the same histogram from the
-    gathered [count * F, 3] channels (timed only; the port never calls
-    it)."""
+    gathered [count * F, 3] channels — f32 for K1, int64 for K2's int8
+    levels; a masked-out row's channels are zero (timed only; the port
+    never calls it)."""
     import torch
     dev = bins.device
     r = (torch.arange(count, device=dev) if rows is None
@@ -231,9 +255,13 @@ def index_add_call(bins, grad, hess, rows, count: int, num_bins: int):
     b = (bins.int() if bins.dtype == torch.uint16 else bins)[r].long()
     F_ = bins.shape[1]
     idx = (b + torch.arange(F_, device=dev) * num_bins).reshape(-1)
-    ch = torch.stack([grad[r], hess[r], torch.ones_like(grad[r])], 1)
+    dtype = torch.float32 if grad.dtype == torch.float32 else torch.int64
+    live = (torch.ones(count, dtype=dtype, device=dev) if mask is None
+            else mask[r].to(dtype))
+    ch = torch.stack([grad[r].to(dtype) * live, hess[r].to(dtype) * live,
+                      live], 1)
     vals = ch[:, None, :].expand(count, F_, 3).reshape(-1, 3).contiguous()
-    out = torch.zeros((F_ * num_bins, 3), dtype=torch.float32, device=dev)
+    out = torch.zeros((F_ * num_bins, 3), dtype=dtype, device=dev)
     return lambda: out.zero_().index_add_(0, idx, vals)
 
 
@@ -246,6 +274,7 @@ def hist_phase(dev, seed: int, smi: str) -> dict:
                          dtype=torch.uint8)
     grad = torch.randn(N, generator=gen, device=dev)
     hess = torch.rand(N, generator=gen, device=dev) * 0.25
+    bag = torch.rand(N, generator=gen, device=dev) < 0.8
     leaf = N // 255
     # a leaf's slice of a permutation, then ids no row has: the kernel
     # must never read through a position past count
@@ -264,16 +293,18 @@ def hist_phase(dev, seed: int, smi: str) -> dict:
 
     cases = [
         ("a: HIGGS root, 28 u8 features, all rows",
-         (bins, grad, hess, None, N, 256), N),
+         (bins, grad, hess, None, N, 256, None), N),
         ("b: a leaf, N/255 rows via a permutation slice, junk past count",
-         (bins, grad, hess, leaf_rows, one(leaf), 256), leaf),
+         (bins, grad, hess, leaf_rows, one(leaf), 256, None), leaf),
         ("c: u16 bins, 1024 bins x 8 features, ragged count",
-         (bins16, g16, h16, rows16, 77_777, 1024), 77_777),
-        ("d: count = 0", (bins, grad, hess, leaf_rows, one(0), 256), 0),
+         (bins16, g16, h16, rows16, 77_777, 1024, None), 77_777),
+        ("d: count = 0", (bins, grad, hess, leaf_rows, one(0), 256, None), 0),
+        ("e: HIGGS root with a bagging mask (fraction 0.8)",
+         (bins, grad, hess, None, N, 256, bag), int(bag.sum())),
     ]
     max_err = 0.0
     timed = {}
-    for name, args, count in cases:
+    for name, args, live in cases:
         got = hc.hist_rows(*args)
         again = hc.hist_rows(*args)
         ref = hc._hist_reference(*args)
@@ -283,31 +314,119 @@ def hist_phase(dev, seed: int, smi: str) -> dict:
               f"K1 count channel != plain ({name})")
         check(torch.allclose(got[..., :2], ref[..., :2], rtol=2e-3,
                              atol=1e-4), f"K1 grad/hess != plain ({name})")
-        check(int(got[..., 2].double().sum()) == count * args[0].shape[1],
+        check(int(got[..., 2].double().sum()) == live * args[0].shape[1],
               f"K1 counted rows wrongly ({name})")
         err = float((got - ref).abs().max())
         max_err = max(max_err, err)
-        print(f"K1 == plain [{name}]: counts equal, max |err| {err:.3g}, "
-              "rerun bit-identical")
-        if name[0] in "ab":
+        ndiff = int((got != ref).sum())
+        print(f"K1 == plain [{name}]: counts equal, max |err| {err:.3g} "
+              f"({ndiff} of {got.numel()} entries not bit-equal), rerun "
+              "bit-identical")
+        if name[0] in "abe":
+            rows, count, mask = args[3], (N if name[0] != "b" else leaf), \
+                args[6]
             k_ms = cuda_ms(lambda: hc.hist_rows(*args))
             p_ms = cuda_ms(lambda: hc._hist_reference(*args), reps=3, warm=1)
-            lib = index_add_call(args[0], args[1], args[2], args[3], count,
-                                 args[5])
+            lib = index_add_call(args[0], args[1], args[2], rows, count,
+                                 args[5], mask)
             l_ms = cuda_ms(lib, reps=5, warm=1)
             del lib
-            bound, by, nbytes = hist_bound(args[0], args[3], count, args[5])
+            bound, by, nbytes = hist_bound(args[0], rows, count, args[5],
+                                           mask)
             timed[name[0]] = (k_ms, p_ms, l_ms, bound, by)
             print(f"K1 [{name}]: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
                   f"index_add_ {l_ms:.3f} ms, bound {bound:.4f} ms ({by}: "
                   f"{nbytes / 1e6:.1f} MB) [{smi}]")
     print(f"K1 launches in the comparisons: {hc.HIST_LAUNCHES.launches} "
           "(not counted below)")
-    del bins, grad, hess, leaf_rows
+    del bins, grad, hess, leaf_rows, bag
     torch.cuda.empty_cache()
     k_ms, p_ms, l_ms, bound, by = timed["a"]
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
             "bound_ms": bound, "bound_by": by, "max_abs_err": max_err,
+            "leaf_ms": timed["b"][0], "masked_ms": timed["e"][0]}
+
+
+def hist_q_phase(dev, seed: int, smi: str) -> dict:
+    """T2q: K2 against its plain version at four shapes, all torch.equal
+    (integer sums), reruns torch.equal; times at the root and a leaf."""
+    import torch
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    N = HIGGS_ROWS
+    bins = torch.randint(0, MAX_BIN, (N, F), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    # num_grad_quant_bins=4 levels: g in [-2, 2], h in [0, 4]
+    gq = torch.randint(-2, 3, (N,), generator=gen, device=dev,
+                       dtype=torch.int8)
+    hq = torch.randint(0, 5, (N,), generator=gen, device=dev,
+                       dtype=torch.int8)
+    bag = torch.rand(N, generator=gen, device=dev) < 0.8
+    leaf = N // 255
+    leaf_rows = torch.randperm(N, generator=gen, device=dev)[:2 * leaf].int()
+    leaf_rows[leaf:] = 2 ** 31 - 1
+    n16 = 100_003
+    bins16 = torch.randint(0, 1024, (n16, 8), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.uint16)
+    gq16 = torch.randint(-63, 64, (n16,), generator=gen, device=dev,
+                         dtype=torch.int8)
+    hq16 = torch.randint(0, 127, (n16,), generator=gen, device=dev,
+                         dtype=torch.int8)
+    bag16 = torch.rand(n16, generator=gen, device=dev) < 0.7
+    rows16 = torch.randperm(n16, generator=gen, device=dev)[:90_000].int()
+
+    def one(v: int):
+        return torch.tensor([v], dtype=torch.int32, device=dev)
+
+    cases = [
+        ("a: HIGGS root, 28 u8 features, bagging mask 0.8",
+         (bins, gq, hq, None, N, 256, bag), N),
+        ("b: a leaf, N/255 rows via a permutation slice, junk past count",
+         (bins, gq, hq, leaf_rows, one(leaf), 256, bag), leaf),
+        ("c: u16 bins, 1024 bins x 8 features, ragged count, mask 0.7",
+         (bins16, gq16, hq16, rows16, 77_777, 1024, bag16), 77_777),
+        ("d: count = 0", (bins, gq, hq, leaf_rows, one(0), 256, bag), 0),
+    ]
+    timed = {}
+    for name, args, count in cases:
+        got = hc.hist_rows_q(*args)
+        again = hc.hist_rows_q(*args)
+        ref = hc._hist_q_reference(*args)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and torch.equal(got, ref),
+              f"K2 != plain ({name}): "
+              f"{int((got != ref).sum())} entries differ")
+        check(torch.equal(got, again), f"K2 rerun not bit-identical ({name})")
+        rows, mask = args[3], args[6]
+        r = (torch.arange(count, device=dev) if rows is None
+             else rows[:count].long())
+        live = int(mask[r].sum())
+        check(int(got[..., 2].long().sum()) == live * args[0].shape[1],
+              f"K2 counted rows wrongly ({name})")
+        print(f"K2 == plain [{name}]: torch.equal, rerun bit-identical, "
+              f"{live} in-bag rows")
+        if name[0] in "ab":
+            k_ms = cuda_ms(lambda: hc.hist_rows_q(*args))
+            p_ms = cuda_ms(lambda: hc._hist_q_reference(*args), reps=3,
+                           warm=1)
+            lib = index_add_call(args[0], args[1], args[2], rows, count,
+                                 args[5], mask)
+            l_ms = cuda_ms(lib, reps=5, warm=1)
+            del lib
+            bound, by, nbytes = hist_bound(args[0], rows, count, args[5],
+                                           mask, chan_bytes=2,
+                                           ops_per_s=H100_F32_OPS_PER_S)
+            timed[name[0]] = (k_ms, p_ms, l_ms, bound, by)
+            print(f"K2 [{name}]: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+                  f"index_add_ (int64) {l_ms:.3f} ms, bound {bound:.4f} ms "
+                  f"({by}: {nbytes / 1e6:.1f} MB) [{smi}]")
+    print(f"K2 launches in the comparisons: {hc.HIST_Q_LAUNCHES.launches} "
+          "(not counted below)")
+    del bins, gq, hq, leaf_rows, bag
+    torch.cuda.empty_cache()
+    k_ms, p_ms, l_ms, bound, by = timed["a"]
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0,
             "leaf_ms": timed["b"][0]}
 
 
@@ -318,7 +437,8 @@ def train_phase(args, smi: str):
     import torch
     import lambdagap_tpu_torch as lgt
     from lambdagap_tpu_torch.infer import TRAVERSE_LAUNCHES
-    from lambdagap_tpu_torch.ops.hist_cuda import HIST_LAUNCHES
+    from lambdagap_tpu_torch.ops.hist_cuda import (HIST_LAUNCHES,
+                                                   HIST_Q_LAUNCHES)
     t0 = time.perf_counter()
     Xtr, ytr = higgs_like(args.seed + 100, args.rows)
     Xva, yva = higgs_like(args.seed + 101, VALID_ROWS)
@@ -346,6 +466,7 @@ def train_phase(args, smi: str):
     ev = {}
     torch.cuda.reset_peak_memory_stats()
     HIST_LAUNCHES.reset()
+    HIST_Q_LAUNCHES.reset()
     TRAVERSE_LAUNCHES.reset()
     t_train = time.perf_counter()
     bst = lgt.train(params, tr, ROUNDS, valid_sets=[va],
@@ -359,6 +480,7 @@ def train_phase(args, smi: str):
           and gb.scores.device.type == "cuda", "learner tensors not on cuda")
     built = sum(r[1] for r in rounds)
     check(launches > 0, "the training path never launched the K1 kernel")
+    check(HIST_Q_LAUNCHES.launches == 0, "the f32 path launched K2")
     check(launches == built, f"K1 launches {launches} != leaf histograms "
           f"built {built}")
     ll = ev["valid_0"]["binary_logloss"]
@@ -395,40 +517,193 @@ def train_phase(args, smi: str):
           f"split scan {ph.get('split_scan', 0):.1f} ms, partition "
           f"{ph.get('partition', 0):.1f} ms; {lr.host_syncs} host syncs "
           f"[{smi}]")
-    return bst, Xva, launches
+    return {"bst": bst, "Xva": Xva, "launches": launches, "train": tr,
+            "valid": va, "params": params, "auc": auc[-1]}
+
+
+def quant_phase(t3: dict, smi: str):
+    """T6: T3's configuration with quantized gradients (K2) and bagging, on
+    T3's constructed Datasets; the launch counts zeroed just before the
+    run and read just after."""
+    import torch
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    from lambdagap_tpu_torch.utils import prng
+    params = {**t3["params"], "use_quantized_grad": True,
+              "num_grad_quant_bins": 4, "stochastic_rounding": True,
+              "quant_train_renew_leaf": True, "bagging_fraction": 0.8,
+              "bagging_freq": 1}
+    rounds = []
+
+    def per_round(env) -> None:
+        lr = env.model._booster.learner
+        rounds.append((time.perf_counter(), lr.hist_builds, lr.host_syncs))
+
+    ev = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hc.HIST_LAUNCHES.reset()
+    hc.HIST_Q_LAUNCHES.reset()
+    t_train = time.perf_counter()
+    bst = lgt.train(params, t3["train"], ROUNDS, valid_sets=[t3["valid"]],
+                    callbacks=[per_round, lgt.early_stopping(5, verbose=False),
+                               lgt.record_evaluation(ev)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t_train
+    k2, k1 = hc.HIST_Q_LAUNCHES.launches, hc.HIST_LAUNCHES.launches
+    gb = bst._booster
+    built = sum(r[1] for r in rounds)
+    check(gb.learner.quant and gb.scores.device.type == "cuda",
+          "T6 did not train quantized on the card")
+    check(k2 > 0 and k2 == built, f"K2 launches {k2} != leaf histograms "
+          f"built {built}")
+    check(k1 == 0, f"the quantized path launched K1 {k1} times")
+    ll = ev["valid_0"]["binary_logloss"]
+    auc = ev["valid_0"]["auc"]
+    check(ll[-1] < ll[0], f"T6 valid logloss did not fall: {ll[0]} -> "
+          f"{ll[-1]}")
+    check(np.isfinite(auc[-1]) and auc[-1] > 0.5, f"T6 valid AUC {auc[-1]}")
+    walls = np.diff([t_train] + [r[0] for r in rounds]) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"T6 train (quantized, 4 levels, stochastic rounding, renew, "
+          f"bagging 0.8/1): {len(rounds)} rounds in {train_s:.2f} s; wall "
+          f"per round (ms, incl. eval) {', '.join(f'{w:.0f}' for w in walls)}"
+          f"; median {statistics.median(walls):.1f} ms, median of rounds "
+          f"2.. {statistics.median(walls[1:]):.1f} ms [{smi}]")
+    print(f"T6 trees: leaf histograms {[r[1] for r in rounds]}, host syncs "
+          f"per tree {[r[2] for r in rounds]}; K2 launches {k2} == "
+          f"histograms built, K1 launches {k1}; valid logloss {ll[0]:.5f} -> "
+          f"{ll[-1]:.5f}, AUC {auc[0]:.5f} -> {auc[-1]:.5f} (T3 f32 "
+          f"{t3['auc']:.5f}, gap {auc[-1] - t3['auc']:+.5f}); peak device "
+          f"memory {peak / 1e9:.3f} GB [{smi}]")
+    # one more tree with CUDA events around its phases (after the counts
+    # were read; the main path's launches are above)
+    lr = gb.learner
+    lr.time_phases = True
+    grad, hess = gb.boosting()
+    grad, hess, mask = gb.sample_strategy.sample(gb.iter_, grad, hess)
+    t1 = time.perf_counter()
+    lr.train_device(grad[0], hess[0], mask)
+    torch.cuda.synchronize()
+    tree_ms = (time.perf_counter() - t1) * 1e3
+    lr.time_phases = False
+    ph = lr.phase_ms
+    key = prng.PRNGKey(7)
+    draw_ms = cuda_ms(lambda: prng.uniform(key, lr.num_data, grad.device),
+                      reps=10, warm=1)
+    print(f"T6 one tree: {tree_ms:.1f} ms host wall; device-stream time "
+          f"between CUDA events: quantize {ph.get('quantize', 0):.1f} ms, "
+          f"histogram {ph.get('histogram', 0):.1f} ms, split scan "
+          f"{ph.get('split_scan', 0):.1f} ms, partition "
+          f"{ph.get('partition', 0):.1f} ms, renew {ph.get('renew', 0):.1f} "
+          f"ms; {lr.host_syncs} host syncs; one threefry draw of "
+          f"{lr.num_data} uniforms {draw_ms:.2f} ms, two per tree "
+          f"(stochastic rounding) and one per round (bagging) [{smi}]")
+    return bst, k2
+
+
+def card_vs_cpu(params: dict, Xt, yt, Xv, yv, rounds: int):
+    """Train the same run on the card and on the CPU. Returns
+    {device: (training-row predictions, best_iteration, validation AUC,
+    seconds, booster)}."""
+    import lambdagap_tpu_torch as lgt
+    out = {}
+    for device in ("cuda", "cpu"):
+        tr = lgt.Dataset(Xt, label=yt)
+        va = lgt.Dataset(Xv, label=yv, reference=tr)
+        t0 = time.perf_counter()
+        bst = lgt.train({**params, "device_type": device}, tr, rounds,
+                        valid_sets=[va],
+                        callbacks=[lgt.early_stopping(5, verbose=False)])
+        out[device] = (bst.predict(Xt), bst.best_iteration,
+                       bst.best_score["valid_0"]["auc"],
+                       time.perf_counter() - t0, bst)
+    (pc, bc, _, _, _), (pp, bp, _, _, _) = out["cuda"], out["cpu"]
+    # training rows: the card's histograms equal the CPU's but for a rare
+    # last-bit rounding, and a tie that one breaks across bins holding no
+    # training row routes no training row differently
+    check(np.allclose(pc, pp, rtol=1e-4, atol=1e-5),
+          f"card != CPU predictions (max |diff| {np.abs(pc - pp).max()}; "
+          f"{params})")
+    check(bc == bp, f"best_iteration card {bc} != CPU {bp} ({params})")
+    return out
 
 
 def card_vs_cpu_phase() -> None:
-    import lambdagap_tpu_torch as lgt
+    """T4: the example shape, f32 / quantized / GOSS / bagging, each on the
+    card and on the CPU."""
     rng = np.random.RandomState(0)
     X = rng.randn(20_000, 20)
     y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + 0.3 * rng.randn(20_000) > 0
          ).astype(np.float64)
-    params = {"objective": "binary", "metric": ["auc", "binary_logloss"],
-              "num_leaves": 63, "learning_rate": 0.1, "verbose": -1}
-    out = {}
-    for device in ("cuda", "cpu"):
-        tr = lgt.Dataset(X[:16_000], label=y[:16_000])
-        va = lgt.Dataset(X[16_000:], label=y[16_000:], reference=tr)
-        t0 = time.perf_counter()
-        bst = lgt.train({**params, "device_type": device}, tr, 30,
-                        valid_sets=[va],
-                        callbacks=[lgt.early_stopping(5, verbose=False)])
-        out[device] = (bst.predict(X[:16_000]), bst.best_iteration,
-                       time.perf_counter() - t0)
-    (pc, bc, sc), (pp, bp, sp) = out["cuda"], out["cpu"]
-    # training rows: thresholds tied across bins that hold no training row
-    # may break either way between the kernel's f32 sums and the plain
-    # version's f64 sums; they route no training row differently
-    check(np.allclose(pc, pp, rtol=1e-4, atol=1e-5),
-          f"card != CPU predictions (max |diff| {np.abs(pc - pp).max()})")
-    check(bc == bp, f"best_iteration card {bc} != CPU {bp}")
-    print(f"T4 card == CPU: predictions max |diff| "
-          f"{np.abs(pc - pp).max():.3g}, best_iteration {bc}; train "
-          f"{sc:.1f} s on the card, {sp:.1f} s on the CPU")
+    base = {"objective": "binary", "metric": ["auc", "binary_logloss"],
+            "num_leaves": 63, "learning_rate": 0.1, "verbose": -1}
+    variants = [
+        ("f32", {}),
+        ("quantized (16 levels, renew)", {
+            "use_quantized_grad": True, "num_grad_quant_bins": 16,
+            "quant_train_renew_leaf": True}),
+        ("GOSS", {"data_sample_strategy": "goss"}),
+        ("bagging 0.7/1", {"bagging_fraction": 0.7, "bagging_freq": 1}),
+    ]
+    aucs = {}
+    for name, extra in variants:
+        out = card_vs_cpu({**base, **extra}, X[:16_000], y[:16_000],
+                          X[16_000:], y[16_000:], 30)
+        (pc, bc, ac, sc, _), (pp, _, _, sp, _) = out["cuda"], out["cpu"]
+        aucs[name] = ac
+        print(f"T4 card == CPU [{name}]: predictions max |diff| "
+              f"{np.abs(pc - pp).max():.3g}, best_iteration {bc}, valid AUC "
+              f"{ac:.5f}; train {sc:.1f} s on the card, {sp:.1f} s on the "
+              "CPU")
+    gap = aucs["quantized (16 levels, renew)"] - aucs["f32"]
+    check(abs(gap) <= 0.02, f"quantized AUC {gap:+.4f} from f32's (> 0.02)")
+    print(f"T4 quantized valid AUC within 0.02 of f32's ({gap:+.5f})")
 
 
-def serve_trained_phase(bst, Xva, dev, smi: str) -> None:
+def efb_phase(smi: str) -> None:
+    """T7: a bundle-forming table (8 dense features + 4 groups of 6
+    mutually exclusive sparse columns) trained f32 and quantized, on the
+    card and on the CPU."""
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    rng = np.random.RandomState(3)
+    n = 200_000
+    dense = rng.randn(n, 8)
+    groups = []
+    for _ in range(4):
+        which = rng.randint(0, 7, n)          # 6: none of the group
+        g = np.zeros((n, 6))
+        on = which < 6
+        g[np.nonzero(on)[0], which[on]] = rng.randint(1, 9, on.sum())
+        groups.append(g)
+    X = np.concatenate([dense] + groups, axis=1)
+    score = (dense[:, 0] + 0.5 * dense[:, 1] * dense[:, 2]
+             + sum(0.15 * g[:, k] * (k - 2.5) for g in groups
+                   for k in range(6)) + 0.5 * rng.randn(n))
+    y = (score > 0).astype(np.float64)
+    base = {"objective": "binary", "metric": ["auc"], "num_leaves": 15,
+            "learning_rate": 0.1, "verbose": -1}
+    for name, extra in (("f32", {}), ("quantized", {
+            "use_quantized_grad": True, "num_grad_quant_bins": 16})):
+        k1, k2 = hc.HIST_LAUNCHES.launches, hc.HIST_Q_LAUNCHES.launches
+        out = card_vs_cpu({**base, **extra}, X[:180_000], y[:180_000],
+                          X[180_000:], y[180_000:], 10)
+        lr = out["cuda"][4]._booster.learner
+        check(lr.bundle is not None, "T7: no EFB bundle formed")
+        C, F_ = lr.x_rows.shape[1], lr.num_features
+        check(C < F_, f"T7: {C} bundled columns for {F_} features")
+        used = (hc.HIST_LAUNCHES.launches - k1 if name == "f32"
+                else hc.HIST_Q_LAUNCHES.launches - k2)
+        check(used > 0, f"T7 [{name}] launched no histogram kernel")
+        (pc, bc, ac, sc, _), (pp, _, _, sp, _) = out["cuda"], out["cpu"]
+        print(f"T7 EFB [{name}]: {F_} features in {C} bundled columns; "
+              f"{'K1' if name == 'f32' else 'K2'} launches {used}; card == "
+              f"CPU predictions max |diff| {np.abs(pc - pp).max():.3g}, "
+              f"best_iteration {bc}, valid AUC {ac:.5f}; train {sc:.1f} s "
+              f"on the card, {sp:.1f} s on the CPU [{smi}]")
+
+
+def serve_trained_phase(bst, Xva, dev, smi: str, tag: str = "T5") -> None:
     import lambdagap_tpu_torch as lgt
     import torch
     from lambdagap_tpu_torch.ops.predict import (forest_to_arrays,
@@ -445,7 +720,7 @@ def serve_trained_phase(bst, Xva, dev, smi: str) -> None:
     oracle = predict_forest(torch.from_numpy(data).to(dev), forest,
                             [0] * len(gb.models), 1, depth)[0].cpu().numpy()
     check_answers(answers, plan, oracle)
-    print(f"T5 served the trained model ({len(gb.models)} trees, "
+    print(f"{tag} served the trained model ({len(gb.models)} trees, "
           f"{len(text) / 1e6:.2f} MB of text): {REQUESTS} requests in "
           f"{secs:.2f} s, each == scan oracle [{smi}]")
 
@@ -492,7 +767,8 @@ def main() -> int:
 
     # -- 2. build every kernel of the path, in parallel ---------------------
     t0 = time.perf_counter()
-    sources = [eng.TRAVERSE_SOURCE, hist_cuda.HIST_SOURCE]
+    sources = [eng.TRAVERSE_SOURCE, hist_cuda.HIST_SOURCE,
+               hist_cuda.HIST_Q_SOURCE]
     handles = [cuda_build.start_build(s) for s in sources]
     for s, h in zip(sources, handles):
         report = cuda_build.finish_build(h)
@@ -637,21 +913,31 @@ def main() -> int:
               f" rows/s ({secs:.2f} s); one-row closed loop p50 "
               f"{one[49]:.3f} ms p99 {one[98]:.3f} ms [{smi}]")
 
-    # -- T2. the histogram kernel against its plain version -----------------
+    # -- T2. the histogram kernels against their plain versions -------------
     t0 = time.perf_counter()
     k1 = hist_phase(dev, args.seed + 11, smi)
-    print(f"T2: {time.perf_counter() - t0:.1f} s")
+    k2 = hist_q_phase(dev, args.seed + 12, smi)
+    print(f"T2+T2q: {time.perf_counter() - t0:.1f} s")
 
-    # -- T3. the training path (counts zeroed just before, read just after) --
+    # -- T3. the f32 training path (counts zeroed just before, read after) ---
     t0 = time.perf_counter()
-    bst, Xva, k1_launches = train_phase(args, smi)
+    t3 = train_phase(args, smi)
     print(f"T3: {time.perf_counter() - t0:.1f} s")
 
-    # -- T4. card against CPU; T5. serve what was trained -------------------
+    # -- T6. the quantized, bagged path on T3's Datasets ---------------------
+    t0 = time.perf_counter()
+    bst6, k2_launches = quant_phase(t3, smi)
+    serve_trained_phase(bst6, t3["Xva"], dev, smi, tag="T6")
+    print(f"T6: {time.perf_counter() - t0:.1f} s")
+
+    # -- T4. card against CPU; T5. serve what T3 trained; T7. EFB ------------
     t0 = time.perf_counter()
     card_vs_cpu_phase()
-    serve_trained_phase(bst, Xva, dev, smi)
+    serve_trained_phase(t3["bst"], t3["Xva"], dev, smi)
     print(f"T4+T5: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    efb_phase(smi)
+    print(f"T7: {time.perf_counter() - t0:.1f} s")
 
     # -- 6. the kernels line, then the device line ---------------------------
     print(f"chip_smoke: all phases passed in "
@@ -666,10 +952,17 @@ def main() -> int:
         "name": "hist_rows", "route": "cuda",
         "source": "lambdagap_tpu_torch/csrc/hist.cu",
         "replaces": "lambdagap_tpu/ops/hist_pallas.py:79",
-        "launches": k1_launches, "max_abs_err": k1["max_abs_err"],
+        "launches": t3["launches"], "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"]}]}))
+        "library_ms": k1["library_ms"]}, {
+        "name": "hist_rows_q", "route": "cuda",
+        "source": "lambdagap_tpu_torch/csrc/hist_q.cu",
+        "replaces": "lambdagap_tpu/ops/hist_pallas.py:207",
+        "launches": k2_launches, "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,8 +8,10 @@ Bin finding samples rows with the same numpy ``RandomState`` draw as the
 JAX package, so mappers and the binned matrix are equal to its own. The
 matrix stays on the host here; the learner uploads it to its device once.
 
-Query groups, positions, streamed construction and the linear-tree raw
-matrix wait for later slices.
+The EFB bundled matrix is built on demand
+(:meth:`BinnedDataset.ensure_bundle`), as the JAX package builds it. Query
+groups, positions, streamed construction and the linear-tree raw matrix
+wait for later slices.
 """
 from __future__ import annotations
 
@@ -79,6 +81,8 @@ class BinnedDataset:
         self.metadata = Metadata()
         self.feature_names: List[str] = []
         self.max_bin = 255
+        self._bundle = None
+        self._bundle_built = False
 
     @classmethod
     def from_matrix(cls, data: np.ndarray, config: Config,
@@ -173,6 +177,24 @@ class BinnedDataset:
         self.binned = binned
 
     # ------------------------------------------------------------------
+    def ensure_bundle(self, config: Config):
+        """The EFB bundled matrix (``data.bundling.Bundle``), or None when
+        no multi-feature bundle forms or ``enable_bundle`` is off; built on
+        the first call and kept (``lambdagap_tpu/data/dataset.py:386``).
+        Only the fused learner reads it, so validation sets never pay the
+        grouping scan or the second matrix."""
+        if self._bundle_built:
+            return self._bundle
+        self._bundle_built = True
+        if config.enable_bundle and self.binned is not None:
+            from .bundling import build_bundle
+            self._bundle = build_bundle(
+                self.binned, np.asarray(self.feature_num_bins, np.int32),
+                np.asarray([self.mappers[j].default_bin
+                            for j in self.used_features], np.int32),
+                config.max_conflict_rate)
+        return self._bundle
+
     @property
     def num_features(self) -> int:
         return len(self.used_features)

@@ -23,11 +23,25 @@ port keeps the algorithm and the device residency, not the loop form:
   permutation.
 * The partition is a stable partition of the chosen leaf's slice in plain
   torch ops (left rows first, each side in slice order).
+* A bagging/GOSS in-bag mask rides into every histogram kernel launch:
+  out-of-bag rows stay in the partition and add nothing to any channel.
+* ``use_quantized_grad``: each tree splits its own key off
+  ``PRNGKey(data_random_seed + 7919)``, quantizes grad/hess to int8 levels
+  (``ops.hist_cuda.quantize_gradients``), and builds every leaf histogram
+  with the int8 kernel (K2, exact int32 sums). Each is scaled to f32 at
+  once, as the JAX program does in its exact-accumulation mode, so the
+  stored histograms, the subtraction and the scans are the f32 path's;
+  ``quant_train_renew_leaf`` refits the leaf values from the full-precision
+  sums of each leaf's slice of the final permutation.
+* EFB: when the dataset forms a bundle, both row layouts hold the bundled
+  columns; histograms are built and stored over them and un-bundled to
+  per-feature space before each scan, and the partition decodes the split
+  feature's bin from its bundle column.
 
-Options the JAX program has and this learner does not (quantized
-gradients, bagging/GOSS masks, extra_trees, by-node sampling, forced splits,
-monotone and interaction constraints, EFB bundles, the sorted layout,
-streaming) are refused where the booster is built (``models/gbdt.py``).
+Options the JAX program has and this learner does not (extra_trees,
+by-node sampling, forced splits, monotone and interaction constraints, the
+sorted layout, streaming) are refused where the booster is built
+(``models/gbdt.py``).
 """
 from __future__ import annotations
 
@@ -38,14 +52,17 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..data.bundling import build_bundle
+from ..data.bundling import unbundle_map
 from ..data.dataset import BinnedDataset
-from ..ops.hist_cuda import hist_rows
-from ..ops.histogram import subtract_histogram
-from ..ops.partition import decision_go_left, split_partition
+from ..ops.hist_cuda import (exact_accum_limit, hist_rows, hist_rows_q,
+                             quantize_gradients)
+from ..ops.histogram import subtract_histogram, unbundle_hist
+from ..ops.partition import decision_go_left, decode_bundled, \
+    split_partition
 from ..ops.split import CAT_WORDS, K_MIN_SCORE, best_split, \
     calculate_leaf_output
-from .learner import SerialTreeLearner
+from ..utils import prng
+from .learner import SerialTreeLearner, _next_pow2
 from .tree import Tree
 
 # leaf_f columns
@@ -114,39 +131,61 @@ class FusedTreeLearner(SerialTreeLearner):
     def __init__(self, dataset: BinnedDataset, config: Config,
                  device: torch.device) -> None:
         super().__init__(dataset, config, device)
-        if config.enable_bundle and build_bundle(
-                dataset.binned, self.meta_host["num_bins"],
-                self.meta_host["default_bins"],
-                config.max_conflict_rate) is not None:
-            raise NotImplementedError(
-                "EFB formed a feature bundle on this dataset; training over "
-                "bundled columns is not ported to lambdagap_tpu_torch yet "
-                "(ROADMAP.md, port slice 3) — pass enable_bundle=false")
-        self.x_rows = torch.from_numpy(
-            np.ascontiguousarray(dataset.binned)).to(device)
+        meta = self.meta_host
+        # EFB (the JAX learner, fused_learner.py:91-114): histograms and
+        # partitions run over the bundled matrix when the dataset forms one
+        bun = dataset.ensure_bundle(config)
+        self.bundle = bun
+        if bun is not None:
+            hx = bun.cols
+            self.Bb = _next_pow2(max(bun.num_bins))
+            src, kind = unbundle_map(bun, meta["num_bins"],
+                                     meta["default_bins"], self.B, self.Bb)
+            self.ub_src = torch.from_numpy(src.astype(np.int64)).to(device)
+            self.ub_kind = torch.from_numpy(kind).to(device)
+        else:
+            hx = dataset.binned
+            self.Bb = self.B
+        self.x_rows = torch.from_numpy(np.ascontiguousarray(hx)).to(device)
         # column-major copy for the partition's feature-column reads (the
         # JAX package's x_cols); u16 widens to int32 (torch indexes no u16
         # everywhere)
         cols = self.x_rows.T.contiguous()
         self.x_cols = cols if cols.dtype == torch.uint8 else cols.int()
+        # quantized gradients (the JAX learner, fused_learner.py:116-155):
+        # K2 sums int8 levels in int32, exact while rows x levels stays
+        # below int32 max
+        self.quant = bool(config.use_quantized_grad)
+        if self.quant:
+            qb = config.num_grad_quant_bins
+            if self.num_data * qb >= exact_accum_limit("pallas"):
+                raise NotImplementedError(
+                    f"num_grad_quant_bins={qb} at {self.num_data} rows can "
+                    "overflow the int32 level sums; the per-chunk float32 "
+                    "fallback is not ported to lambdagap_tpu_torch yet "
+                    "(ROADMAP.md) — lower num_grad_quant_bins")
+            self._qkey = prng.PRNGKey(config.data_random_seed + 7919)
         self.host_syncs = 0
         self.hist_builds = 0
         self.time_phases = False
         self.phase_ms: Dict[str, float] = {}
 
     def resident_bytes(self) -> int:
-        """Device bytes this learner keeps for the run (the binned matrix
-        in both layouts; per-tree state is counted by the caller)."""
+        """Device bytes this learner keeps for the run (the binned matrix,
+        bundled when EFB formed a bundle, in both layouts; per-tree state is
+        counted by the caller)."""
         return (self.x_rows.numel() * self.x_rows.element_size()
                 + self.x_cols.numel() * self.x_cols.element_size())
 
     # ------------------------------------------------------------------
-    def train_device(self, grad: torch.Tensor,
-                     hess: torch.Tensor) -> DeviceTree:
-        """Grow one tree on the device from f32 grad/hess [N]."""
+    def train_device(self, grad: torch.Tensor, hess: torch.Tensor,
+                     row_mask: Optional[torch.Tensor] = None) -> DeviceTree:
+        """Grow one tree on the device from f32 grad/hess [N] and an
+        optional bool in-bag mask [N] (None: every row)."""
         cfg = self.config
         dev = self.device
-        N, F, B, L = self.num_data, self.num_features, self.B, cfg.num_leaves
+        N, L = self.num_data, cfg.num_leaves
+        C, Bb = self.x_rows.shape[1], self.Bb
         NODES = max(L - 1, 1)
         p = self.params
         meta = self.meta_host
@@ -154,21 +193,49 @@ class FusedTreeLearner(SerialTreeLearner):
         fmask = self._feature_mask()
         grad = grad.contiguous()
         hess = hess.contiguous()
+        mask = None if row_mask is None else row_mask.contiguous()
         scan_args = (self.num_bins_arr, self.default_bins_arr,
                      self.missing_types_arr, self.is_categorical_arr, fmask,
                      p, self.has_categorical, cfg.max_depth)
 
+        if self.quant:
+            keys = prng.split(self._qkey)
+            self._qkey = keys[0]
+            with timer.phase("quantize"):
+                gq, hq, gs, hs = quantize_gradients(
+                    grad, hess, keys[1], cfg.num_grad_quant_bins,
+                    cfg.stochastic_rounding)
+                qscale = torch.stack([gs, hs, torch.ones_like(gs)])
+
+        def leaf_hist(rows, count) -> torch.Tensor:
+            """One leaf's f32 [C, Bb, 3] histogram from the kernel; under
+            quantization the exact int32 level sums scaled to gradient
+            units (the JAX learner, fused_learner.py:679-681)."""
+            if self.quant:
+                return hist_rows_q(self.x_rows, gq, hq, rows, count, Bb,
+                                   mask).float() * qscale
+            return hist_rows(self.x_rows, grad, hess, rows, count, Bb, mask)
+
+        def scan_hist(h, sums) -> torch.Tensor:
+            """Stored histograms [..., C, Bb, 3] -> per-feature [..., F, B,
+            3] for the scan; sums [..., 3] are each leaf's own totals."""
+            if self.bundle is None:
+                return h
+            return unbundle_hist(h, self.ub_src, self.ub_kind, sums)
+
         perm = torch.arange(N, dtype=torch.int32, device=dev)
-        hist = torch.zeros((L, F, B, 3), dtype=torch.float32, device=dev)
+        hist = torch.zeros((L, C, Bb, 3), dtype=torch.float32, device=dev)
         with timer.phase("histogram"):
-            hist[0] = hist_rows(self.x_rows, grad, hess, None, N, B)
+            hist[0] = leaf_hist(None, N)
         self.hist_builds = 1
-        totals = hist[0, 0].sum(dim=0)
+        # the root's sums over the first stored column's bins, taken in
+        # float64 so the card and the CPU agree to the bit
+        totals = hist[0, 0].double().sum(dim=0).float()
         root_out = calculate_leaf_output(totals[0], totals[1], p, totals[2],
                                          0.0)
         with timer.phase("split_scan"):
-            b0 = best_split(hist[0], totals[0], totals[1], totals[2],
-                            root_out, 0, *scan_args)
+            b0 = best_split(scan_hist(hist[0], totals), totals[0],
+                            totals[1], totals[2], root_out, 0, *scan_args)
 
         leaf_f = torch.zeros((L, 10), dtype=torch.float32, device=dev)
         leaf_f[:, LF_GAIN] = K_MIN_SCORE
@@ -213,7 +280,13 @@ class FusedTreeLearner(SerialTreeLearner):
             # -- stable partition of the leaf's slice --------------------
             with timer.phase("partition"):
                 rows = perm[begin:begin + count]
-                cv = self.x_cols[feat][rows.long()]
+                bun = self.bundle
+                cv = self.x_cols[feat if bun is None else
+                                 int(bun.col_of[feat])][rows.long()]
+                if bun is not None and not bun.single[feat]:
+                    cv = decode_bundled(cv, int(bun.off_of[feat]),
+                                        int(meta["default_bins"][feat]),
+                                        int(meta["num_bins"][feat]))
                 gl = decision_go_left(
                     cv, li[LI_THR], li[LI_DL] == 1,
                     int(meta["default_bins"][feat]),
@@ -242,8 +315,7 @@ class FusedTreeLearner(SerialTreeLearner):
                 pos = torch.clamp(torch.arange(count, device=dev) + off,
                                   max=count - 1)
                 small_rows = perm[begin:begin + count][pos]
-                hist_small = hist_rows(self.x_rows, grad, hess, small_rows,
-                                       small_count.reshape(1), B)
+                hist_small = leaf_hist(small_rows, small_count.reshape(1))
                 hist_large = subtract_histogram(hist[leaf], hist_small)
                 hist_left = torch.where(small_is_left, hist_small,
                                         hist_large)
@@ -260,9 +332,11 @@ class FusedTreeLearner(SerialTreeLearner):
                 torch.stack([lf[LF_G] - lg, lf[LF_H] - lh, lf[LF_C] - lc,
                              lf[LF_ROUT]])])                  # [2, 4]
             with timer.phase("split_scan"):
-                bs = best_split(torch.stack([hist_left, hist_right]),
-                                sums[:, 0], sums[:, 1], sums[:, 2],
-                                sums[:, 3], depth + 1, *scan_args)
+                bs = best_split(
+                    scan_hist(torch.stack([hist_left, hist_right]),
+                              sums[:, :3]),
+                    sums[:, 0], sums[:, 1], sums[:, 2], sums[:, 3],
+                    depth + 1, *scan_args)
             rows_f = torch.cat(
                 [sums, torch.stack([bs.gain, bs.left_g, bs.left_h, bs.left_c,
                                     bs.left_output, bs.right_output], 1)], 1)
@@ -284,8 +358,6 @@ class FusedTreeLearner(SerialTreeLearner):
                 leaf_bits[row] = bs.cat_bitset[side]
             num_leaves += 1
             max_depth = max(max_depth, depth + 1)
-        self.host_syncs = syncs
-        self.phase_ms = timer.totals_ms()
 
         # -- row -> leaf from the final permutation ------------------------
         iota = torch.arange(L, device=dev)
@@ -302,6 +374,14 @@ class FusedTreeLearner(SerialTreeLearner):
         # AsConstantTree(0))
         leaf_value = (leaf_f[:, LF_OUT] if num_leaves > 1
                       else torch.zeros_like(leaf_f[:, LF_OUT]))
+        if self.quant and cfg.quant_train_renew_leaf and num_leaves > 1:
+            with timer.phase("renew"):
+                leaf_value = self._renew_leaves(
+                    grad, hess, perm, leaf_f, leaf_i, node_f, num_leaves,
+                    leaf_value)
+            syncs += 1
+        self.host_syncs = syncs
+        self.phase_ms = timer.totals_ms()
         return DeviceTree(
             node_feature=node_i[:, 0], node_threshold=node_i[:, 1],
             node_default_left=node_i[:, 2] == 1,
@@ -313,6 +393,30 @@ class FusedTreeLearner(SerialTreeLearner):
             leaf_count=leaf_f[:, LF_C], leaf_depth=leaf_i[:, LI_DEPTH],
             leaf_parent_node=leaf_i[:, LI_PARENT], num_leaves=num_leaves,
             max_depth=max_depth, row_leaf=row_leaf)
+
+    def _renew_leaves(self, grad, hess, perm, leaf_f, leaf_i, node_f,
+                      num_leaves: int, leaf_value) -> torch.Tensor:
+        """``quant_train_renew_leaf`` (the JAX learner,
+        fused_learner.py:1551-1565;
+        reference: GradientDiscretizer::RenewIntGradTreeOutput): each live
+        leaf's output refit from its full-precision grad/hess sums. Each
+        leaf is summed over its contiguous slice of the final permutation,
+        one torch reduction per leaf, so reruns on the card are
+        bit-identical (a float ``index_add_`` there takes atomics in no
+        fixed order). Costs one host read of the leaves' slices."""
+        L = self.config.num_leaves
+        spans = leaf_i[:num_leaves, [LI_BEGIN, LI_COUNT]].tolist()
+        gh = torch.stack([grad, hess], dim=1)[perm.long()]      # [N, 2]
+        sums = torch.zeros((L, 2), dtype=torch.float32, device=gh.device)
+        sums[:num_leaves] = torch.stack(
+            [gh[b:b + c].double().sum(dim=0) for b, c in spans]).float()
+        NODES = max(L - 1, 1)
+        parent_out = node_f[torch.clamp(leaf_i[:, LI_PARENT], 0, NODES - 1),
+                            1]
+        renewed = calculate_leaf_output(sums[:, 0], sums[:, 1], self.params,
+                                        leaf_f[:, LF_C], parent_out)
+        active = torch.arange(L, device=gh.device) < num_leaves
+        return torch.where(active, renewed, leaf_value)
 
     # ------------------------------------------------------------------
     def materialize_batch(self, recs: List[DeviceTree]) -> List[Tree]:

@@ -4,7 +4,8 @@ The port of ``lambdagap_tpu/models/gbdt.py``. A loaded model (LightGBM v4
 text: ``from_model_string`` / ``from_model_file``) is sliced, predicted on
 the configured device engine and saved back. Training (``GBDT(config,
 train_set)``) runs the JAX package's fused fast path: per iteration the
-objective's gradients, one tree grown on the device by
+objective's gradients, the bagging/GOSS sample of them
+(``models/sample_strategy``), one tree grown on the device by
 :class:`~lambdagap_tpu_torch.models.fused_learner.FusedTreeLearner`, the
 training scores updated on the device with ``f32(leaf_value *
 shrinkage)[row_leaf]``, and every validation set scored tree by tree over
@@ -42,7 +43,7 @@ from ..utils.device import resolve_device
 from .tree import Tree
 
 K_EPSILON = 1e-15
-_ROADMAP = "(ROADMAP.md, port slice 3)"
+_ROADMAP = "(ROADMAP.md, Queue 1)"
 
 
 def _finalize_tree(tree: Tree, shrinkage: float, bias: float) -> Tree:
@@ -91,14 +92,6 @@ def _refuse_unported(cfg: Config) -> None:
         no("tpu_fused_learner=0 (the host-driven SerialTreeLearner)")
     if cfg.data_residency == "stream":
         no("data_residency=stream")
-    if cfg.use_quantized_grad:
-        no("use_quantized_grad")
-    if cfg.data_sample_strategy == "goss":
-        no("data_sample_strategy=goss")
-    if cfg.bagging_freq > 0 and (cfg.bagging_fraction < 1.0
-                                 or cfg.pos_bagging_fraction < 1.0
-                                 or cfg.neg_bagging_fraction < 1.0):
-        no("bagging (bagging_fraction<1 with bagging_freq>0)")
     if cfg.extra_trees:
         no("extra_trees")
     if cfg.feature_fraction_bynode < 1.0:
@@ -162,10 +155,13 @@ class GBDT:
         cfg = self.config
         _refuse_unported(cfg)
         from .fused_learner import FusedTreeLearner
+        from .sample_strategy import create_sample_strategy
         self.num_data = ds.num_data
         self.max_feature_idx = ds.num_total_features - 1
         self.objective.init(ds.metadata, ds.num_data, self.device)
         self.learner = FusedTreeLearner(ds, cfg, self.device)
+        self.sample_strategy = create_sample_strategy(
+            cfg, ds.num_data, label=ds.metadata.label)
         self.has_init_score = ds.metadata.init_score is not None
         self.scores = self._init_scores(ds.metadata.init_score, ds.num_data)
         if cfg.is_provide_training_metric:
@@ -217,8 +213,10 @@ class GBDT:
                         vs[k] += init
                     log.info("Start training from score %f", init)
         grad, hess = self.boosting()
+        grad, hess, mask = self.sample_strategy.sample(self.iter_, grad,
+                                                       hess)
         for k in range(K):
-            rec = self.learner.train_device(grad[k], hess[k])
+            rec = self.learner.train_device(grad[k], hess[k], mask)
             lv = rec.leaf_value * self.shrinkage_rate
             self.scores[k] += lv[rec.row_leaf]
             if self.valid_sets:

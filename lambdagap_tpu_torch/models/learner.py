@@ -61,7 +61,7 @@ class SerialTreeLearner:
         if config.tree_layout == "sorted":
             raise NotImplementedError(
                 "tree_layout=sorted is not ported to lambdagap_tpu_torch yet "
-                "(ROADMAP.md, port slice 3); use tree_layout=auto or gather")
+                "(ROADMAP.md, Queue 1); use tree_layout=auto or gather")
         return "gather"
 
     def _feature_mask(self) -> torch.Tensor:
@@ -99,5 +99,5 @@ class SerialTreeLearner:
     def train(self, grad, hess):
         raise NotImplementedError(
             "the host-driven SerialTreeLearner is not ported to "
-            "lambdagap_tpu_torch yet (ROADMAP.md, port slice 3); "
+            "lambdagap_tpu_torch yet (ROADMAP.md, Queue 1); "
             "tpu_fused_learner=auto trains with FusedTreeLearner")

@@ -47,10 +47,15 @@ class BinaryLogloss(ObjectiveFunction):
         self.label_weight = torch.from_numpy(lw).to(device)
 
     def get_gradients_fast(self, scores):
-        """(reference: binary_objective.hpp:105-134)"""
+        """(reference: binary_objective.hpp:105-134). float32, as in the
+        JAX package, except that ``exp`` is taken in float64 and rounded
+        once: the card's float32 ``exp`` and the CPU's differ in the last
+        bit, and GOSS's top-k selection turns such a bit into a different
+        sample; in float64 both round to the same float32."""
         s = self.sigmoid
         ls = self.label_signed[None, :]
-        response = -ls * s / (1.0 + torch.exp(ls * s * scores))
+        e = torch.exp((ls * s * scores).double()).float()
+        response = -ls * s / (1.0 + e)
         abs_r = response.abs()
         grad = response * self.label_weight[None, :]
         hess = abs_r * (s - abs_r) * self.label_weight[None, :]

@@ -37,6 +37,19 @@ def decision_go_left(bin_vals: torch.Tensor, threshold, default_left,
                        cat_left, num_left)
 
 
+def decode_bundled(cv: torch.Tensor, offset: int, default_bin: int,
+                   num_bin: int) -> torch.Tensor:
+    """A bundled feature's own bins from its EFB bundle column
+    (``lambdagap_tpu/models/fused_learner.py:1196-1202``): the column holds
+    ``offset + rank`` for the feature's non-default bins, where the rank
+    skips the default bin; every other value (0, or another member's
+    range) is the feature's default bin."""
+    r = cv.long() - offset
+    in_r = (r >= 0) & (r < num_bin - 1)
+    return torch.where(in_r, r + (r >= default_bin).long(),
+                       torch.full_like(r, default_bin))
+
+
 def split_partition(perm: torch.Tensor, begin: int, count: int,
                     go_left: torch.Tensor):
     """Stably partition ``perm[begin:begin+count]`` by ``go_left`` (bool

@@ -121,6 +121,15 @@ def _take(a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.gather(a, -1, t.unsqueeze(-1)).squeeze(-1)
 
 
+def _cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Running sums of f32 histogram channels, accumulated in float64 and
+    rounded once per prefix: the same bits on the CPU (whose f32 cumsum
+    accumulates in double) and on the card (whose f32 cumsum accumulates in
+    float, in a parallel order along the last dimension), so a tie between
+    two thresholds resolves alike on both."""
+    return torch.cumsum(x, dim=dim, dtype=torch.float64).float()
+
+
 # ---------------------------------------------------------------------------
 # numerical scan
 # ---------------------------------------------------------------------------
@@ -145,13 +154,18 @@ def _numerical_best(hist, parent_g, parent_h, parent_c, parent_output,
     excl = (is_zero_missing & is_default) | (is_nan_missing & is_nan_bin)
     ghc = torch.stack([torch.where(excl, 0.0, g), torch.where(excl, 0.0, h),
                        torch.where(excl, 0.0, c)], dim=-1)    # [..., F, B, 3]
-    cs_f = torch.cumsum(ghc, dim=-2)
+    cs_f = _cumsum(ghc, -2)
     lg_f, lh_f, lc_f = cs_f[..., 0], cs_f[..., 1], cs_f[..., 2]
-    # right sums for threshold t = sum of bins > t
-    rev = torch.flip(torch.cumsum(torch.flip(ghc, [-2]), dim=-2), [-2])
-    rg_r = rev[..., 0] - ghc[..., 0]
-    rh_r = rev[..., 1] - ghc[..., 1]
-    rc_r = rev[..., 2] - ghc[..., 2]
+    # right sums for threshold t = sum of bins > t: the inclusive suffix
+    # sums shifted by one bin (the JAX package subtracts bin t from the
+    # inclusive sum instead, equal up to rounding). Shifting keeps the sums
+    # of thresholds t and t+1 bit-equal when bin t+1 is empty — as it is
+    # when it holds only out-of-bag rows — so that exact tie goes to the
+    # first threshold in both directions and on every device.
+    rev = torch.flip(_cumsum(torch.flip(ghc, [-2]), -2), [-2])
+    rev = torch.cat([rev[..., 1:, :], torch.zeros_like(rev[..., :1, :])],
+                    dim=-2)
+    rg_r, rh_r, rc_r = rev[..., 0], rev[..., 1], rev[..., 2]
 
     def eval_dir(left_g, left_h, left_c):
         right_g = parent_g - left_g
@@ -251,9 +265,9 @@ def _categorical_best(hist, parent_g, parent_h, parent_c, parent_output,
     g_s = torch.where(v_s, g_s, 0.0)
     h_s = torch.where(v_s, h_s, 0.0)
     c_s = torch.where(v_s, c_s, 0.0)
-    csum_g = torch.cumsum(g_s, dim=-1)
-    csum_h = torch.cumsum(h_s, dim=-1)
-    csum_c = torch.cumsum(c_s, dim=-1)
+    csum_g = _cumsum(g_s, -1)
+    csum_h = _cumsum(h_s, -1)
+    csum_c = _cumsum(c_s, -1)
     prefix_len = torch.cumsum(v_s.to(torch.int32), dim=-1)
     sorted_cand = (prefix_len <= p.max_cat_threshold) & v_s & fm
     sorted_gain = torch.where(sorted_cand, gains_for(csum_g, csum_h, csum_c),

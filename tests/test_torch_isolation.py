@@ -2,8 +2,10 @@
 
 ``lambdagap_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
 ``lambdagap_tpu``: a subprocess with both blocked in ``sys.modules`` loads
-a JAX-saved model, predicts and serves on the CPU. Asking for the card
-where there is none raises instead of quietly running on the CPU.
+a JAX-saved model, predicts and serves on the CPU, then trains quantized
+and bagged over EFB bundles (the threefry draws, the samplers, the int8
+histograms and the bundling included). Asking for the card where there is
+none raises instead of quietly running on the CPU.
 """
 import ast
 import os
@@ -35,6 +37,16 @@ with bst.as_server(raw_score=True) as server:
     served = server.predict(X)
 assert np.array_equal(raw, served)
 np.save({out!r}, raw)
+rng = np.random.RandomState(1)
+onehot = np.eye(4)[rng.randint(0, 4, 400)] * rng.randint(1, 5, (400, 1))
+Xt = np.concatenate([rng.randn(400, 3), onehot], axis=1)
+yt = (Xt[:, 0] + Xt[:, 3] > 0.5).astype(float)
+trained = lgt.train({{"device_type": "cpu", "objective": "binary",
+                     "verbose": -1, "num_leaves": 7, "min_data_in_leaf": 5,
+                     "use_quantized_grad": True, "bagging_fraction": 0.8,
+                     "bagging_freq": 1}}, lgt.Dataset(Xt, label=yt), 3)
+assert trained._booster.learner.bundle is not None
+assert np.isfinite(trained.predict(Xt)).all()
 bad = sorted(m for m in sys.modules
              if (m == "jax" or m.startswith("jax.")
                  or m == "lambdagap_tpu" or m.startswith("lambdagap_tpu."))

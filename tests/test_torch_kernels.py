@@ -7,10 +7,13 @@ equals the scan oracle bit for bit, hostile categorical values included.
 On the card (``-m cuda``; skipped elsewhere): the traversal kernel equals
 its plain version with ``torch.equal`` at the serving bucket sizes and
 counts one launch per call, and the compiled engine and the server on the
-card equal the scan oracle on the card; the histogram kernel equals its
-plain version at chip_smoke's four shapes, reruns bit-identically and
-refuses bad inputs, and a short training on the card equals the same on
-the CPU.
+card equal the scan oracle on the card; the f32 histogram kernel (K1)
+equals its plain version at chip_smoke's shapes, with and without an
+in-bag mask, reruns bit-identically and refuses bad inputs; the int8
+histogram kernel (K2) is ``torch.equal`` to its plain version at four
+shapes and on a rerun; the threefry draws and the quantized levels on the
+card equal the CPU's bit for bit; and short trainings on the card (f32,
+quantized + bagging, GOSS, EFB) equal the same on the CPU.
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -156,8 +159,10 @@ def _hist_case(shape, dev):
 @pytest.mark.parametrize("shape", ["root", "leaf", "u16", "empty"])
 def test_hist_kernel_equals_plain_version_on_card(shape, cuda_device):
     """K1 against its plain version: the count channel equal, grad/hess
-    within rtol 2e-3 / atol 1e-4 (the kernel sums in f32 by blocks, the
-    plain version in f64), a rerun bit-identical, one launch counted."""
+    within rtol 2e-3 / atol 1e-4 (both sum in f64 and round once, in
+    different orders: equal but where an f64 sum lands within its own
+    rounding error of an f32 boundary), a rerun bit-identical, one launch
+    counted."""
     from lambdagap_tpu_torch.ops import hist_cuda as hc
     args = _hist_case(shape, cuda_device)
     before = hc.HIST_LAUNCHES.launches
@@ -189,9 +194,9 @@ def test_hist_kernel_refuses_bad_inputs(cuda_device):
 def test_training_on_card_equals_cpu(cuda_device):
     """A short training on the card (K1 histograms) against the same on
     the CPU (plain histograms): predictions on the training rows within
-    rtol 1e-4 / atol 1e-5 — thresholds tied across bins that hold no
-    training row may break either way between f32 and f64 sums, and route
-    no training row differently."""
+    rtol 1e-4 / atol 1e-5 (the histograms agree but for a rare last-bit
+    rounding; a tie that one breaks across bins holding no training row
+    routes no training row differently)."""
     from lambdagap_tpu_torch.ops import hist_cuda as hc
     rng = np.random.RandomState(0)
     X = rng.randn(6000, 12)
@@ -203,6 +208,122 @@ def test_training_on_card_equals_cpu(cuda_device):
     card = lgt.train(params, lgt.Dataset(X, label=y), 10)
     assert card._booster.learner.x_rows.device.type == "cuda"
     assert hc.HIST_LAUNCHES.launches > before
+    cpu = lgt.train({**params, **CPU}, lgt.Dataset(X, label=y), 10)
+    np.testing.assert_allclose(card.predict(X), cpu.predict(X), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_masked_hist_kernel_equals_plain_version_on_card(cuda_device):
+    """K1 with a bagging mask: out-of-bag rows add to no channel, so the
+    count channel is exact against the plain version."""
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    bins, grad, hess, rows, count, nb = _hist_case("leaf", cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    mask = torch.rand(bins.shape[0], generator=gen, device=cuda_device) < 0.8
+    for args in ((bins, grad, hess, None, 1_000_003, nb, mask),
+                 (bins, grad, hess, rows, count, nb, mask)):
+        got = hc.hist_rows(*args)
+        ref = hc._hist_reference(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, hc.hist_rows(*args))
+        assert torch.equal(got[..., 2], ref[..., 2])
+        assert torch.allclose(got[..., :2], ref[..., :2], rtol=2e-3,
+                              atol=1e-4)
+
+
+def _hist_q_case(shape, dev):
+    """chip_smoke's four K2 shapes (T2q) with int8 levels and a mask."""
+    bins, _, _, rows, count, nb = _hist_case(shape, dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n = bins.shape[0]
+    gq = torch.randint(-63, 64, (n,), generator=gen, device=dev,
+                       dtype=torch.int8)
+    hq = torch.randint(0, 127, (n,), generator=gen, device=dev,
+                       dtype=torch.int8)
+    mask = torch.rand(n, generator=gen, device=dev) < 0.8
+    return bins, gq, hq, rows, count, nb, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["root", "leaf", "u16", "empty"])
+def test_hist_q_kernel_equals_plain_version_on_card(shape, cuda_device):
+    """K2 against its plain version: integer sums, so ``torch.equal``; a
+    rerun bit-identical; one launch counted per call."""
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    args = _hist_q_case(shape, cuda_device)
+    before = hc.HIST_Q_LAUNCHES.launches
+    got = hc.hist_rows_q(*args)
+    again = hc.hist_rows_q(*args)
+    ref = hc._hist_q_reference(*args)
+    torch.cuda.synchronize()
+    assert hc.HIST_Q_LAUNCHES.launches == before + 2
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ref)
+    assert torch.equal(got, again)
+    if shape == "empty":
+        assert not got.any()
+    # without a mask every live position counts once per feature
+    nomask = hc.hist_rows_q(*args[:6])
+    assert torch.equal(nomask, hc._hist_q_reference(*args[:6]))
+
+
+@pytest.mark.cuda
+def test_threefry_and_quantization_on_card_equal_cpu(cuda_device):
+    """The threefry draw and the quantized levels on the card equal the
+    CPU's bit for bit."""
+    from lambdagap_tpu_torch.ops.hist_cuda import quantize_gradients
+    from lambdagap_tpu_torch.utils import prng
+    key = prng.split(prng.PRNGKey(7919 + 1))[1]
+    for n in (1, 7, 1000, 1_000_003):
+        assert torch.equal(prng.uniform(key, n, cuda_device).cpu(),
+                           prng.uniform(key, n))
+    rng = np.random.RandomState(3)
+    g = torch.from_numpy(rng.randn(100_001).astype(np.float32))
+    h = torch.from_numpy(np.abs(rng.randn(100_001)).astype(np.float32))
+    for qb, stochastic in ((4, True), (16, False), (127, True)):
+        cpu = quantize_gradients(g, h, key, qb, stochastic)
+        card = quantize_gradients(g.to(cuda_device), h.to(cuda_device), key,
+                                  qb, stochastic)
+        for a, b in zip(cpu, card):
+            assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    {"use_quantized_grad": True, "num_grad_quant_bins": 16,
+     "quant_train_renew_leaf": True, "bagging_fraction": 0.7,
+     "bagging_freq": 1},
+    {"data_sample_strategy": "goss", "learning_rate": 0.3},
+    {"_efb": True},
+])
+def test_sampled_quantized_bundled_training_on_card_equals_cpu(extra,
+                                                               cuda_device):
+    """Short trainings on the card (K2 or K1 with a mask, over EFB
+    bundles) against the same on the CPU, at the training-row bar."""
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    extra = dict(extra)
+    efb = extra.pop("_efb", False)
+    rng = np.random.RandomState(1)
+    X = rng.randn(6000, 8)
+    if efb:
+        which = rng.randint(0, 7, 6000)
+        sparse = np.zeros((6000, 6))
+        on = which < 6
+        sparse[np.nonzero(on)[0], which[on]] = rng.randint(1, 9, on.sum())
+        X = np.concatenate([X, sparse], axis=1)
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + 0.3 * rng.randn(6000) > 0
+         ).astype(np.float64)
+    params = {"objective": "binary", "num_leaves": 31, "verbose": -1,
+              **extra}
+    counter = (hc.HIST_Q_LAUNCHES if extra.get("use_quantized_grad")
+               else hc.HIST_LAUNCHES)
+    before = counter.launches
+    card = lgt.train(params, lgt.Dataset(X, label=y), 10)
+    assert counter.launches > before
+    if efb:
+        lr = card._booster.learner
+        assert lr.bundle is not None and lr.x_rows.shape[1] < X.shape[1]
     cpu = lgt.train({**params, **CPU}, lgt.Dataset(X, label=y), 10)
     np.testing.assert_allclose(card.predict(X), cpu.predict(X), rtol=1e-4,
                                atol=1e-5)

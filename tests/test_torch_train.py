@@ -48,8 +48,8 @@ def _fused_data(n=1200, d=8, seed=11, cat=False):
      "min_data_in_leaf": 5, "num_leaves": 31},
 ])
 def test_regression_matches_jax_fused(extra):
-    """tests/test_fused.py's shapes and options (its bagging case is a
-    refusal here, below)."""
+    """tests/test_fused.py's shapes and options (its bagging case is
+    test_sampled_training_matches_jax's)."""
     extra = dict(extra)
     cat = extra.pop("_cat", False)
     X, y = _fused_data(cat=cat)
@@ -219,9 +219,6 @@ def test_training_scores_equal_model_predictions():
 
 
 @pytest.mark.parametrize("params", [
-    {"use_quantized_grad": True},
-    {"bagging_fraction": 0.7, "bagging_freq": 1},
-    {"data_sample_strategy": "goss"},
     {"extra_trees": True},
     {"feature_fraction_bynode": 0.5},
     {"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0]},
@@ -256,16 +253,153 @@ def test_forced_splits_refuse_loudly(tmp_path):
                   lgt.Dataset(X, label=y), 2)
 
 
-def test_a_formed_bundle_refuses_loudly():
+def _node_rows(tree, binned):
+    """Rows of ``binned`` reaching each internal node of ``tree`` (numerical
+    splits without missing values)."""
+    rows = {0: np.arange(binned.shape[0])}
+    for k in range(tree.num_leaves - 1):
+        r = rows[k]
+        go = binned[r, tree.split_feature_inner[k]] <= tree.threshold_bin[k]
+        for child, side in ((tree.left_child[k], r[go]),
+                            (tree.right_child[k], r[~go])):
+            if child >= 0:
+                rows[child] = side
+    return rows
+
+
+def _assert_same_splits(tj, tt, binned):
+    """The same split feature at every node, and thresholds equal up to
+    bins that hold none of the node's training rows (an exact tie: both
+    thresholds split the node's rows alike)."""
+    assert tt.split_feature == tj.split_feature
+    rows = _node_rows(tj, binned)
+    for k in range(tj.num_leaves - 1):
+        lo, hi = sorted((tj.threshold_bin[k], tt.threshold_bin[k]))
+        b = binned[rows[k], tj.split_feature_inner[k]]
+        assert not np.any((b > lo) & (b <= hi)), (k, lo, hi)
+
+
+# (objective, num_grad_quant_bins, quant_train_renew_leaf,
+# stochastic_rounding): each level count, renew on and off, stochastic
+# rounding on and off, on both objectives
+QUANT_CASES = [
+    ("regression", 4, False, True), ("regression", 16, True, True),
+    ("regression", 64, False, False), ("regression", 4, False, False),
+    ("binary", 16, True, True), ("binary", 64, True, False),
+    ("binary", 4, False, True), ("binary", 16, False, False),
+]
+
+
+@pytest.mark.parametrize("objective, qb, renew, stochastic", QUANT_CASES)
+def test_quantized_training_matches_jax(objective, qb, renew, stochastic):
+    """use_quantized_grad against the JAX fused learner: the same
+    per-tree key, levels and exact level sums, so the training-row bar
+    holds; leaf counts per tree equal."""
+    X, y = _fused_data(seed=11)
+    if objective == "binary":
+        y = (y > 0).astype(np.float64)
+    params = {"objective": objective, "num_leaves": 15,
+              "min_data_in_leaf": 20, "verbose": -1,
+              "use_quantized_grad": True, "num_grad_quant_bins": qb,
+              "quant_train_renew_leaf": renew,
+              "stochastic_rounding": stochastic}
+    bj = lgb.train({**params, **JAX_F32}, lgb.Dataset(X, label=y), 8)
+    bt = lgt.train({**params, **CPU}, lgt.Dataset(X, label=y), 8)
+    assert bt._booster.learner.quant
+    np.testing.assert_allclose(bt.predict(X), bj.predict(X), rtol=1e-4,
+                               atol=1e-5)
+    assert [t.num_leaves for t in bt._booster.host_models] == \
+        [t.num_leaves for t in bj._booster.host_models]
+
+
+@pytest.mark.parametrize("qb, renew", [(4, False), (16, False), (64, True)])
+def test_deterministic_quantized_regression_splits_equal_jax(qb, renew):
+    """The JAX package's quant-mode identity contract: with
+    stochastic_rounding=false the split features of every tree equal
+    JAX's, and every threshold equals JAX's up to bins that hold none of
+    its node's training rows (an exact tie, broken by the last bits of
+    either side's f32 scan)."""
+    X, y = _fused_data(seed=11)
+    params = {"objective": "regression", "num_leaves": 15,
+              "min_data_in_leaf": 20, "verbose": -1,
+              "use_quantized_grad": True, "num_grad_quant_bins": qb,
+              "quant_train_renew_leaf": renew, "stochastic_rounding": False}
+    bj = lgb.train({**params, **JAX_F32}, lgb.Dataset(X, label=y), 8)
+    dt = lgt.Dataset(X, label=y)
+    bt = lgt.train({**params, **CPU}, dt, 8)
+    binned = dt.construct().binned
+    for tj, tt in zip(bj._booster.host_models, bt._booster.host_models):
+        _assert_same_splits(tj, tt, binned)
+
+
+def _discrete_data(seed, n=1500, d=6, levels=8):
+    """Features with few distinct values: every bin of a leaf holds many
+    rows, so no bin is empty of in-bag rows while holding out-of-bag ones
+    (such a bin makes two thresholds an exact tie that routes the
+    out-of-bag training rows differently; ROADMAP.md Queue 3)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randint(0, levels, (n, d)).astype(np.float64)
+    z = X[:, 0] - 0.5 * X[:, 1] + np.sin(X[:, 2]) + 0.3 * rng.randn(n)
+    return X, z
+
+
+@pytest.mark.parametrize("objective, extra", [
+    ("regression", {"bagging_fraction": 0.7, "bagging_freq": 1}),
+    ("regression", {"bagging_fraction": 0.6, "bagging_freq": 3,
+                    "bagging_seed": 7}),
+    ("binary", {"pos_bagging_fraction": 0.8, "neg_bagging_fraction": 0.4,
+                "bagging_freq": 2}),
+    ("regression", {"data_sample_strategy": "goss", "learning_rate": 0.3}),
+    ("binary", {"data_sample_strategy": "goss", "learning_rate": 0.25,
+                "top_rate": 0.3, "other_rate": 0.2}),
+    ("binary", {"use_quantized_grad": True, "num_grad_quant_bins": 16,
+                "bagging_fraction": 0.6, "bagging_freq": 1}),
+])
+def test_sampled_training_matches_jax(objective, extra):
+    """Bagging, balanced bagging, GOSS past its warm-up, and quantized +
+    bagging against the JAX fused learner: the same masks, amplified
+    gradients and (under quantization) levels."""
+    X, z = _discrete_data(seed=1)
+    y = z if objective == "regression" else (z > z.mean()).astype(float)
+    params = {"objective": objective, "num_leaves": 15,
+              "min_data_in_leaf": 20, "learning_rate": 0.1, "verbose": -1,
+              **extra}
+    bj = lgb.train({**params, **JAX_F32}, lgb.Dataset(X, label=y), 8)
+    bt = lgt.train({**params, **CPU}, lgt.Dataset(X, label=y), 8)
+    np.testing.assert_allclose(bt.predict(X), bj.predict(X), rtol=1e-4,
+                               atol=1e-5)
+    assert [t.num_leaves for t in bt._booster.host_models] == \
+        [t.num_leaves for t in bj._booster.host_models]
+
+
+def test_a_formed_bundle_trains_like_jax():
+    """A one-hot-like table on which EFB forms a bundle trains over the
+    bundled columns, to the JAX package's model."""
     rng = np.random.RandomState(17)
     which = rng.randint(0, 6, 2000)
     X = np.zeros((2000, 6))
     X[np.arange(2000), which] = rng.rand(2000) + 0.5
-    y = X.sum(1) + rng.randn(2000) * 0.1
-    with pytest.raises(NotImplementedError, match="enable_bundle=false"):
-        lgt.train({"verbose": -1, **CPU}, lgt.Dataset(X, label=y), 2)
-    lgt.train({"verbose": -1, "enable_bundle": False, **CPU},
-              lgt.Dataset(X, label=y), 2)
+    y = X.sum(1) * (1 + which % 3) + rng.randn(2000) * 0.1
+    params = {"objective": "regression", "num_leaves": 15, "verbose": -1}
+    bj = lgb.train({**params, **JAX_F32}, lgb.Dataset(X, label=y), 6)
+    bt = lgt.train({**params, **CPU}, lgt.Dataset(X, label=y), 6)
+    assert bt._booster.learner.x_rows.shape[1] < 6
+    np.testing.assert_allclose(bt.predict(X), bj.predict(X), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_quantized_level_sums_that_could_overflow_refuse_loudly():
+    """rows x num_grad_quant_bins at or past int32 max: the per-chunk
+    float32 fallback is not ported, so the learner refuses, naming the
+    knob."""
+    from lambdagap_tpu_torch.models.fused_learner import FusedTreeLearner
+    X, y = _fused_data(seed=19)
+    ds = lgt.Dataset(X, label=y).construct()
+    ds.num_data = 2**31 // 64          # the learner reads the row count
+    cfg = lgt.Config.from_params({**CPU, "use_quantized_grad": True,
+                                  "num_grad_quant_bins": 64})
+    with pytest.raises(NotImplementedError, match="num_grad_quant_bins"):
+        FusedTreeLearner(ds, cfg, torch.device("cpu"))
 
 
 def test_training_default_device_raises_without_a_card():
