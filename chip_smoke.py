@@ -2,7 +2,7 @@
 """Drive the PyTorch port's training and serving paths on one CUDA card
 and check them.
 
-    python3 chip_smoke.py [--seed N] [--rows N]
+    python3 chip_smoke.py [--seed N] [--rows N] [--only kernels]
 
 Run from the root of a checkout. Phases, each fatal on failure:
 
@@ -10,7 +10,10 @@ Run from the root of a checkout. Phases, each fatal on failure:
    torch / CUDA / nvcc versions;
 2. build every kernel of every path from ``lambdagap_tpu_torch/csrc/``
    (traverse.cu, hist.cu, hist_q.cu: one nvcc per source, all started
-   together) into the git-ignored build dir;
+   together) into the git-ignored build dir, printing each kernel's
+   registers, shared memory and spills; then the histogram kernels'
+   atomics in SASS (``cuobjdump -sass``): every shared-memory add must be
+   native, none a compare-and-swap loop;
 3. build a HIGGS-width forest from ``--seed`` (binary, 28 features, 500
    trees of 255 leaves, thresholds on a 254-boundary grid per feature,
    NaN- and zero-missing nodes) and round-trip it through the port's text
@@ -26,27 +29,34 @@ Run from the root of a checkout. Phases, each fatal on failure:
    answer ``array_equal`` to the port's scan oracle on the card; the launch
    counts are zeroed just before and read just after;
 T2. the f32 histogram kernel (K1) against its plain version on the card at
-   five shapes (the HIGGS root, a leaf behind a permutation slice with
-   out-of-range junk past ``count``, u16 bins with a ragged count, count
-   0, the root with a bagging mask): the count channel ``torch.equal``,
-   grad/hess within rtol 2e-3 / atol 1e-4, a rerun ``torch.equal``; then
-   the kernel's, the plain version's and ``index_add_``'s times and the
-   bound;
-T2q. the int8 histogram kernel (K2) against its plain version at four
-   shapes (the masked HIGGS root, the leaf with junk past ``count``, u16
-   bins with a ragged count, count 0): ``torch.equal``, reruns
-   ``torch.equal``; the same four times;
+   seven shapes (the HIGGS root, a leaf read at an offset inside its
+   parent's slice with junk around it, u16 bins with a ragged count, count
+   0, the root with a bagging mask, a skewed root with 90% of the rows in
+   one bin, extreme gradients from 1e-30 to 1e3 at a leaf one row past
+   three blocks' row budget): every channel ``torch.equal`` (both sum the
+   same fixed-point integers), a rerun ``torch.equal``; then the kernel's,
+   the plain version's and ``index_add_``'s times and the bound at the
+   root, the leaf, the skewed and the masked root;
+T2q. the int8 histogram kernel (K2) against its plain version at six
+   shapes (the masked HIGGS root, the leaf at an offset, u16 bins with a
+   ragged count, count 0, a saturated root with every row in bin 0 at
+   g_q = -127 and h_q = 127, the skewed root): ``torch.equal``, reruns
+   ``torch.equal``; the same times at the root, the leaf and the skewed
+   root;
 T3. the training path: ``lgt.train`` on the card, binary, HIGGS width (28
    features, ``num_leaves=255``, ``max_bin=255``), ``--rows`` seeded
    synthetic rows (10,500,000, HIGGS's count, by default) plus a 500,000-row
    validation set, 10 rounds with ``early_stopping(5)``; the launch counts
    are zeroed just before and read just after, and the K1 launches must
-   equal the leaf histograms the learner built;
+   equal the leaf histograms the learner built; one more tree with CUDA
+   events around its phases, and one under ``torch.profiler`` for K1's
+   kernel-only device time summed over its launches;
 T6. T3's configuration and Datasets with ``use_quantized_grad`` (4
    levels, stochastic rounding, ``quant_train_renew_leaf``) and bagging
    0.8/1: the K2 launches equal the leaf histograms built, no K1 launch,
-   the validation logloss falls; one tree's phases, the threefry draw's
-   time, peak memory; the model served back against the scan oracle;
+   the validation logloss falls; one tree's phases and K2's kernel-only
+   time, the threefry draw's time, peak memory; the model served back
+   against the scan oracle;
 T4. the example shape (16,000 x 20, 63 leaves, 30 rounds, validation set,
    early stopping) trained on the card and on the CPU, f32, quantized (16
    levels, renew), GOSS and bagging 0.7/1: predictions on the training
@@ -85,7 +95,10 @@ SIZES = (1, 7, 64, 512, 601, 4096)   # request rows, cycled
 REQUESTS = 240
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
-H100_F64_OPS_PER_S = 34e12      # f64 outside the tensor cores (data sheet)
+# 32-bit integer adds outside the tensor cores: 64 INT32 lanes per SM, half
+# the f32 lanes, and no fused multiply-add to count twice — a quarter of
+# the f32 rate
+H100_INT32_OPS_PER_S = H100_F32_OPS_PER_S / 4
 HIGGS_ROWS = 10_500_000         # HIGGS's training rows (bench.py)
 VALID_ROWS = 500_000
 MAX_BIN = 255
@@ -105,20 +118,29 @@ def check(cond: bool, msg: str) -> None:
 # measurement helpers
 # ---------------------------------------------------------------------------
 def cuda_ms(fn, reps: int = 30, warm: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    """Median device time of ``fn`` over ``reps`` runs: CUDA events around
+    each run, all enqueued behind a device-side sleep long enough to cover
+    the host's enqueueing, so the host's launch overhead never shows as
+    device time (a run that synchronizes inside waits the sleep out and
+    then counts its own host gaps)."""
     import torch
     for _ in range(warm):
         fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    # ~2 GHz SM clock: sleep for twice the enqueue time, at most 1 s
+    torch.cuda._sleep(int(min(1.0, 2 * host_s * reps + 1e-3) * 2e9))
+    for a, b in events:
         a.record()
         fn()
         b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
 def wall_ms(fn, reps: int = 10, warm: int = 2) -> float:
@@ -134,6 +156,23 @@ def wall_ms(fn, reps: int = 10, warm: int = 2) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def profiled_kernel_ms(run, names) -> tuple:
+    """(device ms, launches) of the kernels whose names contain one of
+    ``names``, summed over one call of ``run``, from torch.profiler's CUDA
+    activity (CUPTI): the kernels' own time, no launch gaps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    us, calls = 0.0, 0
+    for e in prof.key_averages():
+        if any(n in e.key for n in names):
+            us += getattr(e, "device_time_total", 0.0)
+            calls += e.count
+    return us / 1e3, calls
 
 
 def steps_taken(artifact, carry: np.ndarray) -> int:
@@ -221,29 +260,32 @@ def higgs_like(seed: int, n: int, f: int = F):
 
 
 # ---------------------------------------------------------------------------
-# T2: the histogram kernel against its plain version
+# T2: the histogram kernels against their plain versions
 # ---------------------------------------------------------------------------
 def hist_bound(bins, rows, count: int, num_bins: int, mask=None,
-               chan_bytes: int = 8, ops_per_s: float = H100_F64_OPS_PER_S):
-    """Least time for hist_rows (chan_bytes 8: f32 grad and hess, summed
-    in f64) or hist_rows_q (2: int8 levels, integer adds at the f32 rate):
-    each live row's bins and channels (and its row id when there is a row
-    list, its mask byte when there is a mask) read once, the [F, B, 3]
-    result written once; three adds per (row, feature) at the card's rate
-    for their type outside the tensor cores."""
+               chan_bytes: int = 8, int_ops: int = 5):
+    """Least time for hist_rows (chan_bytes 8: f32 grad and hess; int_ops
+    5: four 32-bit integer adds of the split fixed-point words and one
+    count increment per (row, feature)) or hist_rows_q (2: int8 levels;
+    2: two 32-bit adds of the packed words): each live row's bins and
+    channels (and its row id when
+    there is a row list, its mask byte when there is a mask) read once,
+    the [F, B, 3] result written once; the integer adds at the card's
+    32-bit integer rate outside the tensor cores. Bound by bytes at every
+    shape here."""
     F_ = bins.shape[1]
     nbytes = (count * (F_ * bins.element_size() + chan_bytes
                        + (4 if rows is not None else 0)
                        + (1 if mask is not None else 0))
               + F_ * num_bins * 3 * 4)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = count * F_ * 3 / ops_per_s * 1e3
+    t_ops = count * F_ * int_ops / H100_INT32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", nbytes)
 
 
 def index_add_call(bins, grad, hess, rows, count: int, num_bins: int,
-                   mask=None):
+                   mask=None, offset: int = 0):
     """One ``index_add_`` that computes the same histogram from the
     gathered [count * F, 3] channels — f32 for K1, int64 for K2's int8
     levels; a masked-out row's channels are zero (timed only; the port
@@ -251,7 +293,7 @@ def index_add_call(bins, grad, hess, rows, count: int, num_bins: int,
     import torch
     dev = bins.device
     r = (torch.arange(count, device=dev) if rows is None
-         else rows[:count].long())
+         else rows[offset:offset + count].long())
     b = (bins.int() if bins.dtype == torch.uint16 else bins)[r].long()
     F_ = bins.shape[1]
     idx = (b + torch.arange(F_, device=dev) * num_bins).reshape(-1)
@@ -265,130 +307,175 @@ def index_add_call(bins, grad, hess, rows, count: int, num_bins: int,
     return lambda: out.zero_().index_add_(0, idx, vals)
 
 
+def hist_inputs(dev, gen):
+    """The HIGGS-width bins and the shapes both histogram phases share:
+    the root's bins, a skewed copy (90% of the rows in bin 0 of every
+    feature), a leaf of N/255 rows at an offset inside its parent's slice
+    with junk everywhere else in the slice (the kernel must never read
+    through a position outside [offset, offset + count)), and u16 bins."""
+    import torch
+    N = HIGGS_ROWS
+    bins = torch.randint(0, MAX_BIN, (N, F), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    skewed = bins.clone()
+    skewed[torch.rand(N, generator=gen, device=dev) < 0.9] = 0
+    leaf = N // 255
+    off = leaf + 3                      # the right child of a split
+    parent = torch.randperm(N, generator=gen, device=dev)[:off + leaf].int()
+    parent[:off] = 2 ** 31 - 1
+    n16 = 100_003
+    bins16 = torch.randint(0, 1024, (n16, 8), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.uint16)
+    rows16 = torch.randperm(n16, generator=gen, device=dev)[:90_000].int()
+    return bins, skewed, leaf, off, parent, bins16, rows16
+
+
+def one(dev, v: int):
+    """A one-element int32 on the device: the launch reads it there."""
+    import torch
+    return torch.tensor([v], dtype=torch.int32, device=dev)
+
+
+def time_hist(tag: str, name: str, kernel, plain, args, count: int,
+              offset: int, smi: str, chan_bytes: int, int_ops: int):
+    """The kernel's, the plain version's and index_add_'s times at one
+    shape, and the bound; printed, returned as a dict."""
+    import torch
+    k_ms = cuda_ms(lambda: kernel(*args))
+    p_ms = cuda_ms(lambda: plain(*args), reps=3, warm=1)
+    bins, a1, a2, rows, _, nb, mask = args[:7]
+    lib = index_add_call(bins, a1, a2, rows, count, nb, mask, offset)
+    l_ms = cuda_ms(lib, reps=5, warm=1)
+    del lib
+    torch.cuda.empty_cache()
+    bound, by, nbytes = hist_bound(bins, rows, count, nb, mask, chan_bytes,
+                                   int_ops)
+    print(f"{tag} [{name}]: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+          f"index_add_ {l_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+          f"{nbytes / 1e6:.1f} MB); kernel {'beats' if k_ms < l_ms else
+          'loses to'} index_add_ ({l_ms / k_ms:.2f}x) [{smi}]")
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": bound, "bound_by": by}
+
+
 def hist_phase(dev, seed: int, smi: str) -> dict:
+    """T2: K1 against its plain version at seven shapes, every channel
+    ``torch.equal`` (the same fixed-point integers), reruns ``torch.equal``;
+    times at the root, the leaf, the skewed root and the masked root."""
     import torch
     from lambdagap_tpu_torch.ops import hist_cuda as hc
     gen = torch.Generator(device=dev).manual_seed(seed)
     N = HIGGS_ROWS
-    bins = torch.randint(0, MAX_BIN, (N, F), generator=gen, device=dev,
-                         dtype=torch.uint8)
+    bins, skewed, leaf, off, parent, bins16, rows16 = hist_inputs(dev, gen)
     grad = torch.randn(N, generator=gen, device=dev)
     hess = torch.rand(N, generator=gen, device=dev) * 0.25
     bag = torch.rand(N, generator=gen, device=dev) < 0.8
-    leaf = N // 255
-    # a leaf's slice of a permutation, then ids no row has: the kernel
-    # must never read through a position past count
-    leaf_rows = torch.randperm(N, generator=gen, device=dev)[:2 * leaf].int()
-    leaf_rows[leaf:] = 2 ** 31 - 1
-    n16 = 100_003
-    bins16 = torch.randint(0, 1024, (n16, 8), generator=gen, device=dev,
-                           dtype=torch.int32).to(torch.uint16)
-    g16 = torch.randn(n16, generator=gen, device=dev)
-    h16 = torch.rand(n16, generator=gen, device=dev)
-    rows16 = torch.randperm(n16, generator=gen, device=dev)[:90_000].int()
-
-    def one(v: int):
-        """A count on the device: the launch reads it there."""
-        return torch.tensor([v], dtype=torch.int32, device=dev)
+    g16 = torch.randn(bins16.shape[0], generator=gen, device=dev)
+    h16 = torch.rand(bins16.shape[0], generator=gen, device=dev)
+    # extreme gradients: magnitudes 1e-30 to 1e3, both signs
+    sign = torch.randint(0, 2, (N,), generator=gen, device=dev) * 2 - 1
+    gx = 10.0 ** (torch.rand(N, generator=gen, device=dev) * 33 - 30) * sign
+    hx = 10.0 ** (torch.rand(N, generator=gen, device=dev) * 33 - 30)
+    budget = 3 * hc._MIN_BLOCK_ROWS + 1
+    # the fixed-point exponents, once per gradient set (the learner: once
+    # per tree), so a timed launch is the launch alone
+    k, k16, kx = (hc.hist_scale(grad, hess), hc.hist_scale(g16, h16),
+                  hc.hist_scale(gx, hx))
 
     cases = [
         ("a: HIGGS root, 28 u8 features, all rows",
-         (bins, grad, hess, None, N, 256, None), N),
-        ("b: a leaf, N/255 rows via a permutation slice, junk past count",
-         (bins, grad, hess, leaf_rows, one(leaf), 256, None), leaf),
+         (bins, grad, hess, None, N, 256, None, None, k), N, 0),
+        ("b: a leaf, N/255 rows at an offset in its parent's slice, junk "
+         "around it", (bins, grad, hess, parent, one(dev, leaf), 256, None,
+                       one(dev, off), k), leaf, off),
         ("c: u16 bins, 1024 bins x 8 features, ragged count",
-         (bins16, g16, h16, rows16, 77_777, 1024, None), 77_777),
-        ("d: count = 0", (bins, grad, hess, leaf_rows, one(0), 256, None), 0),
+         (bins16, g16, h16, rows16, 77_777, 1024, None, None, k16), 77_777,
+         0),
+        ("d: count = 0", (bins, grad, hess, parent, one(dev, 0), 256, None,
+                          one(dev, off), k), 0, off),
         ("e: HIGGS root with a bagging mask (fraction 0.8)",
-         (bins, grad, hess, None, N, 256, bag), int(bag.sum())),
+         (bins, grad, hess, None, N, 256, bag, None, k), int(bag.sum()), 0),
+        ("f: skewed root, 90% of the rows in bin 0 of every feature",
+         (skewed, grad, hess, None, N, 256, None, None, k), N, 0),
+        (f"g: extreme gradients (1e-30 to 1e3), a leaf of {budget} rows "
+         "(one past three blocks' row budget)",
+         (bins, gx, hx, parent, one(dev, budget), 256, bag, one(dev, off),
+          kx), budget, off),
     ]
     max_err = 0.0
     timed = {}
-    for name, args, live in cases:
+    for name, args, live, offset in cases:
         got = hc.hist_rows(*args)
         again = hc.hist_rows(*args)
         ref = hc._hist_reference(*args)
         torch.cuda.synchronize()
         check(torch.equal(got, again), f"K1 rerun not bit-identical ({name})")
-        check(torch.equal(got[..., 2], ref[..., 2]),
-              f"K1 count channel != plain ({name})")
-        check(torch.allclose(got[..., :2], ref[..., :2], rtol=2e-3,
-                             atol=1e-4), f"K1 grad/hess != plain ({name})")
-        check(int(got[..., 2].double().sum()) == live * args[0].shape[1],
+        check(torch.equal(got, ref),
+              f"K1 != plain ({name}): {int((got != ref).sum())} entries "
+              "differ")
+        counted = int(got[..., 2].double().sum())
+        check(name[0] == "g" or counted == live * args[0].shape[1],
               f"K1 counted rows wrongly ({name})")
-        err = float((got - ref).abs().max())
-        max_err = max(max_err, err)
-        ndiff = int((got != ref).sum())
-        print(f"K1 == plain [{name}]: counts equal, max |err| {err:.3g} "
-              f"({ndiff} of {got.numel()} entries not bit-equal), rerun "
+        max_err = max(max_err, float((got - ref).abs().max()))
+        print(f"K1 == plain [{name}]: torch.equal on every channel, rerun "
               "bit-identical")
-        if name[0] in "abe":
-            rows, count, mask = args[3], (N if name[0] != "b" else leaf), \
-                args[6]
-            k_ms = cuda_ms(lambda: hc.hist_rows(*args))
-            p_ms = cuda_ms(lambda: hc._hist_reference(*args), reps=3, warm=1)
-            lib = index_add_call(args[0], args[1], args[2], rows, count,
-                                 args[5], mask)
-            l_ms = cuda_ms(lib, reps=5, warm=1)
-            del lib
-            bound, by, nbytes = hist_bound(args[0], rows, count, args[5],
-                                           mask)
-            timed[name[0]] = (k_ms, p_ms, l_ms, bound, by)
-            print(f"K1 [{name}]: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-                  f"index_add_ {l_ms:.3f} ms, bound {bound:.4f} ms ({by}: "
-                  f"{nbytes / 1e6:.1f} MB) [{smi}]")
+        if name[0] in "abef":
+            rows, mask = args[3], args[6]
+            count = live if name[0] != "e" else N
+            timed[name[0]] = time_hist("K1", name, hc.hist_rows,
+                                       hc._hist_reference, args, count,
+                                       offset, smi, 8, 5)
     print(f"K1 launches in the comparisons: {hc.HIST_LAUNCHES.launches} "
           "(not counted below)")
-    del bins, grad, hess, leaf_rows, bag
+    del bins, skewed, grad, hess, parent, bag, gx, hx
     torch.cuda.empty_cache()
-    k_ms, p_ms, l_ms, bound, by = timed["a"]
-    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-            "bound_ms": bound, "bound_by": by, "max_abs_err": max_err,
-            "leaf_ms": timed["b"][0], "masked_ms": timed["e"][0]}
+    return {**timed["a"], "max_abs_err": max_err, "leaf": timed["b"],
+            "skewed": timed["f"], "masked": timed["e"]}
 
 
 def hist_q_phase(dev, seed: int, smi: str) -> dict:
-    """T2q: K2 against its plain version at four shapes, all torch.equal
-    (integer sums), reruns torch.equal; times at the root and a leaf."""
+    """T2q: K2 against its plain version at six shapes, all torch.equal
+    (integer sums), reruns torch.equal; times at the root, the leaf and the
+    skewed root."""
     import torch
     from lambdagap_tpu_torch.ops import hist_cuda as hc
     gen = torch.Generator(device=dev).manual_seed(seed)
     N = HIGGS_ROWS
-    bins = torch.randint(0, MAX_BIN, (N, F), generator=gen, device=dev,
-                         dtype=torch.uint8)
+    bins, skewed, leaf, off, parent, bins16, rows16 = hist_inputs(dev, gen)
     # num_grad_quant_bins=4 levels: g in [-2, 2], h in [0, 4]
     gq = torch.randint(-2, 3, (N,), generator=gen, device=dev,
                        dtype=torch.int8)
     hq = torch.randint(0, 5, (N,), generator=gen, device=dev,
                        dtype=torch.int8)
     bag = torch.rand(N, generator=gen, device=dev) < 0.8
-    leaf = N // 255
-    leaf_rows = torch.randperm(N, generator=gen, device=dev)[:2 * leaf].int()
-    leaf_rows[leaf:] = 2 ** 31 - 1
-    n16 = 100_003
-    bins16 = torch.randint(0, 1024, (n16, 8), generator=gen, device=dev,
-                           dtype=torch.int32).to(torch.uint16)
+    n16 = bins16.shape[0]
     gq16 = torch.randint(-63, 64, (n16,), generator=gen, device=dev,
                          dtype=torch.int8)
     hq16 = torch.randint(0, 127, (n16,), generator=gen, device=dev,
                          dtype=torch.int8)
     bag16 = torch.rand(n16, generator=gen, device=dev) < 0.7
-    rows16 = torch.randperm(n16, generator=gen, device=dev)[:90_000].int()
-
-    def one(v: int):
-        return torch.tensor([v], dtype=torch.int32, device=dev)
+    # saturated: every row in bin 0 at the extreme levels, no mask, so each
+    # block's packed fields reach their flush budget
+    zeros = torch.zeros_like(bins)
+    g_sat = torch.full((N,), -127, dtype=torch.int8, device=dev)
+    h_sat = torch.full((N,), 127, dtype=torch.int8, device=dev)
 
     cases = [
         ("a: HIGGS root, 28 u8 features, bagging mask 0.8",
-         (bins, gq, hq, None, N, 256, bag), N),
-        ("b: a leaf, N/255 rows via a permutation slice, junk past count",
-         (bins, gq, hq, leaf_rows, one(leaf), 256, bag), leaf),
+         (bins, gq, hq, None, N, 256, bag), None, N, 0),
+        ("b: a leaf, N/255 rows at an offset in its parent's slice, junk "
+         "around it", (bins, gq, hq, parent, one(dev, leaf), 256, bag,
+                       one(dev, off)), None, leaf, off),
         ("c: u16 bins, 1024 bins x 8 features, ragged count, mask 0.7",
-         (bins16, gq16, hq16, rows16, 77_777, 1024, bag16), 77_777),
-        ("d: count = 0", (bins, gq, hq, leaf_rows, one(0), 256, bag), 0),
+         (bins16, gq16, hq16, rows16, 77_777, 1024, bag16), None, 77_777, 0),
+        ("d: count = 0", (bins, gq, hq, parent, one(dev, 0), 256, bag,
+                          one(dev, off)), None, 0, off),
+        ("e: saturated, every row in bin 0 with g_q = -127, h_q = 127",
+         (zeros, g_sat, h_sat, None, N, 256, None), None, N, 0),
+        ("f: skewed root, 90% of the rows in bin 0, mask 0.8",
+         (skewed, gq, hq, None, N, 256, bag), None, N, 0),
     ]
-    timed = {}
-    for name, args, count in cases:
+    for name, args, _, count, offset in cases:
         got = hc.hist_rows_q(*args)
         again = hc.hist_rows_q(*args)
         ref = hc._hist_q_reference(*args)
@@ -399,35 +486,44 @@ def hist_q_phase(dev, seed: int, smi: str) -> dict:
         check(torch.equal(got, again), f"K2 rerun not bit-identical ({name})")
         rows, mask = args[3], args[6]
         r = (torch.arange(count, device=dev) if rows is None
-             else rows[:count].long())
-        live = int(mask[r].sum())
+             else rows[offset:offset + count].long())
+        live = count if mask is None else int(mask[r].sum())
         check(int(got[..., 2].long().sum()) == live * args[0].shape[1],
               f"K2 counted rows wrongly ({name})")
+        if name[0] == "e":
+            check(int(got[0, 0, 0]) == -127 * N and
+                  int(got[0, 0, 1]) == 127 * N,
+                  f"K2 saturated sums {got[0, 0].tolist()}")
         print(f"K2 == plain [{name}]: torch.equal, rerun bit-identical, "
               f"{live} in-bag rows")
-        if name[0] in "ab":
-            k_ms = cuda_ms(lambda: hc.hist_rows_q(*args))
-            p_ms = cuda_ms(lambda: hc._hist_q_reference(*args), reps=3,
-                           warm=1)
-            lib = index_add_call(args[0], args[1], args[2], rows, count,
-                                 args[5], mask)
-            l_ms = cuda_ms(lib, reps=5, warm=1)
-            del lib
-            bound, by, nbytes = hist_bound(args[0], rows, count, args[5],
-                                           mask, chan_bytes=2,
-                                           ops_per_s=H100_F32_OPS_PER_S)
-            timed[name[0]] = (k_ms, p_ms, l_ms, bound, by)
-            print(f"K2 [{name}]: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-                  f"index_add_ (int64) {l_ms:.3f} ms, bound {bound:.4f} ms "
-                  f"({by}: {nbytes / 1e6:.1f} MB) [{smi}]")
+    timed = {}
+    for key in "abf":
+        name, args, _, count, offset = cases["abcdef".index(key)]
+        timed[key] = time_hist("K2", name, hc.hist_rows_q,
+                               hc._hist_q_reference, args, count, offset,
+                               smi, 2, 2)
     print(f"K2 launches in the comparisons: {hc.HIST_Q_LAUNCHES.launches} "
           "(not counted below)")
-    del bins, gq, hq, leaf_rows, bag
+    del bins, skewed, gq, hq, parent, bag, zeros, g_sat, h_sat
     torch.cuda.empty_cache()
-    k_ms, p_ms, l_ms, bound, by = timed["a"]
-    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-            "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0,
-            "leaf_ms": timed["b"][0]}
+    return {**timed["a"], "max_abs_err": 0.0, "leaf": timed["b"],
+            "skewed": timed["f"]}
+
+
+def sass_phase() -> None:
+    """The histogram kernels' atomics as compiled: every shared-memory add
+    native (ATOMS.ADD / ATOMS.POPC.INC), none a compare-and-swap loop; the
+    64-bit adds into K1's workspace global reductions (REDG...ADD.64)."""
+    from lambdagap_tpu_torch.ops import hist_cuda
+    from lambdagap_tpu_torch.utils import cuda_build
+    for source in (hist_cuda.HIST_SOURCE, hist_cuda.HIST_Q_SOURCE):
+        ops = cuda_build.sass_atomics(source)
+        print(f"SASS atomics of {source}: "
+              + ", ".join(f"{k} x{v}" for k, v in sorted(ops.items())))
+        check(not any("CAS" in k for k in ops),
+              f"{source}: an atomic compiled to a compare-and-swap loop")
+        check(any(k.startswith("ATOMS.ADD") for k in ops),
+              f"{source}: no native shared-memory add")
 
 
 # ---------------------------------------------------------------------------
@@ -517,6 +613,13 @@ def train_phase(args, smi: str):
           f"split scan {ph.get('split_scan', 0):.1f} ms, partition "
           f"{ph.get('partition', 0):.1f} ms; {lr.host_syncs} host syncs "
           f"[{smi}]")
+    k_ms, k_calls = profiled_kernel_ms(
+        lambda: lr.train_device(grad[0], hess[0]),
+        ("hist_kernel", "hist_finish_kernel"))
+    print(f"T3 K1 kernel-only device time per tree: {k_ms:.3f} ms over "
+          f"{k_calls} kernel launches ({lr.hist_builds} histograms, each the "
+          f"main kernel and its f32 pass; torch.profiler), "
+          f"{100 * k_ms / tree_ms:.1f}% of the tree's host wall [{smi}]")
     return {"bst": bst, "Xva": Xva, "launches": launches, "train": tr,
             "valid": va, "params": params, "auc": auc[-1]}
 
@@ -599,6 +702,12 @@ def quant_phase(t3: dict, smi: str):
           f"ms; {lr.host_syncs} host syncs; one threefry draw of "
           f"{lr.num_data} uniforms {draw_ms:.2f} ms, two per tree "
           f"(stochastic rounding) and one per round (bagging) [{smi}]")
+    k_ms, k_calls = profiled_kernel_ms(
+        lambda: lr.train_device(grad[0], hess[0], mask), ("hist_q_kernel",))
+    print(f"T6 K2 kernel-only device time per tree: {k_ms:.3f} ms over "
+          f"{k_calls} launches ({lr.hist_builds} histograms; "
+          f"torch.profiler), {100 * k_ms / tree_ms:.1f}% of the tree's host "
+          f"wall [{smi}]")
     return bst, k2
 
 
@@ -619,9 +728,9 @@ def card_vs_cpu(params: dict, Xt, yt, Xv, yv, rounds: int):
                        bst.best_score["valid_0"]["auc"],
                        time.perf_counter() - t0, bst)
     (pc, bc, _, _, _), (pp, bp, _, _, _) = out["cuda"], out["cpu"]
-    # training rows: the card's histograms equal the CPU's but for a rare
-    # last-bit rounding, and a tie that one breaks across bins holding no
-    # training row routes no training row differently
+    # training rows: the card's histograms equal the CPU's (exact sums),
+    # and a tie that one breaks across bins holding no training row routes
+    # no training row differently
     check(np.allclose(pc, pp, rtol=1e-4, atol=1e-5),
           f"card != CPU predictions (max |diff| {np.abs(pc - pp).max()}; "
           f"{params})")
@@ -731,6 +840,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=HIGGS_ROWS,
                     help="training rows of phase T3 (HIGGS's count)")
+    ap.add_argument("--only", choices=("all", "kernels"), default="all",
+                    help="kernels: phases 1-2 (with the SASS check), T2 and "
+                    "T2q, then stop without a result line")
     args = ap.parse_args()
 
     import torch
@@ -772,11 +884,18 @@ def main() -> int:
     handles = [cuda_build.start_build(s) for s in sources]
     for s, h in zip(sources, handles):
         report = cuda_build.finish_build(h)
-        regs = [ln.strip() for ln in report.splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"built {s}: " + ("; ".join(regs[:4]) if regs
-                                else "(cached)"))
+        regs = [ln.split("info    :", 1)[-1].strip()
+                for ln in report.splitlines()
+                if "Compiling entry" in ln or "registers" in ln
+                or "spill" in ln]
+        print(f"built {s}: " + ("; ".join(regs) if regs else "(cached)"))
     print(f"build: {time.perf_counter() - t0:.2f} s")
+    sass_phase()
+    if args.only == "kernels":
+        hist_phase(dev, args.seed + 11, smi)
+        hist_q_phase(dev, args.seed + 12, smi)
+        print("chip_smoke: kernel phases passed (--only kernels: no result)")
+        return 0
 
     # -- 3. the HIGGS-width forest, round-tripped through text --------------
     t0 = time.perf_counter()

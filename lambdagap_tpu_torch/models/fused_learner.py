@@ -16,11 +16,12 @@ port keeps the algorithm and the device residency, not the loop form:
   from that step on, so the tree is the same. ``host_syncs`` counts the
   reads of the last tree.
 * The split leaf is the first argmax of the stored best gains; the smaller
-  child's histogram comes from the CUDA kernel (``ops/hist_cuda``), the
-  larger child's is the parent's minus it; both children's best splits are
-  scanned in one batched call; leaf and node ids are assigned as the JAX
-  state updates assign them; ``row_leaf`` comes from the final
-  permutation.
+  child's histogram comes from the CUDA kernel (``ops/hist_cuda``), which
+  reads the child's rows in place in the parent's slice of the permutation
+  (a device offset, no gather), the larger child's is the parent's minus
+  it; both children's best splits are scanned in one batched call; leaf
+  and node ids are assigned as the JAX state updates assign them;
+  ``row_leaf`` comes from the final permutation.
 * The partition is a stable partition of the chosen leaf's slice in plain
   torch ops (left rows first, each side in slice order).
 * A bagging/GOSS in-bag mask rides into every histogram kernel launch:
@@ -55,7 +56,7 @@ from ..config import Config
 from ..data.bundling import unbundle_map
 from ..data.dataset import BinnedDataset
 from ..ops.hist_cuda import (exact_accum_limit, hist_rows, hist_rows_q,
-                             quantize_gradients)
+                             hist_scale, quantize_gradients)
 from ..ops.histogram import subtract_histogram, unbundle_hist
 from ..ops.partition import decision_go_left, decode_bundled, \
     split_partition
@@ -206,15 +207,20 @@ class FusedTreeLearner(SerialTreeLearner):
                     grad, hess, keys[1], cfg.num_grad_quant_bins,
                     cfg.stochastic_rounding)
                 qscale = torch.stack([gs, hs, torch.ones_like(gs)])
+        else:
+            # K1's fixed-point exponents, once per tree (no host read)
+            hscale = hist_scale(grad, hess)
 
-        def leaf_hist(rows, count) -> torch.Tensor:
-            """One leaf's f32 [C, Bb, 3] histogram from the kernel; under
-            quantization the exact int32 level sums scaled to gradient
-            units (the JAX learner, fused_learner.py:679-681)."""
+        def leaf_hist(rows, count, offset=None) -> torch.Tensor:
+            """One leaf's f32 [C, Bb, 3] histogram from the kernel over
+            positions ``rows[offset + p]``, p < count; under quantization
+            the exact int32 level sums scaled to gradient units (the JAX
+            learner, fused_learner.py:679-681)."""
             if self.quant:
                 return hist_rows_q(self.x_rows, gq, hq, rows, count, Bb,
-                                   mask).float() * qscale
-            return hist_rows(self.x_rows, grad, hess, rows, count, Bb, mask)
+                                   mask, offset).float() * qscale
+            return hist_rows(self.x_rows, grad, hess, rows, count, Bb, mask,
+                             offset, hscale)
 
         def scan_hist(h, sums) -> torch.Tensor:
             """Stored histograms [..., C, Bb, 3] -> per-feature [..., F, B,
@@ -311,11 +317,12 @@ class FusedTreeLearner(SerialTreeLearner):
                 small_is_left = left_count <= right_count
                 small_count = torch.where(small_is_left, left_count,
                                           right_count).to(torch.int32)
-                off = torch.where(small_is_left, 0, left_count)
-                pos = torch.clamp(torch.arange(count, device=dev) + off,
-                                  max=count - 1)
-                small_rows = perm[begin:begin + count][pos]
-                hist_small = leaf_hist(small_rows, small_count.reshape(1))
+                # the smaller child's rows are the parent's slice from
+                # `off` on: the kernel reads them there, with no gather
+                off = torch.where(small_is_left, 0, left_count).to(
+                    torch.int32).reshape(1)
+                hist_small = leaf_hist(perm[begin:begin + count],
+                                       small_count.reshape(1), off)
                 hist_large = subtract_histogram(hist[leaf], hist_small)
                 hist_left = torch.where(small_is_left, hist_small,
                                         hist_large)

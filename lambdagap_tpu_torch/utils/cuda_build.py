@@ -6,8 +6,10 @@ loaded with ``ctypes``. Nothing is built at import: :func:`load` builds on
 first use (the CPU tests never reach it), and ``chip_smoke.py`` starts one
 ``nvcc`` per source at once (:func:`start_build`, :func:`finish_build`).
 Libraries land in ``build/kernels/`` beside the package (git-ignored),
-named by a hash of the source and the flags, so an edited source never
-loads a stale build and a second process reuses the first one's.
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source never loads a stale build and a second
+process reuses the first one's. :func:`sass_atomics` lists the atomic
+instructions a built library holds (``cuobjdump -sass``).
 """
 from __future__ import annotations
 
@@ -17,8 +19,9 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 from . import log
 
@@ -45,8 +48,11 @@ def nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
+    """Where the library built from ``csrc/<source>`` lives: named by the
+    source, the shared headers it may include and the flags."""
     h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
@@ -89,3 +95,21 @@ def load(source: str) -> ctypes.CDLL:
     if report:
         log.debug("nvcc %s:\n%s", source, report)
     return ctypes.CDLL(str(library_path(source)))
+
+
+def sass_atomics(source: str) -> Dict[str, int]:
+    """Count of each atomic / reduction opcode (``ATOM*``, ``RED*``) in the
+    SASS of ``csrc/<source>``'s built library, from ``cuobjdump -sass``
+    beside nvcc. A CAS opcode there means an atomic was compiled as a
+    compare-and-swap loop."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(library_path(source))],
+                          capture_output=True, text=True, check=True).stdout
+    ops = Counter()
+    for line in text.splitlines():
+        words = line.split("*/", 1)[-1].split()
+        if words and words[0].startswith("@"):       # a predicate
+            words = words[1:]
+        if words and words[0].startswith(("ATOM", "RED")):
+            ops[words[0].rstrip(";")] += 1
+    return dict(ops)

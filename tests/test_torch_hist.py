@@ -2,12 +2,17 @@
 what ``hist_rows`` runs on a CPU tensor) held to the JAX package's Pallas
 histogram kernel in interpret mode and to a numpy float64 loop, on the
 cases ``tests/test_layout.py`` holds ``hist_pallas`` to: a ragged count,
-junk past the count, gather/contiguous order invariance, u16 bins.
+junk past the count, gather/contiguous order invariance, u16 bins; and the
+fixed-point contract K1 shares with it: the sums do not depend on the
+order of a leaf's rows, the scale exponents do not either, no sum
+overflows, and an offset into the row list equals slicing it.
 
 Tolerances: grad/hess within rtol 2e-3 / atol 1e-4 of ``hist_pallas`` (its
 bf16 hi/lo channel split is ~f32-accurate, the bar tests/test_layout.py
-sets it) and within rtol 1e-6 of the f64 loop (the plain version sums in
-f64 and rounds once to f32); the count channel is exact everywhere.
+sets it) and within rtol 1e-6 / atol 1e-6 of the f64 loop (the plain
+version sums 64-bit fixed-point integers, each value within 2^-(k+1) of
+its own, and rounds each sum to f32 once); the count channel is exact
+everywhere.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -130,3 +135,105 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         hc.hist_rows(bins, g, h, None, 16, 8)
     assert hc.HIST_LAUNCHES.launches == before
+
+
+def _extreme(seed, P):
+    """Gradients spanning 1e-30 to 1e3 in magnitude, both signs."""
+    rng = np.random.RandomState(seed)
+    g = (10.0 ** rng.uniform(-30, 3, P) * rng.choice([-1, 1], P))
+    h = 10.0 ** rng.uniform(-30, 3, P)
+    return g.astype(np.float32), h.astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_is_equal_under_any_row_order(seed):
+    """Integer sums do not depend on the order of the adds: any
+    permutation of a leaf's row list gives the same bits, with a mask,
+    on extreme gradients (float sums would differ in the last bits)."""
+    rng = np.random.RandomState(seed)
+    P, F, B = 900, 5, 16
+    bins = rng.randint(0, B, (P, F)).astype(np.uint8)
+    g, h = _extreme(seed, P)
+    mask = torch.from_numpy(rng.rand(P) < 0.8)
+    t = torch.from_numpy
+    leaf = rng.permutation(P)[:700].astype(np.int32)
+    ref = hc.hist_rows(t(bins), t(g), t(h), t(leaf), 700, B, mask)
+    for k in range(4):
+        shuffled = np.random.RandomState(100 + k).permutation(leaf)
+        got = hc.hist_rows(t(bins), t(g), t(h), t(shuffled), 700, B, mask)
+        assert torch.equal(got, ref)
+
+
+def test_plain_extreme_gradients_and_one_bin_equal_f64():
+    """Gradients from 1e-30 to 1e3 with negative values, once spread over
+    the bins and once with every row in one bin, against the f64 loop."""
+    P, F, B = 2000, 3, 8
+    g, h = _extreme(7, P)
+    rng = np.random.RandomState(7)
+    for bins in (rng.randint(0, B, (P, F)).astype(np.uint8),
+                 np.full((P, F), 5, np.uint8)):
+        got = _plain(bins, g, h, None, P, B)
+        ref = _np_hist(bins, g, h, None, P, B)
+        np.testing.assert_array_equal(got[..., 2], ref[..., 2])
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("min_row_bits", [24, 0])
+def test_scale_is_order_free_and_bounds_every_sum(min_row_bits, monkeypatch):
+    """The exponents come from maxima and the row count only, so shuffled
+    inputs give the same k; and at that k the largest possible sum (every
+    row at the largest magnitude, all in one bin) stays below 2^62 — at
+    the default floor of 2^24 rows and, with the floor taken away, at the
+    tightest k the row count allows."""
+    monkeypatch.setattr(hc, "_SCALE_MIN_ROW_BITS", min_row_bits)
+    g, h = _extreme(3, 5000)
+    t = torch.from_numpy
+    k = hc.hist_scale(t(g), t(h))
+    perm = np.random.RandomState(3).permutation(5000)
+    assert torch.equal(hc.hist_scale(t(g[perm]), t(h[perm])), k)
+    assert k.dtype == torch.int32 and k.shape == (2,)
+    # the largest row count built here, one row short of a power of two,
+    # each value the largest f32 below 1 (so e = 0 and n = 21)
+    n = 2 ** 21 - 1
+    want_k = 62 - max(21, min_row_bits)
+    top = np.float32(np.nextafter(np.float32(1), np.float32(0)))
+    for sign in (1, -1):
+        gg = torch.full((n,), sign * top)
+        hh = torch.full((n,), top)
+        kk = hc.hist_scale(gg, hh)
+        assert kk.tolist() == [want_k, want_k]
+        exact = n * round(float(top) * 2.0 ** want_k)
+        assert exact < 2 ** 62
+        got = hc.hist_rows(torch.zeros((n, 1), dtype=torch.uint8), gg, hh,
+                           None, n, 2)
+        np.testing.assert_allclose(got[0, 0].double().numpy(),
+                                   [sign * n * float(top), n * float(top),
+                                    n], rtol=1e-7)
+
+
+def test_offset_equals_slicing():
+    """Position p reads rows[offset + p]: a leaf passed as its parent's
+    slice with a device offset equals the sliced list, with junk outside
+    [offset, offset + count)."""
+    bins, g, h = _data(9, 600, 4, 16)
+    rows = np.random.RandomState(9).permutation(600).astype(np.int32)
+    t = torch.from_numpy
+    mask = torch.from_numpy(np.random.RandomState(10).rand(600) < 0.7)
+    for off, count in ((0, 250), (250, 350), (137, 1)):
+        junk = rows.copy()
+        junk[:off] = 2 ** 31 - 1
+        junk[off + count:] = -5
+        offset = torch.tensor([off], dtype=torch.int32)
+        got = hc.hist_rows(t(bins), t(g), t(h), t(junk),
+                           torch.tensor([count], dtype=torch.int32), 16,
+                           mask, offset)
+        want = hc.hist_rows(t(bins), t(g), t(h),
+                            t(rows[off:off + count].copy()), count, 16, mask)
+        assert torch.equal(got, want)
+
+
+def test_offset_needs_a_row_list():
+    bins, g, h = (torch.from_numpy(a) for a in _data(11, 32, 2, 8))
+    with pytest.raises(TypeError, match="offset"):
+        hc.hist_rows(bins, g, h, None, 32, 8,
+                     offset=torch.zeros(1, dtype=torch.int32))

@@ -4,9 +4,10 @@ on the same numpy gradients and key, the K2 plain version
 (``ops/hist_cuda._hist_q_reference``, what ``hist_rows_q`` runs on a CPU
 tensor) ``array_equal`` to ``hist_pallas_q`` in interpret mode at
 ``tests/test_layout.py:249-263``'s shape, with a mask and with u16 bins,
-and the masked f32 plain version (``_hist_reference``) against a numpy
-float64 loop (rtol 1e-6: it sums in f64 and rounds once; the count channel
-exactly)."""
+the masked f32 plain version (``_hist_reference``) against a numpy
+float64 loop (rtol 1e-6 / atol 1e-6: it sums 64-bit fixed-point integers
+and rounds once; the count channel exactly), and an offset into the row
+list equal to slicing it."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -89,6 +90,28 @@ def test_plain_q_equals_hist_pallas_q(masked, count):
     np.testing.assert_array_equal(got, loop)
 
 
+def test_plain_q_holds_the_level_range_and_refuses_negative_hess():
+    """The plain version at the ends of the levels K2 takes (g_q -128 and
+    127, h_q 0 and 127, rows piled into one bin) equals a numpy int64 loop;
+    a negative h_q, which K2's packed word cannot hold, is refused on the
+    CPU."""
+    rng = np.random.RandomState(13)
+    P, F, B = 400, 3, 8
+    bins = rng.randint(0, B, (P, F)).astype(np.uint8)
+    bins[::2, 1] = 5
+    gq = rng.choice(np.array([-128, 127], np.int8), P)
+    hq = rng.choice(np.array([0, 127], np.int8), P)
+    got = hc.hist_rows_q(t(bins), t(gq), t(hq), None, P, B).numpy()
+    loop = np.zeros((F, B, 3), np.int64)
+    for i in range(P):
+        for f in range(F):
+            loop[f, bins[i, f]] += [gq[i], hq[i], 1]
+    np.testing.assert_array_equal(got, loop)
+    hq[7] = -1
+    with pytest.raises(ValueError, match="h_q"):
+        hc.hist_rows_q(t(bins), t(gq), t(hq), None, P, B)
+
+
 def test_plain_q_u16_bins_through_a_row_list():
     """u16 bins with more than 256 bins, gathered through a permutation
     with out-of-range junk past a device-style count."""
@@ -161,3 +184,24 @@ def test_exact_accum_limit_matches_jax():
     for impl in ("pallas", "onehot", "auto"):
         assert hc.exact_accum_limit(impl) == hp.exact_accum_limit(impl)
     assert hc.MAX_QUANT_BINS == hp.MAX_QUANT_BINS
+
+
+def test_plain_q_offset_equals_slicing():
+    """Position p reads rows[offset + p], as for hist_rows; junk outside
+    [offset, offset + count) is never read through."""
+    rng = np.random.RandomState(12)
+    P, F, B = 500, 3, 16
+    bins = t(rng.randint(0, B, (P, F)).astype(np.uint8))
+    gq, hq = (t(a) for a in _levels(12, P))
+    mask = t(rng.rand(P) < 0.75)
+    rows = rng.permutation(P).astype(np.int32)
+    for off, count in ((0, 200), (200, 300), (499, 1)):
+        junk = rows.copy()
+        junk[:off] = 2 ** 31 - 1
+        junk[off + count:] = -5
+        got = hc.hist_rows_q(bins, gq, hq, t(junk),
+                             torch.tensor([count], dtype=torch.int32), B,
+                             mask, torch.tensor([off], dtype=torch.int32))
+        want = hc.hist_rows_q(bins, gq, hq, t(rows[off:off + count].copy()),
+                              count, B, mask)
+        assert torch.equal(got, want)
