@@ -18,16 +18,21 @@ Run from the root of a checkout. Phases, each fatal on failure:
    trees of 255 leaves, thresholds on a 254-boundary grid per feature,
    NaN- and zero-missing nodes) and round-trip it through the port's text
    writer and parser;
-4. the traversal kernel against its plain PyTorch version on the card,
-   on every node block of that forest's artifact at 1, 8, 601 and 4096
-   rows (NaN and zero rows mixed in) and on a 70-category forest with
-   hostile values: the node carries must be ``torch.equal``; then the
-   kernel's and the plain version's times (CUDA events, median of 30) and
-   the kernel's bound;
+4. the traversal kernel (K3) against its plain PyTorch version on the
+   card, on that forest at 1, 8, 64, 601 and 4096 rows (NaN and zero rows
+   mixed in), on a 70-category forest with hostile values and on two
+   16,384-leaf trees: the node carries must be ``torch.equal``; the
+   accumulation kernel against the plain leaf gather + forest-order loop
+   on that forest and on a 3-class one, at 1, 97 and 4096 rows, early stop
+   off and on: ``torch.equal``; then both kernels' device times (CUDA
+   events, median of 30, L2 warm and flushed) and bounds, and
+   ``CompiledForest.predict``'s host wall, at 1, 64, 256, 1024 and 4096
+   rows;
 5. the serving path: ``Booster(model_str=...).as_server(raw_score=True)``
    on the card answers requests of 1..4096 rows from 4 threads, each
    answer ``array_equal`` to the port's scan oracle on the card; the launch
-   counts are zeroed just before and read just after;
+   counts are zeroed just before and read just after, and every traversal
+   launch has its accumulation launch;
 T2. the f32 histogram kernel (K1) against its plain version on the card at
    seven shapes (the HIGGS root, a leaf read at an offset inside its
    parent's slice with junk around it, u16 bins with a ragged count, count
@@ -64,7 +69,7 @@ T4. the example shape (16,000 x 20, 63 leaves, 30 rounds, validation set,
    quantized validation AUC within 0.02 of the f32 one;
 T5. the T3 model through ``model_to_string`` -> ``Booster(model_str=)`` ->
    ``as_server(raw_score=True)``: a burst, each answer ``array_equal`` to
-   the scan oracle on the card;
+   the scan oracle on the card, one accumulation launch per K3 launch;
 T7. EFB: 200,000 rows of 8 dense features and 4 groups of 6 mutually
    exclusive sparse columns (bundles form, fewer columns than features),
    f32 and quantized, on the card and on the CPU at T4's bar, K1 and K2
@@ -257,6 +262,186 @@ def higgs_like(seed: int, n: int, f: int = F):
          + 0.4 * np.sin(2.0 * X[:, 4]) + 0.2 * X[:, 5] - 0.2 * X[:, 9]
          + 0.7 * rng.standard_normal(n, dtype=np.float32))
     return X, (z > 0.0).astype(np.float32)
+
+
+def acc_bound(R: int, G: int, T: int, L: int, K: int):
+    """The accumulation's bound: the carry read once, the leaf table and
+    the two [T] maps read once, the scores written once; one add per (row,
+    tree)."""
+    nbytes = R * G * 4 + T * L * 4 + 2 * T * 4 + K * R * 4
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = R * T / H100_F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes)
+
+
+# ---------------------------------------------------------------------------
+# 4: the serving kernels (K3, the accumulation) against their plain versions
+# ---------------------------------------------------------------------------
+def serve_kernels_phase(seed: int, rng, dev, smi: str, art, cf):
+    """K3 and the accumulation kernel against their plain versions on the
+    card, ``torch.equal``: the HIGGS-width forest, a 70-category forest with
+    hostile values, two 16,384-leaf trees, a 3-class forest with early stop
+    off and on. Then both kernels' device times (L2 warm and flushed),
+    bounds, and the dispatch's host wall at 1, 64, 256, 1,024 and 4,096
+    rows."""
+    import torch
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.convert import booster_from_numpy
+    from lambdagap_tpu_torch.infer import CompiledForest, compile_forest
+    from lambdagap_tpu_torch.infer import engine as eng
+    from lambdagap_tpu_torch.models import synth
+    tables = cf.tables
+
+    def forest(trees, feats, objective="binary sigmoid:1"):
+        text = booster_from_numpy(synth.header(feats, objective), trees,
+                                  {"device_type": "cpu"}).model_to_string()
+        gb = lgt.Booster(model_str=text,
+                         params={"device_type": "cpu"})._booster
+        return CompiledForest(compile_forest(gb), dev)
+
+    err = {"k3": 0, "acc": 0.0}   # largest |kernel - plain| of any check
+
+    def against_plain(tag, x, t):
+        ref = eng._traverse_all_reference(x, t)
+        got = eng.traverse_forest(x, t)
+        torch.cuda.synchronize()
+        check(got.shape == ref.shape, f"K3 carry shape {got.shape}")
+        if ref.numel():
+            err["k3"] = max(err["k3"], int(
+                (got.long() - ref.long()).abs().max()))
+        check(torch.equal(got, ref),
+              f"K3 != plain traversal on the {tag} forest at {x.shape[0]} "
+              f"rows ({int((got != ref).sum())} entries differ)")
+        check(bool((ref < 0).all()), f"non-leaf carry at {x.shape[0]} rows")
+        return ref
+
+    t0 = time.perf_counter()
+    for n in (1, 8, 64, 601, 4096):
+        against_plain("HIGGS", torch.from_numpy(
+            synth.random_rows(rng, n, F)).to(dev), tables)
+    print(f"K3 == plain at 1, 8, 64, 601, 4096 rows x "
+          f"{tables.group_root.shape[0]} groups ({len(tables.depths)} node "
+          f"blocks, {tables.rec.shape[0]} records)")
+    cfeats = 6
+    ccf = forest(synth.categorical_trees(seed + 1, num_features=cfeats),
+                 cfeats)
+    check(ccf.artifact.meta["cat_words"] >= 3,
+          "70 categories need 3 bitset words")
+    for n in (8, 601, 4096):
+        against_plain("categorical", torch.from_numpy(
+            synth.hostile_rows(rng, n, cfeats)).to(dev), ccf.tables)
+    print("K3 == plain on the 70-category forest with hostile values")
+    big = forest(synth.random_trees(seed + 2, 2, 16384, F), F)
+    for n in (1, 64, 4096):
+        against_plain("16,384-leaf", torch.from_numpy(
+            synth.random_rows(rng, n, F)).to(dev), big.tables)
+    print(f"K3 == plain on 2 trees of 16,384 leaves "
+          f"({big.tables.group_node_lo.tolist()} records, "
+          f"{big.tables.group_steps.tolist()} levels)")
+
+    # the accumulation: 1 class (the HIGGS forest) and 3 (interleaved
+    # trees), early stop off and on, carries from K3 (group-major view)
+    cf3 = forest(synth.random_trees(seed + 3, 300, LEAVES, F, GRID), F,
+                 "multiclass num_class:3")
+    check(cf3.num_class == 3 and
+          cf3._tree_class[:6].tolist() == [0, 1, 2, 0, 1, 2],
+          "the 3-class forest interleaves its trees by class")
+    for name, f in (("binary", cf), ("3-class", cf3)):
+        K = f.num_class
+        for n in (1, 97, 4096):
+            x = torch.from_numpy(synth.random_rows(rng, n, F)).to(dev)
+            carry = eng.traverse_forest(x, f.tables)
+            vals = eng._leaf_values(carry, f._group_of_tree, f._leaf_value)
+            outs = []
+            for freq, margin in ((0, 0.0), (3 * K, 0.5)):
+                ref = eng._accumulate(vals, f._tree_class.tolist(), K, freq,
+                                      margin)
+                got = eng.accumulate_forest(carry, f._group_of_tree,
+                                            f._leaf_value, f._tree_class, K,
+                                            freq, margin)
+                torch.cuda.synchronize()
+                check(got.shape == ref.shape, f"scores shape {got.shape}")
+                err["acc"] = max(err["acc"],
+                                 float((got - ref).abs().max()))
+                check(torch.equal(got, ref),
+                      f"accumulation kernel != plain on the {name} forest at "
+                      f"{n} rows, early stop {freq} ({int((got != ref).sum())}"
+                      " scores differ)")
+                outs.append(got)
+            stopped = int((outs[0] != outs[1]).any(0).sum())
+            if n == 4096:
+                check(stopped > 0, f"early stop never stopped a row of the "
+                      f"{name} forest")
+        print(f"accumulation == plain on the {name} forest ({K} class(es), "
+              f"{f.num_trees} trees) at 1, 97, 4096 rows, early stop off and "
+              f"on (freq {3 * K}, margin 0.5: {stopped} of 4096 rows "
+              "stopped)")
+    print(f"K3 launches in the comparisons: {eng.TRAVERSE_LAUNCHES.launches},"
+          f" accumulation launches {eng.ACCUMULATE_LAUNCHES.launches} (not "
+          f"counted below) ({time.perf_counter() - t0:.1f} s)")
+
+    # times: K3, the accumulation, the dispatch
+    x4k = torch.from_numpy(synth.random_rows(rng, 4096, F)).to(dev)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    fill_ms = cuda_ms(lambda: flush.fill_(1))
+
+    def warm_cold(fn):
+        def cold():
+            flush.fill_(1)                # evict L2 (50 MB) first
+            fn()
+        return cuda_ms(fn), cuda_ms(cold) - fill_ms
+
+    one = torch.zeros(1, device=dev)
+    print(f"launch floor (one 1-element add, same timing): "
+          f"{cuda_ms(lambda: one.add_(1)):.4f} ms [{smi}]")
+    T, L = cf._leaf_value.shape
+    G = int(tables.group_root.shape[0])
+    k3, acc = {}, {}
+    for n in (1, 64, 256, 1024, 4096):
+        xn = x4k[:n].contiguous()
+        carry = eng.traverse_forest(xn, tables)
+        steps = steps_taken(art, carry.cpu().numpy())
+        bound_ms, bound_by, nbytes = kernel_bound(
+            xn, tables.artifact_tables(), carry.shape, steps)
+        k_ms, k_cold = warm_cold(lambda: eng.traverse_forest(xn, tables))
+        print(f"K3 @{n} rows x {G} groups: {k_ms:.4f} ms (L2 warm) "
+              f"{k_cold:.4f} ms (L2 flushed); bound {bound_ms:.4f} ms "
+              f"({bound_by}: {nbytes / 1e6:.2f} MB, {steps} decision steps) "
+              f"[{smi}]")
+        k3[n] = {"ms": k_ms, "cold_ms": k_cold, "bound_ms": bound_ms,
+                 "bound_by": bound_by}
+        a_ms, a_cold = warm_cold(lambda: eng._accumulate_forest(
+            carry, cf._group_of_tree, cf._leaf_value, cf._tree_class, 1, 0,
+            0.0))
+        a_bound, a_by, a_bytes = acc_bound(n, G, T, L, 1)
+        print(f"accumulation @{n} rows x {T} trees: {a_ms:.4f} ms (L2 warm)"
+              f" {a_cold:.4f} ms (L2 flushed); bound {a_bound:.4f} ms "
+              f"({a_by}: {a_bytes / 1e6:.2f} MB) [{smi}]")
+        acc[n] = {"ms": a_ms, "cold_ms": a_cold, "bound_ms": a_bound,
+                  "bound_by": a_by}
+        print(f"CompiledForest.predict @{n} rows: "
+              f"{wall_ms(lambda: cf.predict(xn)):.3f} ms (host wall incl. "
+              f"sync; two launches) [{smi}]")
+    carry = eng.traverse_forest(x4k, tables)
+    k3[4096]["plain_ms"] = cuda_ms(
+        lambda: eng._traverse_all_reference(x4k, tables), reps=20)
+    tc = cf._tree_class.tolist()
+
+    def plain_acc(c):
+        return eng._accumulate(
+            eng._leaf_values(c, cf._group_of_tree, cf._leaf_value), tc, 1, 0,
+            0.0)
+    acc[4096]["plain_ms"] = cuda_ms(lambda: plain_acc(carry), reps=10)
+    loop_ms = wall_ms(lambda: plain_acc(carry))
+    loop1_ms = wall_ms(lambda: plain_acc(carry[:1]))
+    print(f"plain versions @4096 rows: traversal {k3[4096]['plain_ms']:.3f} "
+          f"ms, gather + forest-order loop {acc[4096]['plain_ms']:.3f} ms "
+          f"(device); the loop's host wall {loop_ms:.3f} ms @4096 rows, "
+          f"{loop1_ms:.3f} ms @1 row (incl. sync) [{smi}]")
+    k3[4096]["max_abs_err"] = err["k3"]
+    acc[4096]["max_abs_err"] = err["acc"]
+    return k3, acc
 
 
 # ---------------------------------------------------------------------------
@@ -475,11 +660,13 @@ def hist_q_phase(dev, seed: int, smi: str) -> dict:
         ("f: skewed root, 90% of the rows in bin 0, mask 0.8",
          (skewed, gq, hq, None, N, 256, bag), None, N, 0),
     ]
+    max_err = 0
     for name, args, _, count, offset in cases:
         got = hc.hist_rows_q(*args)
         again = hc.hist_rows_q(*args)
         ref = hc._hist_q_reference(*args)
         torch.cuda.synchronize()
+        max_err = max(max_err, int((got.long() - ref.long()).abs().max()))
         check(got.dtype == torch.int32 and torch.equal(got, ref),
               f"K2 != plain ({name}): "
               f"{int((got != ref).sum())} entries differ")
@@ -506,7 +693,7 @@ def hist_q_phase(dev, seed: int, smi: str) -> dict:
           "(not counted below)")
     del bins, skewed, gq, hq, parent, bag, zeros, g_sat, h_sat
     torch.cuda.empty_cache()
-    return {**timed["a"], "max_abs_err": 0.0, "leaf": timed["b"],
+    return {**timed["a"], "max_abs_err": max_err, "leaf": timed["b"],
             "skewed": timed["f"]}
 
 
@@ -815,6 +1002,8 @@ def efb_phase(smi: str) -> None:
 def serve_trained_phase(bst, Xva, dev, smi: str, tag: str = "T5") -> None:
     import lambdagap_tpu_torch as lgt
     import torch
+    from lambdagap_tpu_torch.infer import (ACCUMULATE_LAUNCHES,
+                                           TRAVERSE_LAUNCHES)
     from lambdagap_tpu_torch.ops.predict import (forest_to_arrays,
                                                  predict_forest)
     text = bst.model_to_string()
@@ -823,15 +1012,21 @@ def serve_trained_phase(bst, Xva, dev, smi: str, tag: str = "T5") -> None:
     data = np.ascontiguousarray(Xva[:20_000])
     plan = [((i * 977) % (len(data) - SIZES[i % len(SIZES)]),
              SIZES[i % len(SIZES)]) for i in range(REQUESTS)]
+    TRAVERSE_LAUNCHES.reset()
+    ACCUMULATE_LAUNCHES.reset()
     with srv_bst.as_server(raw_score=True, workers=1) as server:
         answers, secs = burst(server, data, plan)
+    k3, acc = TRAVERSE_LAUNCHES.launches, ACCUMULATE_LAUNCHES.launches
+    check(k3 > 0 and acc == k3, f"{tag} serve path: {k3} K3 launches, "
+          f"{acc} accumulation launches")
     forest, depth = forest_to_arrays(gb.models, device=dev)
     oracle = predict_forest(torch.from_numpy(data).to(dev), forest,
                             [0] * len(gb.models), 1, depth)[0].cpu().numpy()
     check_answers(answers, plan, oracle)
     print(f"{tag} served the trained model ({len(gb.models)} trees, "
           f"{len(text) / 1e6:.2f} MB of text): {REQUESTS} requests in "
-          f"{secs:.2f} s, each == scan oracle [{smi}]")
+          f"{secs:.2f} s, each == scan oracle; K3 and accumulation "
+          f"launches {k3} each [{smi}]")
 
 
 # ---------------------------------------------------------------------------
@@ -841,7 +1036,7 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=HIGGS_ROWS,
                     help="training rows of phase T3 (HIGGS's count)")
     ap.add_argument("--only", choices=("all", "kernels"), default="all",
-                    help="kernels: phases 1-2 (with the SASS check), T2 and "
+                    help="kernels: phases 1-4 (with the SASS check), T2 and "
                     "T2q, then stop without a result line")
     args = ap.parse_args()
 
@@ -853,7 +1048,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import lambdagap_tpu_torch as lgt
     from lambdagap_tpu_torch.convert import booster_from_numpy
-    from lambdagap_tpu_torch.infer import (TRAVERSE_LAUNCHES, CompiledForest,
+    from lambdagap_tpu_torch.infer import (ACCUMULATE_LAUNCHES,
+                                           TRAVERSE_LAUNCHES, CompiledForest,
                                            compile_forest)
     from lambdagap_tpu_torch.infer import engine as eng
     from lambdagap_tpu_torch.models import synth
@@ -891,11 +1087,6 @@ def main() -> int:
         print(f"built {s}: " + ("; ".join(regs) if regs else "(cached)"))
     print(f"build: {time.perf_counter() - t0:.2f} s")
     sass_phase()
-    if args.only == "kernels":
-        hist_phase(dev, args.seed + 11, smi)
-        hist_q_phase(dev, args.seed + 12, smi)
-        print("chip_smoke: kernel phases passed (--only kernels: no result)")
-        return 0
 
     # -- 3. the HIGGS-width forest, round-tripped through text --------------
     t0 = time.perf_counter()
@@ -918,76 +1109,20 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)")
     check(m["thr_bits"] == 16, "the 254-boundary grid needs u16 codes")
 
-    # -- 4. the kernel against its plain version ----------------------------
+    # -- 4. K3 and the accumulation against their plain versions; times ----
     rng = np.random.RandomState(args.seed + 7)
     cf = CompiledForest(art, dev)
-    tables = cf.tables
-    max_err = 0
-    for n in (1, 8, 601, 4096):
-        x = torch.from_numpy(synth.random_rows(rng, n, F)).to(dev)
-        got = eng.traverse_forest(x, tables)
-        ref = eng._traverse_all_reference(x, tables)
-        torch.cuda.synchronize()
-        check(got.shape == ref.shape and torch.equal(got, ref),
-              f"kernel != plain traversal at {n} rows "
-              f"({int((got != ref).sum())} entries differ)")
-        check(bool((got < 0).all()), f"non-leaf carry at {n} rows")
-        max_err = max(max_err, int((got.long() - ref.long()).abs().max()))
-        print(f"kernel == plain at {n} rows x {got.shape[1]} groups "
-              f"({len(tables.depths)} node blocks)")
-    cfeats = 6
-    ctrees = synth.categorical_trees(args.seed + 1, num_features=cfeats)
-    ctext = booster_from_numpy(synth.header(cfeats), ctrees,
-                               {"device_type": "cpu"}).model_to_string()
-    cgb = lgt.Booster(model_str=ctext, params={"device_type": "cpu"})._booster
-    cart = compile_forest(cgb)
-    check(cart.meta["cat_words"] >= 3, "70 categories need 3 bitset words")
-    ctab = CompiledForest(cart, dev).tables
-    for n in (8, 601, 4096):
-        x = torch.from_numpy(synth.hostile_rows(rng, n, cfeats)).to(dev)
-        got = eng.traverse_forest(x, ctab)
-        ref = eng._traverse_all_reference(x, ctab)
-        torch.cuda.synchronize()
-        check(torch.equal(got, ref),
-              f"kernel != plain traversal on the categorical forest at {n} "
-              "rows")
-        max_err = max(max_err, int((got.long() - ref.long()).abs().max()))
-    print("kernel == plain on the 70-category forest with hostile values")
-    print(f"kernel launches in the comparisons: {TRAVERSE_LAUNCHES.launches}"
-          " (not counted below)")
-
-    x4k = torch.from_numpy(synth.random_rows(rng, 4096, F)).to(dev)
-    carry = eng.traverse_forest(x4k, tables)
-    steps = steps_taken(art, carry.cpu().numpy())
-    bound_ms, bound_by, nbytes = kernel_bound(x4k, tables, carry.shape, steps)
-    k_ms = cuda_ms(lambda: eng.traverse_forest(x4k, tables))
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-
-    def cold():
-        flush.fill_(1)                    # evict L2 (50 MB) first
-        eng.traverse_forest(x4k, tables)
-    k_cold_ms = cuda_ms(cold) - cuda_ms(lambda: flush.fill_(1))
-    p_ms = cuda_ms(lambda: eng._traverse_all_reference(x4k, tables), reps=20)
-    print(f"traverse @4096 rows x {carry.shape[1]} groups: kernel "
-          f"{k_ms:.4f} ms (L2 warm), {k_cold_ms:.4f} ms (L2 flushed), "
-          f"plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-          f"{nbytes / 1e6:.2f} MB, {steps} decision steps) [{smi}]")
-    vals = eng._leaf_values(carry, cf._group_of_tree, cf._leaf_value)
-    acc_ms = wall_ms(lambda: eng._accumulate(vals, cf._tree_class, 1, 0,
-                                             0.0))
-    acc1_ms = wall_ms(lambda: eng._accumulate(vals[:1], cf._tree_class, 1,
-                                              0, 0.0))
-    print(f"forest-order accumulation ({T} adds): {acc_ms:.3f} ms @4096 "
-          f"rows, {acc1_ms:.3f} ms @1 row (host wall incl. sync) [{smi}]")
-    for b in (1, 64, 4096):
-        xb = x4k[:b].contiguous()
-        print(f"CompiledForest.predict @{b} rows: "
-              f"{wall_ms(lambda: cf.predict(xb)):.3f} ms (host wall incl. "
-              f"sync) [{smi}]")
+    k3, acc = serve_kernels_phase(args.seed, rng, dev, smi, art, cf)
+    if args.only == "kernels":
+        hist_phase(dev, args.seed + 11, smi)
+        hist_q_phase(dev, args.seed + 12, smi)
+        print("chip_smoke: kernel phases passed (--only kernels: no result)")
+        return 0
 
     # -- 5. the main path ----------------------------------------------------
     data = synth.random_rows(rng, 20000, F)
     TRAVERSE_LAUNCHES.reset()
+    ACCUMULATE_LAUNCHES.reset()
     bst = lgt.Booster(model_str=text, params={"predict_engine": "compiled"})
     server = bst.as_server(raw_score=True)
     check(server.cache.device.type == "cuda", "server not on the card")
@@ -998,7 +1133,10 @@ def main() -> int:
     conv = bst.predict(data[:4096])
     server.close()
     launches = TRAVERSE_LAUNCHES.launches
+    acc_launches = ACCUMULATE_LAUNCHES.launches
     check(launches > 0, "the main path never launched the traversal kernel")
+    check(acc_launches == launches, f"the serve path made {acc_launches} "
+          f"accumulation launches for {launches} traversals")
 
     xall = torch.from_numpy(data).to(dev)
     forest, depth = forest_to_arrays(gb.models, device=dev)
@@ -1014,7 +1152,8 @@ def main() -> int:
           f"threads in {serve_s:.2f} s, each == scan oracle; latency p50 "
           f"{lat['p50']:.3f} ms p99 {lat['p99']:.3f} ms; "
           f"{snap['throughput_rows_per_s']:.0f} rows/s; "
-          f"{snap['batches']['count']} batches; kernel launches {launches} "
+          f"{snap['batches']['count']} batches; K3 launches {launches}, "
+          f"accumulation launches {acc_launches} "
           f"[{smi}]")
 
     # -- 5b. the same burst per worker count; closed-loop one-row latency ----
@@ -1065,9 +1204,18 @@ def main() -> int:
         "name": "traverse_forest", "route": "cuda",
         "source": "lambdagap_tpu_torch/csrc/traverse.cu",
         "replaces": "lambdagap_tpu/infer/engine.py:68",
-        "launches": launches, "max_abs_err": float(max_err),
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}, {
+        "launches": launches, "max_abs_err": k3[4096]["max_abs_err"],
+        "ms": k3[4096]["ms"], "plain_ms": k3[4096]["plain_ms"],
+        "bound_ms": k3[4096]["bound_ms"], "bound_by": k3[4096]["bound_by"],
+        "library_ms": None}, {
+        "name": "accumulate_forest", "route": "cuda",
+        "source": "lambdagap_tpu_torch/csrc/traverse.cu",
+        "replaces": "lambdagap_tpu/infer/engine.py:181",
+        "launches": acc_launches,
+        "max_abs_err": acc[4096]["max_abs_err"],
+        "ms": acc[4096]["ms"], "plain_ms": acc[4096]["plain_ms"],
+        "bound_ms": acc[4096]["bound_ms"], "bound_by": acc[4096]["bound_by"],
+        "library_ms": None}, {
         "name": "hist_rows", "route": "cuda",
         "source": "lambdagap_tpu_torch/csrc/hist.cu",
         "replaces": "lambdagap_tpu/ops/hist_pallas.py:79",

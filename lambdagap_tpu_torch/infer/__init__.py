@@ -2,8 +2,10 @@
 traversal engine (``predict_engine=compiled``)."""
 from .compile import (ArtifactMismatch, ArtifactStore, ForestArtifact,
                       compile_forest, source_key_of)
-from .engine import TRAVERSE_LAUNCHES, CompiledForest, traverse_forest
+from .engine import (ACCUMULATE_LAUNCHES, TRAVERSE_LAUNCHES, CompiledForest,
+                     accumulate_forest, traverse_forest)
 
 __all__ = ["ArtifactMismatch", "ArtifactStore", "ForestArtifact",
            "compile_forest", "source_key_of", "CompiledForest",
-           "traverse_forest", "TRAVERSE_LAUNCHES"]
+           "traverse_forest", "accumulate_forest", "TRAVERSE_LAUNCHES",
+           "ACCUMULATE_LAUNCHES"]

@@ -4,10 +4,16 @@ forests and data (no JAX: this file also runs on the card machine).
 On the CPU: the plain traversal's leaf indices equal an independent
 host walk of every tree (``Tree._decision``), and the compiled engine
 equals the scan oracle bit for bit, hostile categorical values included.
-On the card (``-m cuda``; skipped elsewhere): the traversal kernel equals
-its plain version with ``torch.equal`` at the serving bucket sizes and
-counts one launch per call, and the compiled engine and the server on the
-card equal the scan oracle on the card; the f32 histogram kernel (K1)
+On the card (``-m cuda``; skipped elsewhere): the traversal kernel (K3)
+equals its plain version with ``torch.equal`` at the serving bucket sizes,
+for numeric and categorical forests and one of two 16,384-leaf trees, and
+counts one launch per call; the accumulation kernel equals the plain leaf
+gather + forest-order loop with ``torch.equal`` for 1, 3, 7 and 20 classes
+(one score in a register, more in shared memory), early stop off and on,
+and refuses maps out of range;
+a compiled dispatch on the card is one launch of each; the compiled engine
+and the server on the card equal the scan oracle on the card; the f32
+histogram kernel (K1)
 is ``torch.equal`` to its plain version on every channel at chip_smoke's
 shapes (a skewed and an extreme-gradient leaf among them), with and
 without an in-bag mask, reruns bit-identically and refuses bad inputs; the
@@ -22,6 +28,8 @@ quantized + bagging, GOSS, EFB) equal the same on the CPU.
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -35,11 +43,15 @@ from lambdagap_tpu_torch.models import synth
 CPU = {"device_type": "cpu"}
 
 
+@functools.lru_cache(maxsize=None)
 def _forest(kind):
     """(text, trees, features) of one synthetic forest, via the text
-    round trip."""
+    round trip; "large": two 16,384-leaf trees, deep walks over groups of
+    16,383 records each."""
     if kind == "numeric":
         trees, feats = synth.random_trees(3, 12, 31, 10, grid_size=40), 10
+    elif kind == "large":
+        trees, feats = synth.random_trees(2, 2, 16384, 28), 28
     else:
         feats = 6
         trees = synth.categorical_trees(4, num_features=feats)
@@ -51,7 +63,7 @@ def _forest(kind):
 
 def _rows(kind, n, feats, seed=0):
     rng = np.random.RandomState(seed)
-    if kind == "numeric":
+    if kind != "categorical":
         return synth.random_rows(rng, n, feats)
     return synth.hostile_rows(rng, n, feats)
 
@@ -106,18 +118,88 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["numeric", "categorical"])
-@pytest.mark.parametrize("rows", [1, 8, 601, 4096])
+@pytest.mark.parametrize("kind", ["numeric", "categorical", "large"])
+@pytest.mark.parametrize("rows", [1, 8, 63, 64, 601, 4096])
 def test_kernel_equals_plain_version_on_card(kind, rows, cuda_device):
     text, _trees, feats = _forest(kind)
     gb = lgt.Booster(model_str=text, params=CPU)._booster
     tables = eng.device_tables(compile_forest(gb), cuda_device)
     x = torch.from_numpy(_rows(kind, rows, feats)).to(cuda_device)
+    ref = eng._traverse_all_reference(x, tables)
     before = eng.TRAVERSE_LAUNCHES.launches
     got = eng.traverse_forest(x, tables)
     torch.cuda.synchronize()
     assert eng.TRAVERSE_LAUNCHES.launches == before + 1
-    assert torch.equal(got, eng._traverse_all_reference(x, tables))
+    assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+def _accumulate_case(num_class, rows, dev, seed=0):
+    """A seeded carry of 40 trees per class over fewer groups (trees share
+    groups, some carries not ~leaf) with leaf values of mixed signs and
+    zeros, so the f32 order and the +0.0 adds both show."""
+    rng = np.random.RandomState(seed + num_class)
+    T, G, L = 40 * num_class, 25 * num_class, 31
+    carry = ~rng.randint(0, L, size=(rows, G)).astype(np.int32)
+    carry[rng.rand(rows, G) < 0.02] = 3               # not a leaf: adds 0
+    leaf = (rng.randn(T, L) * 0.7).astype(np.float32)
+    leaf[rng.rand(T, L) < 0.1] = -0.0
+    gof = rng.randint(0, G, size=T).astype(np.int32)
+    tc = (np.arange(T) % num_class).astype(np.int32)
+    return [torch.from_numpy(a).to(dev) for a in (carry, gof, leaf, tc)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_class", [1, 3, 7, 20])   # each score layout
+@pytest.mark.parametrize("es", [(0, 0.0), (3, 0.5)])
+@pytest.mark.parametrize("rows", [1, 97, 4096])
+def test_accumulate_kernel_equals_plain_version_on_card(num_class, es, rows,
+                                                        cuda_device):
+    carry, gof, leaf, tc = _accumulate_case(num_class, rows, cuda_device)
+    freq = es[0] * num_class
+    ref = eng._accumulate(eng._leaf_values(carry, gof, leaf), tc.tolist(),
+                          num_class, freq, es[1])
+    before = eng.ACCUMULATE_LAUNCHES.launches
+    got = eng.accumulate_forest(carry, gof, leaf, tc, num_class, freq, es[1])
+    torch.cuda.synchronize()
+    assert eng.ACCUMULATE_LAUNCHES.launches == before + 1
+    assert got.shape == ref.shape and torch.equal(got, ref)
+    # the traversal's group-major carry: the same scores
+    gmajor = carry.t().contiguous().t()
+    assert torch.equal(eng.accumulate_forest(gmajor, gof, leaf, tc,
+                                             num_class, freq, es[1]), ref)
+
+
+@pytest.mark.cuda
+def test_accumulate_kernel_refuses_maps_out_of_range(cuda_device):
+    carry, gof, leaf, tc = _accumulate_case(3, 97, cuda_device)
+    before = eng.ACCUMULATE_LAUNCHES.launches
+    bad_g, bad_c = gof.clone(), tc.clone()
+    bad_g[-1] = carry.shape[1]
+    bad_c[0] = 3
+    with pytest.raises(ValueError, match="group_of_tree"):
+        eng.accumulate_forest(carry, bad_g, leaf, tc, 3, 0, 0.0)
+    with pytest.raises(ValueError, match="tree_class"):
+        eng.accumulate_forest(carry, gof, leaf, bad_c, 3, 0, 0.0)
+    assert eng.ACCUMULATE_LAUNCHES.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["numeric", "categorical"])
+def test_compiled_dispatch_is_one_launch_of_each_kernel(kind, cuda_device):
+    text, _trees, feats = _forest(kind)
+    gb = lgt.Booster(model_str=text, params=CPU)._booster
+    art = compile_forest(gb)
+    cf = eng.CompiledForest(art, cuda_device)
+    X = _rows(kind, 601, feats, seed=3)
+    want = eng.CompiledForest(art, torch.device("cpu")).predict(
+        torch.from_numpy(X))
+    eng.TRAVERSE_LAUNCHES.reset()
+    eng.ACCUMULATE_LAUNCHES.reset()
+    got = cf.predict(torch.from_numpy(X).to(cuda_device))
+    torch.cuda.synchronize()
+    assert eng.TRAVERSE_LAUNCHES.launches == 1
+    assert eng.ACCUMULATE_LAUNCHES.launches == 1
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda
