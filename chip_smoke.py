@@ -74,6 +74,27 @@ T7. EFB: 200,000 rows of 8 dense features and 4 groups of 6 mutually
    exclusive sparse columns (bundles form, fewer columns than features),
    f32 and quantized, on the card and on the CPU at T4's bar, K1 and K2
    launched;
+T8. ranking at MSLR-WEB30K width: seeded synthetic query sets of Fold 1's
+   shape (18,919 queries, ~2.27M documents x 136 features, query lengths
+   1..1,251 with one of exactly 1,251, relevance 0-4 skewed toward 0) plus
+   2,000 validation queries; ``lgt.train`` with ``lambdarank`` (target
+   ndcg, ``eval_at=[10]``, 255 leaves, 255 bins, ``min_data_in_leaf=50``),
+   10 rounds with ``early_stopping(5)``, then 3 rounds of
+   lambdagap-x-plus-plus and 3 of ``rank_xendcg`` with by-query bagging on
+   the same Dataset; the counts zeroed just before each run and read just
+   after (K1 launches == leaf histograms), every gradient finite, the
+   validation NDCG@10 rising over the ndcg run; wall per round, the lambda
+   pass's device time, lattice size and peak memory, K1's kernel-only
+   time per tree;
+T2 at 136 features: K1 against its plain version (``torch.equal``) on the
+   T8 matrix with T8's lambdas at the root, at a T8 leaf read at an offset,
+   and at the 1,251-document query with lambdas taken without
+   ``lambdarank_norm``; times and bound at the root and the leaf;
+T9. 200 queries x 25 documents x 20 features, 63 leaves, 20 rounds on the
+   card and on the CPU: ndcg, lambdagap-s, lambdagap-x-plus-plus,
+   rank_xendcg, positions with by-query bagging, predictions on the
+   training rows within rtol 1e-4 / atol 1e-5;
+T10. the T8 ranker served back (T5's checks);
 6. the kernels line (one JSON object) and, last, the device line.
 
 Needs one card; exits non-zero, printing no result, when there is none.
@@ -82,6 +103,7 @@ Imports nothing of JAX nor of the JAX package.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import statistics
@@ -108,6 +130,12 @@ HIGGS_ROWS = 10_500_000         # HIGGS's training rows (bench.py)
 VALID_ROWS = 500_000
 MAX_BIN = 255
 ROUNDS = 10
+MSLR_F = 136                    # MSLR-WEB30K features
+MSLR_QUERIES = 18_919           # MSLR-WEB30K Fold 1's training queries
+MSLR_VALID_QUERIES = 2_000
+MSLR_MAX_DOCS = 1_251           # its longest query
+RANK_ROUNDS = 10
+RANK_SHORT_ROUNDS = 3
 
 
 def fail(msg: str) -> None:
@@ -1030,14 +1058,367 @@ def serve_trained_phase(bst, Xva, dev, smi: str, tag: str = "T5") -> None:
 
 
 # ---------------------------------------------------------------------------
+# T8-T10: ranking at MSLR-WEB30K width, card against CPU, serving the ranker
+# ---------------------------------------------------------------------------
+def mslr_like(seed: int, n_train: int, n_valid: int):
+    """Seeded query sets of MSLR-WEB30K Fold 1's shape: 136 f32 features,
+    query lengths 1..1,251 (lognormal, mean ~120; exactly one training
+    query of 1,251 documents), relevance 0-4 skewed toward 0 from one
+    sparse latent over all queries (bench.py's MSLR-shaped synthetic).
+    Returns (X, y, sizes) of the ``n_train`` training queries and of the
+    ``n_valid`` validation queries after them."""
+    rng = np.random.default_rng(seed)
+    nq = n_train + n_valid
+    sizes = np.clip(np.round(rng.lognormal(np.log(93.0), 0.72, nq)),
+                    1, MSLR_MAX_DOCS - 1).astype(np.int64)
+    sizes[int(rng.integers(n_train))] = MSLR_MAX_DOCS
+    n = int(sizes.sum())
+    X = rng.standard_normal((n, MSLR_F), dtype=np.float32)
+    w = (rng.standard_normal(MSLR_F).astype(np.float32)
+         * (rng.random(MSLR_F) < 0.2))
+    latent = X @ w * 0.6 + rng.standard_normal(n, dtype=np.float32)
+    y = np.clip(np.floor(latent - latent.mean() + 0.8), 0, 4).astype(
+        np.float32)
+    cut = int(sizes[:n_train].sum())
+    return ((X[:cut], y[:cut], sizes[:n_train]),
+            (X[cut:], y[cut:], sizes[n_train:]))
+
+
+def rank_train_phase(args, smi: str) -> dict:
+    """T8: lambdarank (target ndcg) at MSLR-WEB30K width, then 3 rounds of
+    lambdagap-x-plus-plus and 3 of rank_xendcg with by-query bagging on the
+    same constructed Dataset; counts zeroed just before each run."""
+    import torch
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.objectives import rank as prank
+    from lambdagap_tpu_torch.ops.hist_cuda import (HIST_LAUNCHES,
+                                                   HIST_Q_LAUNCHES)
+    t0 = time.perf_counter()
+    (Xtr, ytr, str_), (Xva, yva, sva) = mslr_like(
+        args.seed + 200, MSLR_QUERIES, MSLR_VALID_QUERIES)
+    gen_s = time.perf_counter() - t0
+    params = {"objective": "lambdarank", "lambdarank_target": "ndcg",
+              "metric": "ndcg", "eval_at": [10], "num_leaves": LEAVES,
+              "max_bin": MAX_BIN, "learning_rate": 0.1,
+              "min_data_in_leaf": 50, "verbose": -1}
+    cfg = lgt.Config.from_params(params)
+    t0 = time.perf_counter()
+    tr = lgt.Dataset(Xtr, label=ytr, group=str_)
+    va = lgt.Dataset(Xva, label=yva, group=sva, reference=tr)
+    tr.construct(cfg)
+    va.construct(cfg)
+    build_s = time.perf_counter() - t0
+    del Xtr
+    shares = np.bincount(ytr.astype(int), minlength=5) / len(ytr)
+    print(f"T8 data: {MSLR_QUERIES} queries, {int(str_.sum())} documents x "
+          f"{MSLR_F} features (query lengths {int(str_.min())}..."
+          f"{int(str_.max())}, mean {str_.mean():.1f}; relevance 0-4 shares "
+          f"{np.round(shares, 3).tolist()}) + {MSLR_VALID_QUERIES} "
+          f"validation queries ({int(sva.sum())} documents) made in {gen_s:.1f} s; Dataset construction "
+          f"(binning) {build_s:.1f} s")
+    print(f"T8 cuts: synthetic rows of MSLR-WEB30K Fold 1's shape (not the "
+          f"data); {RANK_ROUNDS} / {RANK_SHORT_ROUNDS} / {RANK_SHORT_ROUNDS} "
+          f"rounds (the reference trains 500); {MSLR_VALID_QUERIES} "
+          "validation queries")
+
+    # every gradient the runs take is checked finite, on the device
+    finite = []
+    plain = prank.RankingBase.get_gradients_fast
+
+    def checked(self, scores):
+        g, h = plain(self, scores)
+        finite.append(torch.isfinite(g).all() & torch.isfinite(h).all())
+        return g, h
+
+    out = {}
+    prank.RankingBase.get_gradients_fast = checked
+    try:
+        for tag, extra, rounds in (
+                ("ndcg", {}, RANK_ROUNDS),
+                ("lambdagap-x-plus-plus", {
+                    "lambdarank_target": "lambdagap-x-plus-plus",
+                    "lambdagap_weight": 0.5}, RANK_SHORT_ROUNDS),
+                ("rank_xendcg + by-query bagging 0.8/1", {
+                    "objective": "rank_xendcg", "bagging_by_query": True,
+                    "bagging_fraction": 0.8, "bagging_freq": 1},
+                 RANK_SHORT_ROUNDS)):
+            rounds_at = []
+
+            def per_round(env) -> None:
+                lr = env.model._booster.learner
+                rounds_at.append((time.perf_counter(), lr.hist_builds))
+
+            ev = {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            HIST_LAUNCHES.reset()
+            HIST_Q_LAUNCHES.reset()
+            t_train = time.perf_counter()
+            bst = lgt.train({**params, **extra}, tr, rounds, valid_sets=[va],
+                            callbacks=[per_round,
+                                       lgt.early_stopping(5, verbose=False),
+                                       lgt.record_evaluation(ev)])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t_train
+            launches = HIST_LAUNCHES.launches
+            gb = bst._booster
+            built = sum(r[1] for r in rounds_at)
+            check(gb.learner.x_rows.device.type == "cuda"
+                  and gb.scores.device.type == "cuda",
+                  f"T8 [{tag}] learner tensors not on cuda")
+            check(launches > 0 and launches == built,
+                  f"T8 [{tag}] K1 launches {launches} != leaf histograms "
+                  f"built {built}")
+            check(HIST_Q_LAUNCHES.launches == 0, f"T8 [{tag}] launched K2")
+            check(bool(torch.stack(finite).all()),
+                  f"T8 [{tag}] a gradient was not finite")
+            finite.clear()
+            check(bool(torch.isfinite(gb.scores).all()),
+                  f"T8 [{tag}] non-finite training scores")
+            nd = ev["valid_0"]["ndcg@10"]
+            walls = np.diff([t_train] + [r[0] for r in rounds_at]) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            print(f"T8 train [{tag}]: {len(rounds_at)} rounds in "
+                  f"{train_s:.2f} s; wall per round (ms, incl. eval) "
+                  f"{', '.join(f'{w:.0f}' for w in walls)}; median of rounds "
+                  f"2.. {statistics.median(walls[1:]):.1f} ms; K1 launches "
+                  f"{launches} == histograms built; peak device memory "
+                  f"{peak / 1e9:.3f} GB [{smi}]")
+            print(f"T8 valid NDCG@10 by round [{tag}]: "
+                  f"{[round(v, 5) for v in nd]}")
+            out[tag] = {"bst": bst, "ndcg": nd, "launches": launches,
+                        "walls": walls}
+    finally:
+        prank.RankingBase.get_gradients_fast = plain
+    nd = out["ndcg"]["ndcg"]
+    check(len(nd) >= 2 and nd[-1] > nd[0],
+          f"T8 valid NDCG@10 did not rise: {nd[0]} -> {nd[-1]}")
+    print(f"T8 valid NDCG@10 rose over the ndcg run: {nd[0]:.5f} -> "
+          f"{nd[-1]:.5f}")
+
+    # the lambda pass alone, at the final scores of each run: device time
+    # (CUDA events), the lattice it forms, its own peak memory
+    for tag, res in out.items():
+        gb = res["bst"]._booster
+        obj = gb.objective
+        if obj.name == "rank_xendcg":
+            key = obj.key          # a timing run must not move the sampler
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        g, h = obj.get_gradients_fast(gb.scores)
+        torch.cuda.synchronize()
+        lam_peak = torch.cuda.max_memory_allocated() - base
+        del g, h
+        g_ms = cuda_ms(lambda: obj.get_gradients_fast(gb.scores), reps=5,
+                       warm=1)
+        if obj.name == "rank_xendcg":
+            obj.key = key
+        dense = sum(len(q) * L * L for L, q, _ in obj.bucketing.buckets)
+        print(f"T8 lambda pass [{tag}]: {g_ms:.2f} ms device time a round "
+              f"(CUDA events); lattice {dense} pair entries a round (sum of "
+              f"nq x L^2, bench.py's count), {obj.pair_entries} formed "
+              f"({dense / (g_ms / 1e3) / 1e9:.2f} G pairs/s by bench.py's "
+              f"count); {100 * g_ms / statistics.median(res['walls'][1:]):.1f}"
+              f"% of a round's wall; its own peak {lam_peak / 1e9:.3f} GB "
+              f"above {base / 1e9:.3f} GB resident; buckets "
+              f"{[(L, len(q)) for L, q, _ in obj.bucketing.buckets]} [{smi}]")
+        res["grad_ms"] = g_ms
+
+    # one more tree of the ndcg run with events around its phases, one
+    # under torch.profiler for K1's kernel-only time (after the counts were
+    # read; the runs' launches are above)
+    gb = out["ndcg"]["bst"]._booster
+    lr = gb.learner
+    grad, hess = gb.boosting()
+    lr.time_phases = True
+    t1 = time.perf_counter()
+    rec = lr.train_device(grad[0], hess[0])
+    torch.cuda.synchronize()
+    tree_ms = (time.perf_counter() - t1) * 1e3
+    lr.time_phases = False
+    ph = lr.phase_ms
+    t1 = time.perf_counter()
+    gb.eval_valid()
+    eval_ms = (time.perf_counter() - t1) * 1e3
+    print(f"T8 one tree: {tree_ms:.1f} ms host wall; device-stream time "
+          f"between CUDA events: histogram {ph.get('histogram', 0):.1f} ms, "
+          f"split scan {ph.get('split_scan', 0):.1f} ms, partition "
+          f"{ph.get('partition', 0):.1f} ms; {lr.host_syncs} host syncs; "
+          f"lambda pass {out['ndcg']['grad_ms']:.1f} ms a round; validation "
+          f"NDCG@10 (host numpy, {MSLR_VALID_QUERIES} queries) {eval_ms:.1f}"
+          f" ms a round [{smi}]")
+    k_ms, k_calls = profiled_kernel_ms(
+        lambda: lr.train_device(grad[0], hess[0]),
+        ("hist_kernel", "hist_finish_kernel"))
+    print(f"T8 K1 kernel-only device time per tree at {MSLR_F} features: "
+          f"{k_ms:.3f} ms over {k_calls} kernel launches ({lr.hist_builds} "
+          f"histograms; torch.profiler), {100 * k_ms / tree_ms:.1f}% of the "
+          f"tree's host wall [{smi}]")
+    qb = tr.construct(cfg).metadata.query_boundaries
+    q_long = int(np.argmax(np.diff(qb)))
+    return {"out": out, "Xva": Xva, "grad": grad[0], "hess": hess[0],
+            "row_leaf": rec.row_leaf, "x_rows": lr.x_rows,
+            "long_rows": (int(qb[q_long]), int(qb[q_long + 1])),
+            "train": tr, "cfg": cfg, "k1_tree_ms": k_ms,
+            "k1_launches_tree": lr.hist_builds}
+
+
+def hist_mslr_phase(dev, t8: dict, smi: str) -> dict:
+    """T2 at 136 features: K1 against its plain version, ``torch.equal``,
+    on the T8 matrix with the T8 ranker's gradients — at the root, at the
+    largest leaf of one more T8 tree (read at an offset in a slice with
+    junk around it), and at the 1,251-document query's rows with gradients
+    taken without ``lambdarank_norm`` (the widest fixed-point range);
+    times at the root and the leaf."""
+    import torch
+    from lambdagap_tpu_torch.objectives import rank as prank
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    bins, grad, hess = t8["x_rows"], t8["grad"], t8["hess"]
+    N = bins.shape[0]
+    row_leaf = t8["row_leaf"]
+    big = int(torch.bincount(row_leaf).argmax())
+    leaf_rows = torch.nonzero(row_leaf == big).flatten().int()
+    leaf = int(leaf_rows.numel())
+    off = 5
+    slice_ = torch.full((leaf + 2 * off,), 2 ** 31 - 1, dtype=torch.int32,
+                        device=dev)
+    slice_[off:off + leaf] = leaf_rows
+    lo, hi = t8["long_rows"]
+    # the same scores' gradients without lambdarank_norm
+    cfg = t8["cfg"]
+    cfg_nn = copy.copy(cfg)
+    cfg_nn.lambdarank_norm = False
+    obj = prank.LambdarankNDCG(cfg_nn)
+    ds = t8["train"].construct(cfg)
+    obj.init(ds.metadata, N, dev)
+    gnn, hnn = obj.get_gradients_fast(
+        t8["out"]["ndcg"]["bst"]._booster.scores)
+    gnn, hnn = gnn[0].contiguous(), hnn[0].contiguous()
+    long_rows = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+    k, knn = hc.hist_scale(grad, hess), hc.hist_scale(gnn, hnn)
+    nb = 256
+    cases = [
+        ("a: T8 root, 136 u8 features, all rows", (bins, grad, hess, None, N,
+                                                   nb, None, None, k), N, 0),
+        (f"b: a T8 leaf of {leaf} rows at an offset in a slice, junk around",
+         (bins, grad, hess, slice_, one(dev, leaf), nb, None, one(dev, off),
+          k), leaf, off),
+        (f"c: the {hi - lo}-document query, lambdas without "
+         "lambdarank_norm", (bins, gnn, hnn, long_rows, hi - lo, nb, None,
+                             None, knn), hi - lo, 0),
+        ("d: T8 root, lambdas without lambdarank_norm",
+         (bins, gnn, hnn, None, N, nb, None, None, knn), N, 0),
+    ]
+    max_err = 0.0
+    timed = {}
+    for name, cargs, live, offset in cases:
+        got = hc.hist_rows(*cargs)
+        again = hc.hist_rows(*cargs)
+        ref = hc._hist_reference(*cargs)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again),
+              f"K1 rerun not bit-identical at 136 features ({name})")
+        check(torch.equal(got, ref),
+              f"K1 != plain at 136 features ({name}): "
+              f"{int((got != ref).sum())} entries differ")
+        check(int(got[..., 2].double().sum()) == live * bins.shape[1],
+              f"K1 counted rows wrongly at 136 features ({name})")
+        max_err = max(max_err, float((got - ref).abs().max()))
+        print(f"K1 == plain at 136 features [{name}]: torch.equal on every "
+              "channel, rerun bit-identical")
+        if name[0] in "ab":
+            timed[name[0]] = time_hist("K1@136", name, hc.hist_rows,
+                                       hc._hist_reference, cargs, live,
+                                       offset, smi, 8, 5)
+    _, f_tile = hc._grid(hc.HIST_SOURCE, hc._kernel_lib(hc.HIST_SOURCE, dev),
+                         dev, bins, N, nb)
+    print(f"K1 grid at 136 features: feature tiles of {f_tile} at the root "
+          f"({-(-bins.shape[1] // f_tile)} tiles)")
+    check(f_tile < bins.shape[1], "K1 ran one feature tile at 136 features")
+    del gnn, hnn, obj
+    torch.cuda.empty_cache()
+    return {**timed["a"], "max_abs_err": max_err, "leaf": timed["b"]}
+
+
+def rank_card_vs_cpu_phase(smi: str) -> None:
+    """T9: 200 queries x 25 documents x 20 features, 63 leaves, 20 rounds,
+    trained on the card and on the CPU: ndcg, lambdagap-s,
+    lambdagap-x-plus-plus, rank_xendcg, and positions with by-query
+    bagging; predictions on the training rows within rtol 1e-4 / atol
+    1e-5."""
+    import lambdagap_tpu_torch as lgt
+    rng = np.random.RandomState(4)
+    nq, docs = 200, 25
+    X = rng.randn(nq * docs, 20)
+    util = 2.0 * X[:, 0] + X[:, 1] + 0.5 * rng.randn(nq * docs)
+    y = np.zeros(nq * docs)
+    for q in range(nq):
+        u = util[q * docs:(q + 1) * docs]
+        ranks = np.argsort(np.argsort(-u))
+        y[q * docs:(q + 1) * docs] = np.select(
+            [ranks < 2, ranks < 5, ranks < 10], [3, 2, 1], 0)
+    group = np.full(nq, docs)
+    pos = np.tile(np.arange(docs), nq)
+    base = {"objective": "lambdarank", "num_leaves": 63, "verbose": -1,
+            "learning_rate": 0.1}
+    for name, extra, position in (
+            ("ndcg", {}, None),
+            ("lambdagap-s", {"lambdarank_target": "lambdagap-s"}, None),
+            ("lambdagap-x-plus-plus", {
+                "lambdarank_target": "lambdagap-x-plus-plus",
+                "lambdagap_weight": 0.5}, None),
+            ("rank_xendcg", {"objective": "rank_xendcg"}, None),
+            ("position + by-query bagging 0.7/1", {
+                "bagging_by_query": True, "bagging_fraction": 0.7,
+                "bagging_freq": 1}, pos)):
+        preds, secs = {}, {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            bst = lgt.train({**base, **extra, "device_type": device},
+                            lgt.Dataset(X, label=y, group=group,
+                                        position=position), 20)
+            secs[device] = time.perf_counter() - t0
+            preds[device] = bst.predict(X)
+        diff = float(np.abs(preds["cuda"] - preds["cpu"]).max())
+        check(np.allclose(preds["cuda"], preds["cpu"], rtol=1e-4, atol=1e-5),
+              f"T9 card != CPU [{name}]: max |diff| {diff}")
+        print(f"T9 card == CPU [{name}]: predictions on the training rows "
+              f"max |diff| {diff:.3g}; train {secs['cuda']:.1f} s on the "
+              f"card, {secs['cpu']:.1f} s on the CPU [{smi}]")
+
+
+def rank_phases(args, dev, smi: str):
+    """T8, T2 at 136 features, T9 and T10, each timed. Returns (T8's
+    results, K1's numbers at 136 features)."""
+    t0 = time.perf_counter()
+    t8 = rank_train_phase(args, smi)
+    print(f"T8: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k1m = hist_mslr_phase(dev, t8, smi)
+    del t8["grad"], t8["hess"], t8["row_leaf"], t8["x_rows"]
+    print(f"T2 at 136 features: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rank_card_vs_cpu_phase(smi)
+    print(f"T9: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_trained_phase(t8["out"]["ndcg"]["bst"], t8["Xva"], dev, smi,
+                        tag="T10")
+    print(f"T10: {time.perf_counter() - t0:.1f} s")
+    return t8, k1m
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=HIGGS_ROWS,
                     help="training rows of phase T3 (HIGGS's count)")
-    ap.add_argument("--only", choices=("all", "kernels"), default="all",
+    ap.add_argument("--only", choices=("all", "kernels", "rank"),
+                    default="all",
                     help="kernels: phases 1-4 (with the SASS check), T2 and "
-                    "T2q, then stop without a result line")
+                    "T2q; rank: phases 1-2, T8, T2 at 136 features, T9 and "
+                    "T10; either then stops without a result line")
     args = ap.parse_args()
 
     import torch
@@ -1087,6 +1468,12 @@ def main() -> int:
         print(f"built {s}: " + ("; ".join(regs) if regs else "(cached)"))
     print(f"build: {time.perf_counter() - t0:.2f} s")
     sass_phase()
+    if args.only == "rank":
+        rank_phases(args, dev, smi)
+        print(f"chip_smoke: rank phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--only rank: no "
+              "result)")
+        return 0
 
     # -- 3. the HIGGS-width forest, round-tripped through text --------------
     t0 = time.perf_counter()
@@ -1197,6 +1584,9 @@ def main() -> int:
     efb_phase(smi)
     print(f"T7: {time.perf_counter() - t0:.1f} s")
 
+    # -- T8. ranking at MSLR width; T2 at 136 features; T9; T10 -------------
+    t8, k1m = rank_phases(args, dev, smi)
+
     # -- 6. the kernels line, then the device line ---------------------------
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
@@ -1223,6 +1613,14 @@ def main() -> int:
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"]}, {
+        "name": "hist_rows@136f", "route": "cuda",
+        "source": "lambdagap_tpu_torch/csrc/hist.cu",
+        "replaces": "lambdagap_tpu/ops/hist_pallas.py:79",
+        "launches": t8["out"]["ndcg"]["launches"],
+        "max_abs_err": k1m["max_abs_err"],
+        "ms": k1m["ms"], "plain_ms": k1m["plain_ms"],
+        "bound_ms": k1m["bound_ms"], "bound_by": k1m["bound_by"],
+        "library_ms": k1m["library_ms"]}, {
         "name": "hist_rows_q", "route": "cuda",
         "source": "lambdagap_tpu_torch/csrc/hist_q.cu",
         "replaces": "lambdagap_tpu/ops/hist_pallas.py:207",

@@ -1,8 +1,8 @@
 """lambdagap_tpu_torch — the PyTorch/CUDA port of lambdagap_tpu.
 
 A package of its own beside the JAX package (which stays the reference):
-it imports ``torch`` and ``numpy`` and nothing of ``lambdagap_tpu``. This
-slice trains a binary or L2 forest on the card and serves it::
+it imports ``torch`` and ``numpy`` and nothing of ``lambdagap_tpu``. It
+trains a binary, L2 or ranking forest on the card and serves it::
 
     import lambdagap_tpu_torch as lgt
     train = lgt.Dataset(X, label=y)
@@ -12,6 +12,11 @@ slice trains a binary or L2 forest on the card and serves it::
                     callbacks=[lgt.early_stopping(10)])  # CUDA histograms
     server = lgt.Booster(model_str=bst.model_to_string()).as_server()
     y = server.predict(rows)                     # CUDA traversal
+
+A ranker takes query groups (sizes or per-row query ids) and optional
+positions: ``lgt.Dataset(X, label=rel, group=sizes, position=pos)`` with
+``{"objective": "lambdarank", "lambdarank_target": "ndcg", "metric":
+"ndcg", "eval_at": [10]}`` (or ``rank_xendcg``).
 
 Entry points run on the card unless ``device_type="cpu"`` is passed; the
 CPU runs every kernel's plain PyTorch version. See README.md ("The PyTorch

@@ -1,8 +1,9 @@
 """The user-facing ``Dataset`` and ``Booster``.
 
 The port of ``lambdagap_tpu/basic.py`` for dense numpy data and the
-binary / L2 training flow: ``Dataset(X, label=, weight=, reference=,
-categorical_feature=, params=)`` bins lazily on first use;
+binary, L2 and ranking training flows: ``Dataset(X, label=, weight=,
+group=, position=, reference=, categorical_feature=, params=)`` bins
+lazily on first use (``group`` takes query sizes or per-row query ids);
 ``Booster(params, train_set)`` trains one iteration per ``update()``;
 ``Booster(params, model_file=..., model_str=...)`` loads a LightGBM v4
 text model; both predict, serve (``as_server``) and save. Entry points run
@@ -36,15 +37,18 @@ class Dataset:
     ``BinnedDataset``."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
-                 weight=None, init_score=None,
+                 weight=None, group=None, init_score=None,
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List] = "auto",
-                 params: Optional[Dict[str, Any]] = None) -> None:
+                 params: Optional[Dict[str, Any]] = None,
+                 position=None) -> None:
         self.data = data
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
+        self.position = position
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = dict(params) if params else {}
@@ -57,6 +61,10 @@ class Dataset:
             # an already-binned dataset (convert.dataset_from_numpy) passes
             # through as it is
             self._constructed = self.data
+            md = self._constructed.metadata
+            if self.group is not None and md.query_boundaries is None:
+                md.set_group(np.asarray(self.group))
+            md.check(self._constructed.num_data)
             return self._constructed
         cfg = config or Config.from_params(self.params)
         mat = np.asarray(self.data)
@@ -75,7 +83,8 @@ class Dataset:
                if self.reference is not None else None)
         self._constructed = BinnedDataset.from_matrix(
             mat, cfg, label=self.label, weight=self.weight,
-            init_score=self.init_score, categorical_features=categorical,
+            init_score=self.init_score, group=self.group,
+            position=self.position, categorical_features=categorical,
             feature_names=names, reference=ref)
         self.data = None
         return self._constructed
@@ -88,10 +97,39 @@ class Dataset:
         return (self._constructed.num_total_features
                 if self._constructed is not None else np.shape(self.data)[1])
 
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None, position=None
+                     ) -> "Dataset":
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       group=group, init_score=init_score, params=params,
+                       position=position, feature_name=self.feature_name,
+                       categorical_feature=self.categorical_feature)
+
+    def set_group(self, group) -> "Dataset":
+        self.group = group
+        if self._constructed is not None:
+            self._constructed.metadata.set_group(
+                None if group is None else np.asarray(group))
+        return self
+
+    def set_position(self, position) -> "Dataset":
+        self.position = position
+        if self._constructed is not None and position is not None:
+            self._constructed.metadata.position = \
+                np.asarray(position, np.int32).reshape(-1)
+        return self
+
     def get_label(self):
         if self._constructed is not None:
             return self._constructed.metadata.label
         return self.label
+
+    def get_group(self):
+        """Group sizes (from the boundaries once constructed)."""
+        if self._constructed is not None and \
+                self._constructed.metadata.query_boundaries is not None:
+            return np.diff(self._constructed.metadata.query_boundaries)
+        return self.group
 
 
 class Booster:

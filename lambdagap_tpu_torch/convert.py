@@ -9,7 +9,8 @@ a model-text header dict. Both routes give the same booster: the same tree
 fields, the same text, the same predictions.
 
 Training state comes across the same way: :func:`dataset_fields` reads a
-binned dataset's mappers, binned matrix and labels as numpy, and
+binned dataset's mappers, binned matrix, labels, query boundaries and
+positions as numpy, and
 :func:`dataset_from_numpy` builds the port's :class:`BinnedDataset` from
 them.
 """
@@ -154,14 +155,18 @@ def dataset_fields(ds) -> Dict[str, Any]:
         "weight": None if md.weight is None else np.asarray(md.weight),
         "init_score": (None if md.init_score is None
                        else np.asarray(md.init_score)),
+        "query_boundaries": (None if md.query_boundaries is None
+                             else np.asarray(md.query_boundaries)),
+        "position": None if md.position is None else np.asarray(md.position),
     }
 
 
 def dataset_from_numpy(fields: Mapping[str, Any]) -> BinnedDataset:
     """A port :class:`BinnedDataset` from :func:`dataset_fields`: the same
     mappers (boundaries, missing types, default bins, categorical maps),
-    the same binned matrix and labels — so a learner can be held to another
-    implementation on an identical binned matrix."""
+    the same binned matrix, labels, query boundaries and positions — so a
+    learner can be held to another implementation on an identical binned
+    matrix."""
     ds = BinnedDataset()
     ds.binned = np.ascontiguousarray(fields["binned"])
     ds.num_data, ds.num_total_features = (ds.binned.shape[0],
@@ -182,7 +187,8 @@ def dataset_from_numpy(fields: Mapping[str, Any]) -> BinnedDataset:
     ds.max_bin = int(fields["max_bin"])
     md = ds.metadata
     for k, dt in (("label", np.float32), ("weight", np.float32),
-                  ("init_score", np.float64)):
+                  ("init_score", np.float64), ("query_boundaries", np.int32),
+                  ("position", np.int32)):
         if fields.get(k) is not None:
             setattr(md, k, np.asarray(fields[k], dt).reshape(-1))
     md.check(ds.num_data)

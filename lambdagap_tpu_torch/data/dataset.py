@@ -9,9 +9,10 @@ JAX package, so mappers and the binned matrix are equal to its own. The
 matrix stays on the host here; the learner uploads it to its device once.
 
 The EFB bundled matrix is built on demand
-(:meth:`BinnedDataset.ensure_bundle`), as the JAX package builds it. Query
-groups, positions, streamed construction and the linear-tree raw matrix
-wait for later slices.
+(:meth:`BinnedDataset.ensure_bundle`), as the JAX package builds it. The
+metadata carries query groups (as boundaries) and per-row positions for
+the ranking objectives and metrics. Streamed construction and the
+linear-tree raw matrix wait for later slices.
 """
 from __future__ import annotations
 
@@ -31,12 +32,38 @@ MISSING_CODES = {MISSING_NONE: 0, MISSING_ZERO: 1, MISSING_NAN: 2}
 
 @dataclass
 class Metadata:
-    """Labels, weights and init scores
+    """Labels, weights, query boundaries, positions, init scores
     (reference: include/LightGBM/dataset.h:48-397)."""
 
     label: Optional[np.ndarray] = None
     weight: Optional[np.ndarray] = None
+    query_boundaries: Optional[np.ndarray] = None   # int32 [num_queries+1]
+    query_weights: Optional[np.ndarray] = None
     init_score: Optional[np.ndarray] = None          # [num_data * num_class]
+    position: Optional[np.ndarray] = None            # int32 [num_data]
+    position_ids: Optional[List[str]] = None
+
+    @property
+    def num_queries(self) -> int:
+        return (0 if self.query_boundaries is None
+                else len(self.query_boundaries) - 1)
+
+    def set_group(self, group: Optional[np.ndarray]) -> None:
+        """Group sizes (LightGBM's convention) or per-row query ids."""
+        if group is None:
+            self.query_boundaries = None
+            return
+        group = np.asarray(group)
+        if (self.label is not None and len(group) == len(self.label)
+                and len(group) > 0
+                and not _looks_like_sizes(group, len(self.label))):
+            # per-row query ids -> boundaries
+            change = np.nonzero(np.diff(group))[0] + 1
+            self.query_boundaries = np.concatenate(
+                [[0], change, [len(group)]]).astype(np.int32)
+        else:
+            self.query_boundaries = np.concatenate(
+                [[0], np.cumsum(group.astype(np.int64))]).astype(np.int32)
 
     def check(self, num_data: int) -> None:
         if self.label is not None and len(self.label) != num_data:
@@ -45,6 +72,21 @@ class Metadata:
         if self.weight is not None and len(self.weight) != num_data:
             log.fatal("Length of weight (%d) != num_data (%d)",
                       len(self.weight), num_data)
+        if (self.query_boundaries is not None
+                and self.query_boundaries[-1] != num_data):
+            log.fatal("Sum of query counts (%d) != num_data (%d)",
+                      int(self.query_boundaries[-1]), num_data)
+        if self.position is not None and len(self.position) != num_data:
+            log.fatal("Length of position (%d) != num_data (%d)",
+                      len(self.position), num_data)
+
+
+def _looks_like_sizes(group: np.ndarray, num_data: int) -> bool:
+    """Whether ``group`` sums to the row count (sizes, not query ids)."""
+    try:
+        return int(np.sum(group)) == num_data
+    except (TypeError, ValueError):
+        return False
 
 
 def _load_forced_bounds(config: Config) -> Dict[int, List[float]]:
@@ -89,6 +131,8 @@ class BinnedDataset:
                     label: Optional[np.ndarray] = None,
                     weight: Optional[np.ndarray] = None,
                     init_score: Optional[np.ndarray] = None,
+                    group: Optional[np.ndarray] = None,
+                    position: Optional[np.ndarray] = None,
                     categorical_features: Sequence[int] = (),
                     feature_names: Optional[Sequence[str]] = None,
                     reference: Optional["BinnedDataset"] = None
@@ -124,6 +168,9 @@ class BinnedDataset:
         if init_score is not None:
             md.init_score = np.asarray(init_score,
                                        dtype=np.float64).reshape(-1)
+        if position is not None:
+            md.position = np.asarray(position, dtype=np.int32).reshape(-1)
+        md.set_group(group)
         md.check(ds.num_data)
         return ds
 

@@ -1,8 +1,10 @@
 """Training entry point: ``train()`` (reference:
 python-package/lightgbm/engine.py:109). The port of
 ``lambdagap_tpu/engine.py``'s ``train`` with validation sets, callbacks and
-``early_stopping_round``; ``cv``, ``feval``, ``init_model`` and crash-safe
-resume wait for later slices.
+``early_stopping_round``. A validation set's query groups reach its
+metrics, so a ranker reports ``ndcg@k`` / ``map@k`` / ``precision@k`` per
+``eval_at`` position, greater is better. ``cv``, ``feval``,
+``init_model`` and crash-safe resume wait for later slices.
 """
 from __future__ import annotations
 

@@ -18,10 +18,16 @@ _METRIC_ALIASES = {
     "rmse": "rmse", "root_mean_squared_error": "rmse", "l2_root": "rmse",
     "auc": "auc", "binary_logloss": "binary_logloss",
     "binary": "binary_logloss", "binary_error": "binary_error",
+    "ndcg": "ndcg", "lambdarank": "ndcg", "rank_xendcg": "ndcg",
+    "xendcg": "ndcg", "xe_ndcg": "ndcg", "xe_ndcg_mart": "ndcg",
+    "xendcg_mart": "ndcg",
+    "map": "map", "mean_average_precision": "map",
+    "precision": "precision",
 }
 
 # default metric per objective (reference: Config::GetMetricType)
-_OBJECTIVE_DEFAULT_METRIC = {"regression": "l2", "binary": "binary_logloss"}
+_OBJECTIVE_DEFAULT_METRIC = {"regression": "l2", "binary": "binary_logloss",
+                             "lambdarank": "ndcg", "rank_xendcg": "ndcg"}
 
 
 class Metric:

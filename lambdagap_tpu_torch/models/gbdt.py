@@ -113,7 +113,8 @@ def _refuse_unported(cfg: Config) -> None:
         no("feature_contri")
     if cfg.snapshot_freq > 0:
         no("snapshot_freq (crash-safe snapshots)")
-    if cfg.objective not in ("binary", "regression"):
+    if cfg.objective not in ("binary", "regression", "lambdarank",
+                             "rank_xendcg"):
         no(f"training with objective={cfg.objective}")
 
 
@@ -161,7 +162,8 @@ class GBDT:
         self.objective.init(ds.metadata, ds.num_data, self.device)
         self.learner = FusedTreeLearner(ds, cfg, self.device)
         self.sample_strategy = create_sample_strategy(
-            cfg, ds.num_data, label=ds.metadata.label)
+            cfg, ds.num_data, label=ds.metadata.label,
+            query_boundaries=ds.metadata.query_boundaries)
         self.has_init_score = ds.metadata.init_score is not None
         self.scores = self._init_scores(ds.metadata.init_score, ds.num_data)
         if cfg.is_provide_training_metric:

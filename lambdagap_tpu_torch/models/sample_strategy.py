@@ -10,8 +10,8 @@ Every draw comes from the port's copy of ``jax.random`` threefry
 (``utils/prng``) on the JAX package's keys, so the masks and the amplified
 gradients are the JAX package's bit for bit on the same inputs. Snapshot state
 (``get_state``/``set_state``) waits for snapshots, which are refused before
-training starts; by-query bagging waits for ranking (the port holds no
-query groups, and without them the JAX package bags rows as here).
+training starts. ``bagging_by_query`` draws one uniform per query and
+keeps or drops each query's rows together.
 """
 from __future__ import annotations
 
@@ -45,14 +45,17 @@ class BaggingStrategy(SampleStrategy):
     positive/negative class fractions (reference: bagging.hpp)."""
 
     def __init__(self, config: Config, num_data: int,
-                 label: Optional[np.ndarray] = None) -> None:
+                 label: Optional[np.ndarray] = None,
+                 query_boundaries: Optional[np.ndarray] = None) -> None:
         super().__init__(config, num_data)
         self.key = prng.PRNGKey(config.bagging_seed)
         self.cur_mask: Optional[torch.Tensor] = None
         self.balanced = (config.pos_bagging_fraction < 1.0
                          or config.neg_bagging_fraction < 1.0)
         self.label = label
+        self.query_boundaries = query_boundaries
         self._is_pos = None
+        self._row_query = None
 
     @property
     def enabled(self) -> bool:
@@ -62,6 +65,18 @@ class BaggingStrategy(SampleStrategy):
 
     def _make_mask(self, sub: torch.Tensor, device) -> torch.Tensor:
         c = self.config
+        frac = torch.tensor(c.bagging_fraction, dtype=torch.float32,
+                            device=device)
+        if c.bagging_by_query and self.query_boundaries is not None:
+            qb = self.query_boundaries
+            if self._row_query is None:
+                # each row's query: the last boundary at or before it
+                self._row_query = torch.searchsorted(
+                    torch.from_numpy(np.asarray(qb, np.int64)).to(device),
+                    torch.arange(self.num_data, device=device),
+                    right=True) - 1
+            qmask = prng.uniform(sub, len(qb) - 1, device) < frac
+            return qmask[self._row_query]
         u = prng.uniform(sub, self.num_data, device)
         if self.balanced:
             if self._is_pos is None:
@@ -74,8 +89,7 @@ class BaggingStrategy(SampleStrategy):
                 torch.tensor(c.neg_bagging_fraction, dtype=torch.float32,
                              device=device))
             return u < frac
-        return u < torch.tensor(c.bagging_fraction, dtype=torch.float32,
-                                device=device)
+        return u < frac
 
     def sample(self, iter_, grad, hess):
         c = self.config
@@ -138,13 +152,13 @@ def goss_mask(grad: torch.Tensor, hess: torch.Tensor, key: torch.Tensor,
     return grad * mf, hess * mf, mask
 
 
-def create_sample_strategy(config: Config, num_data: int,
-                           label=None) -> SampleStrategy:
+def create_sample_strategy(config: Config, num_data: int, label=None,
+                           query_boundaries=None) -> SampleStrategy:
     """(reference: SampleStrategy::CreateSampleStrategy,
     src/boosting/sample_strategy.cpp)"""
     if config.data_sample_strategy == "goss":
         return GossStrategy(config, num_data)
-    bs = BaggingStrategy(config, num_data, label)
+    bs = BaggingStrategy(config, num_data, label, query_boundaries)
     if bs.enabled:
         log.info("Using bagging, fraction=%g freq=%d",
                  config.bagging_fraction, config.bagging_freq)

@@ -4,8 +4,8 @@ The port of ``lambdagap_tpu/objectives/base.py``: each objective carries
 the ``name`` (and ``sigmoid``) that ``GBDT.from_model_string`` parses out
 of the model text and converts raw scores ``[K, N]`` to the output space
 with torch ops on the scores' own device. The objectives that train
-(binary and L2 regression in this slice) also hold their label and weight
-tensors on the training device (``init``), compute gradients
+(binary, L2 regression and the ranking family) also hold their label and
+weight tensors on the training device (``init``), compute gradients
 (``get_gradients_fast``: scores ``[K, N]`` -> grad, hess ``[K, N]`` f32,
 the JAX package's f32 operations in the same order) and the
 boost-from-average init score (host numpy, as the JAX package does it).
@@ -88,11 +88,9 @@ def create_objective(config: Config) -> Optional[ObjectiveFunction]:
     if name == "none":
         return None
     if name not in _REGISTRY:
-        if name in ("cross_entropy", "cross_entropy_lambda", "lambdarank",
-                    "rank_xendcg"):
+        if name in ("cross_entropy", "cross_entropy_lambda"):
             raise NotImplementedError(
                 f"objective={name} is not ported to lambdagap_tpu_torch yet "
-                "(ROADMAP.md, port queue: ranking and cross-entropy "
-                "objectives)")
+                "(ROADMAP.md, port queue: cross-entropy objectives)")
         log.fatal("Unknown objective: %s", name)
     return _REGISTRY[name](config)

@@ -15,8 +15,9 @@ a compiled dispatch on the card is one launch of each; the compiled engine
 and the server on the card equal the scan oracle on the card; the f32
 histogram kernel (K1)
 is ``torch.equal`` to its plain version on every channel at chip_smoke's
-shapes (a skewed and an extreme-gradient leaf among them), with and
-without an in-bag mask, reruns bit-identically and refuses bad inputs; the
+shapes (a skewed and an extreme-gradient leaf among them) and at
+MSLR-WEB30K's 136 features (several feature tiles), with and without an
+in-bag mask, reruns bit-identically and refuses bad inputs; the
 int8 histogram kernel (K2) is ``torch.equal`` to its plain version at six
 shapes (a saturated and a skewed one among them) and on a rerun; both
 read a leaf through an offset into its parent's slice exactly as through
@@ -24,7 +25,8 @@ the slice itself, and give every host thread its own sums when two build
 histograms at once on one stream; the threefry draws and the quantized
 levels on the card equal the CPU's bit for bit; and short trainings on the
 card (f32,
-quantized + bagging, GOSS, EFB) equal the same on the CPU.
+quantized + bagging, GOSS, EFB, and rankers: lambdarank targets,
+rank_xendcg, positions with by-query bagging) equal the same on the CPU.
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -283,6 +285,46 @@ def test_hist_kernel_equals_plain_version_on_card(shape, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["root", "leaf"])
+def test_hist_kernel_at_mslr_width_equals_plain_version(shape, cuda_device):
+    """K1 at MSLR-WEB30K's width, 136 u8 features and 255 bins, where the
+    grid splits the features into several tiles: the root of 2,270,296
+    rows and a leaf of N/255 rows behind a permutation slice with junk past
+    its count, gradients spread over four decades like a ranker's lambdas;
+    every channel ``torch.equal``, a rerun bit-identical."""
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n, f, nb = 2_270_296, 136, 256
+    bins = torch.randint(0, 255, (n, f), generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+    grad = torch.randn(n, generator=gen, device=dev) * 10.0 ** (
+        torch.rand(n, generator=gen, device=dev) * 4 - 3)
+    hess = torch.rand(n, generator=gen, device=dev) * 0.1
+    if shape == "root":
+        args = (bins, grad, hess, None, n, nb)
+        P = n
+    else:
+        leaf = n // 255
+        rows = torch.randperm(n, generator=gen, device=dev)[:2 * leaf].int()
+        rows[leaf:] = 2 ** 31 - 1
+        args = (bins, grad, hess, rows, torch.tensor(
+            [leaf], dtype=torch.int32, device=dev), nb)
+        P = 2 * leaf
+    _, f_tile = hc._grid(hc.HIST_SOURCE, hc._kernel_lib(hc.HIST_SOURCE, dev),
+                         dev, bins, P, nb)
+    assert f_tile < f
+    got = hc.hist_rows(*args)
+    again = hc.hist_rows(*args)
+    ref = hc._hist_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, ref)
+    live = n if shape == "root" else n // 255
+    assert int(got[..., 2].double().sum()) == live * f
+
+
+@pytest.mark.cuda
 def test_hist_kernel_refuses_bad_inputs(cuda_device):
     from lambdagap_tpu_torch.ops import hist_cuda as hc
     bins, grad, hess, _, n, nb = _hist_case("u16", cuda_device)
@@ -500,5 +542,46 @@ def test_sampled_quantized_bundled_training_on_card_equals_cpu(extra,
         lr = card._booster.learner
         assert lr.bundle is not None and lr.x_rows.shape[1] < X.shape[1]
     cpu = lgt.train({**params, **CPU}, lgt.Dataset(X, label=y), 10)
+    np.testing.assert_allclose(card.predict(X), cpu.predict(X), rtol=1e-4,
+                               atol=1e-5)
+
+
+def _ltr(n_queries=120, seed=0):
+    """Queries of 1 to 60 documents, graded labels 0-4 from a latent."""
+    rng = np.random.RandomState(seed)
+    sizes = rng.randint(1, 61, n_queries)
+    n = int(sizes.sum())
+    X = rng.randn(n, 10)
+    latent = X[:, 0] + 0.5 * X[:, 1] + 0.5 * rng.randn(n)
+    y = np.clip(np.floor(latent + 1.0), 0, 4)
+    pos = np.concatenate([np.arange(k) for k in sizes])
+    return X, y, sizes, pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    {"lambdarank_target": "ndcg"},
+    {"lambdarank_target": "lambdagap-x-plus-plus", "lambdagap_weight": 0.5},
+    {"objective": "rank_xendcg"},
+    {"_position": True, "bagging_fraction": 0.7, "bagging_freq": 1,
+     "bagging_by_query": True},
+])
+def test_ranking_on_card_equals_cpu(extra, cuda_device):
+    """Rankers trained on the card (the lambda pass in torch ops on the
+    card, K1 histograms) against the same on the CPU, at the training-row
+    bar."""
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    extra = dict(extra)
+    X, y, sizes, pos = _ltr()
+    position = pos if extra.pop("_position", False) else None
+    params = {"objective": "lambdarank", "num_leaves": 31,
+              "min_data_in_leaf": 10, "verbose": -1, **extra}
+    before = hc.HIST_LAUNCHES.launches
+    card = lgt.train(params, lgt.Dataset(X, label=y, group=sizes,
+                                         position=position), 10)
+    assert hc.HIST_LAUNCHES.launches > before
+    assert card._booster.scores.device.type == "cuda"
+    cpu = lgt.train({**params, **CPU}, lgt.Dataset(
+        X, label=y, group=sizes, position=position), 10)
     np.testing.assert_allclose(card.predict(X), cpu.predict(X), rtol=1e-4,
                                atol=1e-5)

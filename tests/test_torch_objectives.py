@@ -92,8 +92,8 @@ def test_metrics_equal_jax(names, kind, weighted):
 
 
 def test_unported_metric_refuses():
-    with pytest.raises(NotImplementedError, match="ndcg"):
-        create_metrics(Config.from_params({"metric": ["ndcg"]}),
+    with pytest.raises(NotImplementedError, match="multi_logloss"):
+        create_metrics(Config.from_params({"metric": ["multi_logloss"]}),
                        Metadata(label=np.zeros(3, np.float32)), 3)
 
 

@@ -218,6 +218,52 @@ def test_training_scores_equal_model_predictions():
                                              raw_score=True), scores)
 
 
+def test_max_delta_step_matches_jax():
+    """A cap that does not saturate (0.5 against leaf outputs of up to
+    ~1.5 at learning rate 0.1): the training-row bar and equal leaf
+    counts."""
+    X, y = _fused_data()
+    params = {"objective": "regression", "num_leaves": 15,
+              "min_data_in_leaf": 20, "max_delta_step": 0.5, "verbose": -1}
+    bj = lgb.train({**params, **JAX_F32}, lgb.Dataset(X, label=y), 8)
+    bt = lgt.train({**params, **CPU}, lgt.Dataset(X, label=y), 8)
+    np.testing.assert_allclose(bt.predict(X), bj.predict(X), rtol=1e-4,
+                               atol=1e-5)
+    assert [t.num_leaves for t in bt._booster.host_models] == \
+        [t.num_leaves for t in bj._booster.host_models]
+
+
+def test_saturated_max_delta_step_differs_from_jax_only_at_a_tie():
+    """A cap of 0.05 clamps a leaf and both of its children to the same
+    output, so such a split's gain equals its parent's in exact arithmetic
+    and rounding decides whether it is taken (ROADMAP.md, Queue 3). The
+    first tree (equal gradients on both sides) makes the same splits as
+    JAX's up to the first pick where they part, and there both sides'
+    gains are at the noise level of the root's gain."""
+    X, y = _fused_data()
+    params = {"objective": "regression", "num_leaves": 15,
+              "min_data_in_leaf": 20, "max_delta_step": 0.05, "verbose": -1}
+    tj = lgb.train({**params, **JAX_F32}, lgb.Dataset(X, label=y),
+                   1)._booster.host_models[0]
+    tt = lgt.train({**params, **CPU}, lgt.Dataset(X, label=y),
+                   1)._booster.host_models[0]
+
+    def picks(t):
+        return [(t.split_feature[k], t.threshold_real[k], t.split_gain[k])
+                for k in range(t.num_leaves - 1)]
+
+    pj, pt = picks(tj), picks(tt)
+    noise = 1e-6 * pj[0][2]
+    k = 0
+    while k < min(len(pj), len(pt)) and pj[k][:2] == pt[k][:2]:
+        assert pj[k][2] == pytest.approx(pt[k][2], rel=1e-5)
+        k += 1
+    assert k >= 4, "the trees parted before the cap saturated"
+    for side in (pj, pt):
+        if k < len(side):
+            assert side[k][2] < noise, (k, side[k])
+
+
 @pytest.mark.parametrize("params", [
     {"extra_trees": True},
     {"feature_fraction_bynode": 0.5},
@@ -232,6 +278,7 @@ def test_training_scores_equal_model_predictions():
     {"boosting": "dart"},
     {"objective": "multiclass", "num_class": 3},
     {"objective": "regression_l1"},
+    {"objective": "cross_entropy"},
     {"feature_contri": [1.0] * 8},
     {"snapshot_freq": 1},
 ])
