@@ -2,7 +2,8 @@
 """Drive the PyTorch port's training and serving paths on one CUDA card
 and check them.
 
-    python3 chip_smoke.py [--seed N] [--rows N] [--only kernels]
+    python3 chip_smoke.py [--seed N] [--rows N]
+                          [--only kernels|rank|objectives]
 
 Run from the root of a checkout. Phases, each fatal on failure:
 
@@ -51,14 +52,14 @@ T2q. the int8 histogram kernel (K2) against its plain version at six
 T3. the training path: ``lgt.train`` on the card, binary, HIGGS width (28
    features, ``num_leaves=255``, ``max_bin=255``), ``--rows`` seeded
    synthetic rows (10,500,000, HIGGS's count, by default) plus a 500,000-row
-   validation set, 10 rounds with ``early_stopping(5)``; the launch counts
+   validation set, 5 rounds with ``early_stopping(5)``; the launch counts
    are zeroed just before and read just after, and the K1 launches must
    equal the leaf histograms the learner built; one more tree with CUDA
    events around its phases, and one under ``torch.profiler`` for K1's
    kernel-only device time summed over its launches;
 T6. T3's configuration and Datasets with ``use_quantized_grad`` (4
    levels, stochastic rounding, ``quant_train_renew_leaf``) and bagging
-   0.8/1: the K2 launches equal the leaf histograms built, no K1 launch,
+   0.8/1, 10 rounds: the K2 launches equal the leaf histograms built, no K1 launch,
    the validation logloss falls; one tree's phases and K2's kernel-only
    time, the threefry draw's time, peak memory; the model served back
    against the scan oracle;
@@ -95,7 +96,49 @@ T9. 200 queries x 25 documents x 20 features, 63 leaves, 20 rounds on the
    rank_xendcg, positions with by-query bagging, predictions on the
    training rows within rtol 1e-4 / atol 1e-5;
 T10. the T8 ranker served back (T5's checks);
-6. the kernels line (one JSON object) and, last, the device line.
+T11. multiclass at UCI Covertype's width: seeded synthetic rows of its
+   shape (``covtype_like``: 464,809 training and 116,203 validation rows,
+   10 integer-valued continuous features in its ranges, 4 wilderness and 40
+   soil one-hot columns that EFB bundles, 7 classes at its shares), 255
+   leaves, 255 bins: T11a softmax (``num_class=7``) 6 rounds with
+   ``early_stopping(5)`` and multi_logloss / multi_error / auc_mu on the
+   validation set, T11b one-vs-all 2 rounds, T11c softmax on 4-level
+   quantized gradients with bagging 0.8/1, 2 rounds, all on one pair of
+   Datasets; counts zeroed just before each run and read just after (K1,
+   or K2 for T11c, launches == the leaves of the trained trees, one
+   histogram each; the other kernel unlaunched); per round, from a
+   callback, the wall, the trees' host wall (the booster's ``tree_ms``),
+   the gradient pass's device time and the metrics' host time (each a
+   repeat at the round's end); multi_logloss falls and multi_error ends
+   below the majority class's share;
+T2 at T11's width: K1 against its plain version (``torch.equal``, rerun
+   bit-identical) at the root of T11's bundled matrix with round 1's
+   softmax gradients of one class; its times and bound; K2 against its
+   plain version at T11c's shapes, the root and a leaf at an offset in
+   its parent's slice, with round 1's bagged 4-level levels of class 0;
+T11-serve. T11a's 7-class model served on the card, early stop off and on
+   (a margin that stops some rows): each [rows, 7] answer ``array_equal``
+   to the scan oracle, converted outputs its softmax at rtol 1e-6, one
+   accumulation launch per K3 launch;
+T12. 16,000 x 20 with a 12-category column, 31 leaves, 10 rounds with a
+   validation set and early stopping, on the card and on the CPU:
+   multiclass, multiclassova, multiclass + GOSS, regression_l1 (also with
+   bagging 0.7/1), huber, fair, poisson, quantile, mape, gamma, tweedie,
+   cross_entropy and cross_entropy_lambda with trial counts in (0.2, 1];
+   training-row predictions within rtol 1e-4 / atol 1e-5, best_iteration
+   equal;
+T13. regression at YearPredictionMSD's width (``msd_like``: 463,715 +
+   51,630 rows x 90 features, integer years 1922-2011 skewed toward the
+   2000s), 255 leaves, 3 rounds each of regression_l1 and quantile (the
+   leaf-renew path: the renew pass's host ms per tree, the booster's
+   ``renew_ms``) and huber; two leaves of each renewed run's last tree
+   against numpy's percentile of their residuals at the scores before
+   that tree; K1 against its plain version on the 90-feature matrix with
+   round 1's L1 gradients, at the root and at a leaf at an offset;
+6. the kernels line (one JSON object, six entries; each entry's
+   ``max_abs_err`` the largest of its kernel's comparisons, T13's K1 in
+   ``hist_rows@covtype`` and T11c's K2 in ``hist_rows_q``) and, last, the
+   device line.
 
 Needs one card; exits non-zero, printing no result, when there is none.
 Imports nothing of JAX nor of the JAX package.
@@ -129,13 +172,23 @@ H100_INT32_OPS_PER_S = H100_F32_OPS_PER_S / 4
 HIGGS_ROWS = 10_500_000         # HIGGS's training rows (bench.py)
 VALID_ROWS = 500_000
 MAX_BIN = 255
-ROUNDS = 10
+ROUNDS = 5                      # T3 (cut from 10: the script's time)
+QUANT_ROUNDS = 10               # T6
 MSLR_F = 136                    # MSLR-WEB30K features
 MSLR_QUERIES = 18_919           # MSLR-WEB30K Fold 1's training queries
 MSLR_VALID_QUERIES = 2_000
 MSLR_MAX_DOCS = 1_251           # its longest query
 RANK_ROUNDS = 10
 RANK_SHORT_ROUNDS = 3
+# UCI Covertype: 581,012 rows split 80/20, 54 features (10 continuous, 4
+# wilderness and 40 soil one-hot columns), 7 cover types with these shares
+COV_TRAIN, COV_VALID = 464_809, 116_203
+COV_SHARES = (0.3646, 0.4876, 0.0615, 0.0047, 0.0163, 0.0299, 0.0353)
+COV_ROUNDS = 6
+COV_SHORT_ROUNDS = 2
+# YearPredictionMSD: 463,715 training and 51,630 test rows, 90 features
+MSD_TRAIN, MSD_VALID, MSD_F = 463_715, 51_630, 90
+MSD_ROUNDS = 3
 
 
 def fail(msg: str) -> None:
@@ -273,9 +326,12 @@ def burst(server, data: np.ndarray, plan, clients: int = 4):
 
 
 def check_answers(answers, plan, oracle) -> None:
+    """Each answer ``array_equal`` to its rows of the oracle ([N] or
+    [N, K])."""
     for i, (lo, n) in enumerate(plan):
-        check(answers[i].shape == (n,) and
-              np.array_equal(answers[i], oracle[lo:lo + n]),
+        want = oracle[lo:lo + n]
+        check(answers[i].shape == want.shape and
+              np.array_equal(answers[i], want),
               f"request {i} ({n} rows) != scan oracle")
 
 
@@ -863,7 +919,8 @@ def quant_phase(t3: dict, smi: str):
     hc.HIST_LAUNCHES.reset()
     hc.HIST_Q_LAUNCHES.reset()
     t_train = time.perf_counter()
-    bst = lgt.train(params, t3["train"], ROUNDS, valid_sets=[t3["valid"]],
+    bst = lgt.train(params, t3["train"], QUANT_ROUNDS,
+                    valid_sets=[t3["valid"]],
                     callbacks=[per_round, lgt.early_stopping(5, verbose=False),
                                lgt.record_evaluation(ev)])
     torch.cuda.synchronize()
@@ -1409,16 +1466,643 @@ def rank_phases(args, dev, smi: str):
 
 
 # ---------------------------------------------------------------------------
+# T11-T13: multiclass at Covertype width, the other objectives card against
+# CPU, regression with leaf renew at YearPredictionMSD width
+# ---------------------------------------------------------------------------
+def covtype_like(seed: int, n: int):
+    """Seeded rows of UCI Covertype's shape (Blackard & Dean): 10
+    integer-valued continuous features in its ranges (elevation
+    1,859-3,858 m, aspect 0-360, slope 0-66, the hydrology, road and fire
+    distances, three hillshades 0-254 from aspect and slope), then 4
+    one-hot wilderness and 40 one-hot soil columns; 7 cover types, each
+    row's the argmax of a per-class linear score of the features plus
+    Gumbel noise, the class offsets fitted so the classes take Covertype's
+    shares (``COV_SHARES``)."""
+    rng = np.random.default_rng(seed)
+
+    def clip_round(v, lo, hi):
+        return np.clip(np.round(v), lo, hi)
+
+    elev = clip_round(rng.normal(2960, 280, n), 1859, 3858)
+    aspect = rng.integers(0, 361, n).astype(np.float64)
+    slope = clip_round(rng.gamma(3.0, 4.7, n), 0, 66)
+    a, sl = np.deg2rad(aspect), np.deg2rad(slope)
+
+    def shade(azimuth: float, altitude: float):
+        az, alt = np.deg2rad(azimuth), np.deg2rad(altitude)
+        v = 254 * (np.sin(alt) * np.cos(sl)
+                   + np.cos(alt) * np.sin(sl) * np.cos(az - a))
+        return clip_round(v + rng.normal(0, 6, n), 0, 254)
+
+    cont = np.stack([
+        elev, aspect, slope,
+        clip_round(rng.exponential(270, n), 0, 1397),       # hydrology, h
+        clip_round(rng.normal(46, 58, n), -173, 601),       # hydrology, v
+        clip_round(rng.exponential(2350, n), 0, 7117),      # roadways
+        shade(100, 45), shade(180, 65), shade(260, 40),     # 9am, noon, 3pm
+        clip_round(rng.exponential(1980, n), 0, 7173),      # fire points
+    ], axis=1)
+    wild = rng.choice(4, n, p=[0.45, 0.05, 0.44, 0.06])
+    band = (elev - 1859) / 2000 * 39
+    soil = np.clip(np.round(band + rng.normal(0, 4, n)), 0, 39).astype(int)
+    X = np.zeros((n, 54), np.float32)
+    X[:, :10] = cont
+    X[np.arange(n), 10 + wild] = 1
+    X[np.arange(n), 14 + soil] = 1
+    z = (cont - cont.mean(0)) / cont.std(0)
+    W = rng.normal(0, 0.5, (10, 7))
+    W[0] = [1.6, 0.4, -2.2, -3.0, 0.2, -1.8, 3.0]           # elevation
+    score = (z @ W + rng.normal(0, 0.8, (4, 7))[wild]
+             + rng.normal(0, 0.5, (40, 7))[soil]
+             + rng.gumbel(0, 1.0, (n, 7)))
+    offset = np.zeros(7)
+    target = np.asarray(COV_SHARES) / np.sum(COV_SHARES)
+    for _ in range(40):
+        y = np.argmax(score + offset, axis=1)
+        share = np.bincount(y, minlength=7) / n
+        offset += 0.8 * np.log(target / np.maximum(share, 1e-6))
+    y = np.argmax(score + offset, axis=1)
+    return X, y.astype(np.float32)
+
+
+def msd_like(seed: int, n: int):
+    """Seeded rows of YearPredictionMSD's shape: 90 continuous features (12
+    timbre means, 78 timbre covariances, at their scales) and an integer
+    release year in 1922-2011 skewed toward the 2000s (2011 minus a gamma
+    draw, shifted by a sparse latent of the features)."""
+    rng = np.random.default_rng(seed)
+    scale = np.concatenate([np.full(12, 20.0), np.full(78, 60.0)])
+    X = (rng.standard_normal((n, MSD_F), dtype=np.float32)
+         * scale.astype(np.float32))
+    w = rng.standard_normal(MSD_F) * (rng.random(MSD_F) < 0.2) / scale
+    latent = X @ w.astype(np.float32)
+    year = 2011 - rng.gamma(1.3, 8.0, n) + 2.5 * latent / latent.std()
+    return X, np.clip(np.round(year), 1922, 2011).astype(np.float32)
+
+
+class _RoundProbe:
+    """A training callback. Each round: the wall since the last round's
+    end, the host wall of each of its trees and renew passes (the
+    booster's ``tree_ms`` / ``renew_ms``), the K1 and K2 launches; then,
+    outside the next round's wall, the gradient pass's device time (CUDA
+    events) and the validation metrics' host time, each a repeat of the
+    round's own pass at the round's end scores. ``keep_scores`` keeps the
+    last two rounds' class-0 training scores on the host."""
+
+    def __init__(self, keep_scores: bool = False) -> None:
+        self.rounds = []
+        self.scores = []
+        self.keep_scores = keep_scores
+        self.t_last = 0.0
+
+    def start(self) -> None:
+        self.t_last = time.perf_counter()
+
+    def __call__(self, env) -> None:
+        import torch
+        from lambdagap_tpu_torch.ops import hist_cuda as hc
+        wall = (time.perf_counter() - self.t_last) * 1e3
+        gb = env.model._booster
+        r = {"wall": wall, "trees": list(gb.tree_ms),
+             "renew": list(gb.renew_ms), "k1": hc.HIST_LAUNCHES.launches,
+             "k2": hc.HIST_Q_LAUNCHES.launches}
+        t0 = time.perf_counter()
+        env.model.eval_valid()
+        r["eval"] = (time.perf_counter() - t0) * 1e3
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        gb.objective.get_gradients_fast(gb.scores)
+        ev[1].record()
+        torch.cuda.synchronize()
+        r["grad"] = ev[0].elapsed_time(ev[1])
+        self.rounds.append(r)
+        if self.keep_scores:
+            self.scores = self.scores[-1:] + [
+                gb.scores[0].cpu().numpy().copy()]
+        self.t_last = time.perf_counter()
+
+
+def leaves_built(bst) -> int:
+    """The leaf histograms a run built: one for every leaf of every tree
+    (the root's, then the smaller child's at each split), from the model
+    text."""
+    return sum(int(ln.split("=", 1)[1])
+               for ln in bst.model_to_string().splitlines()
+               if ln.startswith("num_leaves="))
+
+
+def probed_train(params: dict, tr, va, rounds: int, tag: str, smi: str,
+                 keep_scores: bool = False):
+    """Train with the launch counts zeroed just before and read just
+    after, under a :class:`_RoundProbe`; checks K1 (or, quantized, K2)
+    launches == the leaf histograms built, the other kernel unlaunched,
+    and prints each round's numbers. Returns (booster, evaluation history,
+    probe, launches)."""
+    import torch
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    ev = {}
+    probe = _RoundProbe(keep_scores)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hc.HIST_LAUNCHES.reset()
+    hc.HIST_Q_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    probe.start()
+    bst = lgt.train(params, tr, rounds, valid_sets=[va],
+                    callbacks=[probe, lgt.early_stopping(5, verbose=False),
+                               lgt.record_evaluation(ev)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    k1, k2 = hc.HIST_LAUNCHES.launches, hc.HIST_Q_LAUNCHES.launches
+    gb = bst._booster
+    quant = bool(params.get("use_quantized_grad"))
+    built = leaves_built(bst)
+    used, other = (k2, k1) if quant else (k1, k2)
+    check(gb.scores.device.type == "cuda" and gb.learner.x_rows.is_cuda,
+          f"{tag}: did not train on the card")
+    check(used > 0 and used == built, f"{tag}: {'K2' if quant else 'K1'} "
+          f"launches {used} != leaf histograms built {built}")
+    check(other == 0, f"{tag}: launched {'K1' if quant else 'K2'} {other} "
+          "times")
+    check(bool(torch.isfinite(gb.scores).all()),
+          f"{tag}: non-finite training scores")
+    key = "k2" if quant else "k1"
+    before = 0
+    for i, r in enumerate(probe.rounds):
+        renew = (f", renew {sum(r['renew']):.1f} ms" if r["renew"] else "")
+        print(f"{tag} round {i + 1}: wall {r['wall']:.1f} ms; "
+              f"{len(r['trees'])} tree(s) {sum(r['trees']):.1f} ms host wall "
+              f"({', '.join(f'{w:.0f}' for w in r['trees'])}), "
+              f"{r[key] - before} histograms; gradient pass "
+              f"{r['grad']:.3f} ms device; validation metrics "
+              f"{r['eval']:.1f} ms host{renew} [{smi}]")
+        before = r[key]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{tag}: {len(probe.rounds)} rounds in {train_s:.2f} s; "
+          f"{'K2' if quant else 'K1'} launches {used} == leaf histograms "
+          f"built; peak device memory {peak / 1e9:.3f} GB; validation "
+          + "; ".join(f"{m} {v[0]:.5f} -> {v[-1]:.5f}"
+                      for m, v in ev["valid_0"].items()) + f" [{smi}]")
+    return bst, ev["valid_0"], probe, used
+
+
+def partition_leaf(bins, col: int):
+    """A leaf laid out as the learner lays one out: the rows stably
+    partitioned on one column's median bin, the right child read at its
+    offset in that slice. Returns (positions, offset, count)."""
+    import torch
+    b = bins[:, col].int()
+    left = b <= b.median()
+    perm = torch.cat([torch.nonzero(left).flatten(),
+                      torch.nonzero(~left).flatten()]).int()
+    off = int(left.sum())
+    return perm, off, len(perm) - off
+
+
+def held_to_plain(what: str, kernel, plain, args, live: int) -> float:
+    """One histogram kernel against its plain version: ``torch.equal`` on
+    every channel, a rerun ``torch.equal``, ``live`` rows counted in every
+    column. Returns the max |difference| (0)."""
+    import torch
+    got = kernel(*args)
+    again = kernel(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{what}: rerun not bit-identical")
+    check(torch.equal(got, ref), f"{what} != plain: "
+          f"{int((got != ref).sum())} entries differ")
+    check(int(got[..., 2].double().sum()) == live * args[0].shape[1],
+          f"{what}: counted rows wrongly")
+    print(f"{what} == plain: torch.equal on every channel, rerun "
+          f"bit-identical, {live} rows")
+    return float((got.double() - ref.double()).abs().max())
+
+
+def covtype_data(args, smi: str):
+    import lambdagap_tpu_torch as lgt
+    t0 = time.perf_counter()
+    X, y = covtype_like(args.seed + 300, COV_TRAIN + COV_VALID)
+    gen_s = time.perf_counter() - t0
+    params = {"objective": "multiclass", "num_class": 7,
+              "metric": ["multi_logloss", "multi_error", "auc_mu"],
+              "num_leaves": LEAVES, "max_bin": MAX_BIN, "learning_rate": 0.1,
+              "verbose": -1}
+    cfg = lgt.Config.from_params(params)
+    t0 = time.perf_counter()
+    tr = lgt.Dataset(X[:COV_TRAIN], label=y[:COV_TRAIN])
+    va = lgt.Dataset(X[COV_TRAIN:], label=y[COV_TRAIN:], reference=tr)
+    ds = tr.construct(cfg)
+    va.construct(cfg)
+    bun = ds.ensure_bundle(cfg)
+    build_s = time.perf_counter() - t0
+    check(bun is not None and bun.num_cols < X.shape[1],
+          "T11: EFB formed no bundle of the one-hot columns")
+    sizes = sorted((len(m) for m in bun.members if len(m) > 1), reverse=True)
+    shares = np.bincount(y.astype(int), minlength=7) / len(y)
+    print(f"T11 data: {COV_TRAIN} + {COV_VALID} rows x {X.shape[1]} "
+          f"features (Covertype's shape), class shares "
+          f"{np.round(100 * shares, 2).tolist()} % made in {gen_s:.1f} s; "
+          f"Dataset construction (binning, EFB) {build_s:.1f} s [{smi}]")
+    print(f"T11 EFB: {len(ds.used_features)} used features in "
+          f"{bun.num_cols} bundled columns; bundles of {sizes} features (the "
+          "rest single)")
+    print(f"T11 cuts: synthetic rows of Covertype's shape (not the data); "
+          f"{COV_ROUNDS} / {COV_SHORT_ROUNDS} / {COV_SHORT_ROUNDS} rounds "
+          "(the reference runs hundreds); features, classes, one-hot "
+          "structure, leaves and bins uncut")
+    return params, tr, va, X[COV_TRAIN:], shares
+
+
+def covtype_phase(args, dev, smi: str) -> dict:
+    """T11a-c: 7-class softmax (6 rounds, early stopping, multi_logloss,
+    multi_error, auc_mu), one-vs-all (2 rounds) and quantized + bagged
+    softmax (2 rounds) on one pair of Covertype-width Datasets."""
+    import torch
+    params, tr, va, Xva, shares = covtype_data(args, smi)
+    bst, hist, probe, k1 = probed_train(params, tr, va, COV_ROUNDS, "T11a",
+                                        smi)
+    ll, err = hist["multi_logloss"], hist["multi_error"]
+    majority = 1.0 - float(shares.max())
+    check(ll[-1] < ll[0], f"T11a valid multi_logloss did not fall: {ll}")
+    check(err[-1] < majority, f"T11a valid multi_error {err[-1]} not below "
+          f"the majority class's {majority}")
+    check(0.5 < hist["auc_mu"][-1] <= 1.0, f"T11a auc_mu {hist['auc_mu']}")
+    gb = bst._booster
+    walls = [w for r in probe.rounds for w in r["trees"]]
+    prev = probe.rounds[-2]["k1"] if len(probe.rounds) > 1 else 0
+    per_tree = (probe.rounds[-1]["k1"] - prev) / 7
+    print(f"T11a: {len(walls)} trees, {np.mean(walls):.1f} ms host wall a "
+          f"tree, {per_tree:.1f} histograms a tree in the last round; "
+          f"multi_error {err[-1]:.5f} < {majority:.5f} (majority class) "
+          f"[{smi}]")
+    # round 1's softmax gradients, for T2 at this width
+    obj = gb.objective
+    init = torch.tensor([obj.boost_from_score(k) for k in range(7)],
+                        dtype=torch.float32, device=dev)
+    s0 = torch.zeros((7, gb.num_data), dtype=torch.float32, device=dev)
+    s0 += init[:, None]
+    g1, h1 = obj.get_gradients_fast(s0)
+    out = {"bst": bst, "Xva": Xva, "launches": k1,
+           "grad": g1[1].contiguous(), "hess": h1[1].contiguous(),
+           "x_rows": gb.learner.x_rows, "Bb": gb.learner.Bb,
+           "hist_builds_tree": per_tree}
+    _, hist_b, _, _ = probed_train({**params, "objective": "multiclassova"},
+                                   tr, va, COV_SHORT_ROUNDS, "T11b", smi)
+    check(all(np.isfinite(v).all() for v in hist_b.values()),
+          "T11b: non-finite validation metrics")
+    qparams = {**params, "use_quantized_grad": True,
+               "num_grad_quant_bins": 4, "bagging_fraction": 0.8,
+               "bagging_freq": 1}
+    bst_c, hist_c, _, k2 = probed_train(qparams, tr, va, COV_SHORT_ROUNDS,
+                                        "T11c", smi)
+    check(bst_c._booster.learner.quant, "T11c did not train quantized")
+    check(hist_c["multi_logloss"][-1] < hist_c["multi_logloss"][0],
+          "T11c valid multi_logloss did not fall")
+    out["k2_launches"] = k2
+    out["q"] = round_one_levels(bst_c._booster, g1, h1)
+    del s0, g1, h1
+    return out
+
+
+def round_one_levels(gb, grad, hess):
+    """What K2 saw in T11c's first tree: round 1's softmax gradients (at
+    the init scores) bagged by round 1's mask and quantized to class 0's
+    levels with that tree's key. Returns (g_q, h_q, mask)."""
+    from lambdagap_tpu_torch.models.sample_strategy import \
+        create_sample_strategy
+    from lambdagap_tpu_torch.ops.hist_cuda import quantize_gradients
+    from lambdagap_tpu_torch.utils import prng
+    cfg = gb.config
+    strat = create_sample_strategy(cfg, gb.num_data,
+                                   label=gb.train_set.metadata.label)
+    g, h, mask = strat.sample(0, grad, hess)
+    key = prng.split(prng.PRNGKey(cfg.data_random_seed + 7919))[1]
+    gq, hq, _, _ = quantize_gradients(g[0], h[0], key,
+                                      cfg.num_grad_quant_bins,
+                                      cfg.stochastic_rounding)
+    return gq, hq, mask
+
+
+def hist_covtype_phase(dev, t11: dict, smi: str) -> dict:
+    """T2 at T11's width: K1 against its plain version at the root of the
+    bundled Covertype matrix with round 1's softmax gradients of one
+    class, ``torch.equal`` on every channel and on a rerun; its time, the
+    plain version's, ``index_add_``'s and the bound. Then K2 against its
+    plain version at T11c's shapes: the root and a leaf at an offset, with
+    round 1's bagged 4-level levels. Returns (K1's numbers, K2's max
+    |difference|)."""
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    bins, grad, hess, nb = t11["x_rows"], t11["grad"], t11["hess"], t11["Bb"]
+    N, C = bins.shape
+    args = (bins, grad, hess, None, N, nb, None, None,
+            hc.hist_scale(grad, hess))
+    err = held_to_plain(f"K1 at T11 width [{N} rows x {C} bundled columns, "
+                        f"{nb} bins, round 1's class-1 softmax gradients]",
+                        hc.hist_rows, hc._hist_reference, args, N)
+    timed = time_hist("K1@covtype", "T11 root, bundled columns", hc.hist_rows,
+                      hc._hist_reference, args, N, 0, smi, 8, 5)
+    print(f"K1@covtype launches: {t11['hist_builds_tree']:.1f} a tree, "
+          f"{7 * t11['hist_builds_tree']:.0f} a 7-class round [{smi}]")
+    gq, hq, mask = t11["q"]
+    perm, off, count = partition_leaf(bins, 0)
+    err_q = max(
+        held_to_plain(f"K2 at T11c's root [{N} rows x {C} bundled columns, "
+                      "round 1's bagged 4-level class-0 levels]",
+                      hc.hist_rows_q, hc._hist_q_reference,
+                      (bins, gq, hq, None, N, nb, mask), int(mask.sum())),
+        held_to_plain(f"K2 at a T11c leaf [{count} rows at offset {off}]",
+                      hc.hist_rows_q, hc._hist_q_reference,
+                      (bins, gq, hq, perm, one(dev, count), nb, mask,
+                       one(dev, off)), int(mask[perm[off:].long()].sum())))
+    return {**timed, "max_abs_err": err}, err_q
+
+
+def covtype_serve_phase(t11: dict, dev, smi: str) -> None:
+    """T11-serve: T11a's model text served on the card, early stop off and
+    then on: each answer ``array_equal`` to the scan oracle, converted
+    outputs the oracle's softmax at rtol 1e-6, K3 launches == accumulation
+    launches."""
+    import torch
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.infer import (ACCUMULATE_LAUNCHES,
+                                           TRAVERSE_LAUNCHES)
+    from lambdagap_tpu_torch.ops.predict import (forest_to_arrays,
+                                                 predict_forest)
+    text = t11["bst"].model_to_string()
+    data = np.ascontiguousarray(t11["Xva"][:20_000])
+    plan = [((i * 977) % (len(data) - SIZES[i % len(SIZES)]),
+             SIZES[i % len(SIZES)]) for i in range(REQUESTS)]
+    base = lgt.Booster(model_str=text)
+    gb = base._booster
+    K = gb.num_tree_per_iteration
+    check(K == 7, f"T11-serve: {K} trees a round")
+    forest, depth = forest_to_arrays(gb.models, device=dev)
+    tc = [i % K for i in range(len(gb.models))]
+    x = torch.from_numpy(data).to(dev)
+    oracle = predict_forest(x, forest, tc, K, depth).T.cpu().numpy()
+    top2 = np.sort(oracle, axis=1)[:, -2:]
+    margin = float(np.median(top2[:, 1] - top2[:, 0])) / 2
+    for name, extra in (("early stop off", {}), (
+            f"early stop on (freq 1 round, margin {margin:.4f})",
+            {"pred_early_stop": True, "pred_early_stop_freq": 1,
+             "pred_early_stop_margin": margin})):
+        bst = lgt.Booster(model_str=text, params=extra)
+        want = oracle if not extra else predict_forest(
+            x, forest, tc, K, depth, early_stop_freq=K,
+            early_stop_margin=margin).T.cpu().numpy()
+        TRAVERSE_LAUNCHES.reset()
+        ACCUMULATE_LAUNCHES.reset()
+        with bst.as_server(raw_score=True, workers=1) as server:
+            answers, secs = burst(server, data, plan)
+        k3, acc = TRAVERSE_LAUNCHES.launches, ACCUMULATE_LAUNCHES.launches
+        check(k3 > 0 and acc == k3, f"T11-serve [{name}]: {k3} K3 launches,"
+              f" {acc} accumulation launches")
+        check_answers(answers, plan, want)
+        conv = bst.predict(data[:4096])
+        z = want[:4096].astype(np.float64)
+        e = np.exp(z - z.max(axis=1, keepdims=True))
+        check(np.allclose(conv, e / e.sum(axis=1, keepdims=True), rtol=1e-6,
+                          atol=1e-7),
+              f"T11-serve [{name}]: converted != the oracle's softmax")
+        stopped = int((want != oracle).any(axis=1).sum())
+        if extra:
+            check(0 < stopped < len(data), f"T11-serve: early stop stopped "
+                  f"{stopped} of {len(data)} rows")
+        print(f"T11-serve [{name}]: {len(gb.models)} trees (7 classes), "
+              f"{REQUESTS} requests in {secs:.2f} s, each == scan oracle "
+              f"([rows, 7] raw scores), converted == its softmax at rtol "
+              f"1e-6; K3 and accumulation launches {k3} each; {stopped} of "
+              f"{len(data)} rows stopped early [{smi}]")
+
+
+def objectives_card_vs_cpu_phase(smi: str) -> None:
+    """T12: 16,000 rows x 20 features, one 12-category column, 31 leaves,
+    10 rounds with a validation set and early stopping, every objective
+    this slice adds, each on the card and on the CPU: training-row
+    predictions within rtol 1e-4 / atol 1e-5, the same best_iteration."""
+    import lambdagap_tpu_torch as lgt
+    rng = np.random.RandomState(6)
+    n = 20_000
+    X = rng.randn(n, 20)
+    X[:, 0] = rng.randint(0, 12, n)
+    z = (X[:, 1] + 0.5 * X[:, 2] * X[:, 3] + np.sin(2 * X[:, 4])
+         + (X[:, 0] % 4) * 0.4 + 0.3 * rng.randn(n))
+    cls = np.digitize(z, np.quantile(z, [0.25, 0.5, 0.75])).astype(float)
+    prob = 1.0 / (1.0 + np.exp(-z))
+    pos = np.exp(0.4 * z)
+    # Bernoulli trial counts in (0.2, 1]: cross_entropy_lambda's hessian (the
+    # JAX package's) turns negative above one trial (ROADMAP.md Queue 3)
+    trials = 1.0 - 0.8 * rng.rand(n)
+    configs = [
+        ("multiclass (4 classes)", {"objective": "multiclass",
+                                    "num_class": 4}, cls, None),
+        ("multiclassova", {"objective": "multiclassova", "num_class": 4},
+         cls, None),
+        ("multiclass + GOSS", {"objective": "multiclass", "num_class": 4,
+                               "data_sample_strategy": "goss",
+                               "learning_rate": 0.3}, cls, None),
+        ("regression_l1", {"objective": "regression_l1"}, 10 * z + 50, None),
+        ("regression_l1 + bagging 0.7/1",
+         {"objective": "regression_l1", "bagging_fraction": 0.7,
+          "bagging_freq": 1}, 10 * z + 50, None),
+        ("huber", {"objective": "huber"}, z, None),
+        ("fair", {"objective": "fair"}, z, None),
+        ("poisson", {"objective": "poisson"},
+         rng.poisson(pos).astype(float), None),
+        ("quantile (alpha 0.9)", {"objective": "quantile", "alpha": 0.9},
+         z, None),
+        ("mape", {"objective": "mape"}, 10 * z + 50, None),
+        ("gamma", {"objective": "gamma"}, pos * rng.gamma(2.0, 0.5, n), None),
+        ("tweedie", {"objective": "tweedie"},
+         rng.poisson(pos) * rng.gamma(2.0, 0.5, n), None),
+        ("cross_entropy", {"objective": "cross_entropy"}, prob, None),
+        ("cross_entropy_lambda + trial counts",
+         {"objective": "cross_entropy_lambda"}, prob, trials),
+    ]
+    base = {"num_leaves": 31, "learning_rate": 0.1, "verbose": -1}
+    tr_rows = slice(0, 16_000)
+    va_rows = slice(16_000, n)
+    for name, extra, y, wt in configs:
+        preds, raw, best, secs = {}, {}, {}, {}
+        for device in ("cuda", "cpu"):
+            tr = lgt.Dataset(X[tr_rows], label=y[tr_rows],
+                             weight=None if wt is None else wt[tr_rows],
+                             categorical_feature=[0])
+            va = lgt.Dataset(X[va_rows], label=y[va_rows],
+                             weight=None if wt is None else wt[va_rows],
+                             reference=tr)
+            t0 = time.perf_counter()
+            bst = lgt.train({**base, **extra, "device_type": device}, tr, 10,
+                            valid_sets=[va],
+                            callbacks=[lgt.early_stopping(5, verbose=False)])
+            secs[device] = time.perf_counter() - t0
+            preds[device] = bst.predict(X[tr_rows])
+            raw[device] = bst.predict(X[tr_rows], raw_score=True)
+            best[device] = bst.best_iteration
+        diff = float(np.abs(preds["cuda"] - preds["cpu"]).max())
+        raw_diff = float(np.abs(raw["cuda"] - raw["cpu"]).max())
+        for a, b, d, what in ((preds, preds, diff, "predictions"),
+                              (raw, raw, raw_diff, "raw scores")):
+            check(np.allclose(a["cuda"], b["cpu"], rtol=1e-4, atol=1e-5),
+                  f"T12 card != CPU [{name}]: {what} max |diff| {d}")
+        check(best["cuda"] == best["cpu"], f"T12 best_iteration card "
+              f"{best['cuda']} != CPU {best['cpu']} [{name}]")
+        print(f"T12 card == CPU [{name}]: on the training rows max |diff| "
+              f"{diff:.3g} (converted), {raw_diff:.3g} (raw), best_iteration"
+              f" {best['cuda']}; train {secs['cuda']:.1f} s on the card, "
+              f"{secs['cpu']:.1f} s on the CPU [{smi}]")
+
+
+def leaf_of_rows(tree, X: np.ndarray) -> np.ndarray:
+    """Each row's leaf in a host tree of numerical splits without missing
+    values, by its raw-value thresholds (x <= threshold goes left)."""
+    node = np.zeros(len(X), np.int64)
+    if tree.num_leaves == 1:
+        return node
+    feat, thr = np.asarray(tree.split_feature), np.asarray(tree.threshold_real)
+    left, right = np.asarray(tree.left_child), np.asarray(tree.right_child)
+    live = np.arange(len(X))
+    while live.size:
+        nd = node[live]
+        nxt = np.where(X[live, feat[nd]] <= thr[nd], left[nd], right[nd])
+        node[live] = nxt
+        live = live[nxt >= 0]
+    return ~node
+
+
+def msd_phase(args, dev, smi: str) -> float:
+    """T13: regression_l1 and quantile (alpha 0.9), both on the renew
+    path, and huber, 3 rounds each at YearPredictionMSD width with 255
+    leaves; the renew pass's host ms per tree; two leaves of each renewed
+    run's last tree against numpy's percentile of their residuals; K1
+    against its plain version on the 90-feature matrix with round 1's L1
+    gradients, at the root and at a leaf at an offset. Returns K1's max
+    |difference|."""
+    import torch
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    t0 = time.perf_counter()
+    X, y = msd_like(args.seed + 400, MSD_TRAIN + MSD_VALID)
+    base = {"num_leaves": LEAVES, "max_bin": MAX_BIN, "learning_rate": 0.1,
+            "verbose": -1, "objective": "regression_l1"}
+    cfg = lgt.Config.from_params(base)
+    tr = lgt.Dataset(X[:MSD_TRAIN], label=y[:MSD_TRAIN])
+    va = lgt.Dataset(X[MSD_TRAIN:], label=y[MSD_TRAIN:], reference=tr)
+    tr.construct(cfg)
+    va.construct(cfg)
+    label = y[:MSD_TRAIN]
+    print(f"T13 data: {MSD_TRAIN} + {MSD_VALID} rows x {MSD_F} features "
+          f"(YearPredictionMSD's shape), years {int(y.min())}-{int(y.max())},"
+          f" median {np.median(y):.0f}; made and binned in "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    err = 0.0
+    for name, extra, q in (("regression_l1", {}, 0.5),
+                           ("quantile", {"objective": "quantile",
+                                         "alpha": 0.9}, 0.9),
+                           ("huber", {"objective": "huber"}, None)):
+        params = {**base, **extra}
+        bst, hist, probe, _ = probed_train(params, tr, va, MSD_ROUNDS,
+                                           f"T13 [{name}]", smi,
+                                           keep_scores=q is not None)
+        (metric, values), = hist.items()
+        check(values[-1] < values[0], f"T13 [{name}] valid {metric} did not "
+              f"fall: {values}")
+        gb = bst._booster
+        if q is None:
+            continue
+        renew = [m for r in probe.rounds for m in r["renew"]]
+        trees = [w for r in probe.rounds for w in r["trees"]]
+        check(len(renew) == len(trees) == MSD_ROUNDS,
+              f"T13 [{name}]: {len(renew)} renew passes for {len(trees)} "
+              "trees")
+        print(f"T13 [{name}] renew pass (row_leaf read + per-leaf weighted "
+              f"percentiles, host): {', '.join(f'{m:.1f}' for m in renew)} "
+              f"ms a tree [{smi}]")
+        # the run's last tree: two leaves against numpy's percentile of the
+        # residuals at the scores before that tree
+        tree = gb.models[-1]
+        check(not any(tree.is_categorical), "T13: a categorical split")
+        score = probe.scores[0]
+        leaf_of = leaf_of_rows(tree, X[:MSD_TRAIN])
+        counts = np.bincount(leaf_of, minlength=tree.num_leaves)
+        rate = base["learning_rate"]
+        for leaf in (int(np.argmax(counts)), int(np.argmin(
+                np.where(counts > 0, counts, counts.max() + 1)))):
+            rows = np.nonzero(leaf_of == leaf)[0]
+            resid = (label[rows] - score[rows]).astype(np.float64)
+            want = float(np.percentile(resid, 100 * q)) * rate
+            got = float(tree.leaf_value[leaf])
+            check(abs(got - want) <= (1e-5 + 1e-6 * abs(want)) * rate,
+                  f"T13 [{name}] leaf {leaf}: renewed {got} != numpy "
+                  f"percentile x {rate} {want}")
+            print(f"T13 [{name}] last tree, leaf {leaf} ({len(rows)} rows): "
+                  f"renewed {got:.7f} == numpy percentile x {rate} "
+                  f"{want:.7f}")
+        if name != "regression_l1":
+            continue
+        # K1 at this width: round 1's L1 gradients (at the init score)
+        lr = gb.learner
+        s0 = torch.full((1, gb.num_data), gb.objective.boost_from_score(0),
+                        dtype=torch.float32, device=dev)
+        g, h = (a[0].contiguous() for a in gb.objective.get_gradients_fast(s0))
+        k = hc.hist_scale(g, h)
+        bins, nb = lr.x_rows, lr.Bb
+        N, C = bins.shape
+        perm, off, count = partition_leaf(bins, 0)
+        err = max(
+            held_to_plain(f"K1 at T13's root [{N} rows x {C} columns, {nb} "
+                          "bins, round 1's L1 gradients]", hc.hist_rows,
+                          hc._hist_reference,
+                          (bins, g, h, None, N, nb, None, None, k), N),
+            held_to_plain(f"K1 at a T13 leaf [{count} rows at offset "
+                          f"{off}]", hc.hist_rows, hc._hist_reference,
+                          (bins, g, h, perm, one(dev, count), nb, None,
+                           one(dev, off), k), count))
+        del s0, g, h, perm
+        torch.cuda.empty_cache()
+    return err
+
+
+def objective_phases(args, dev, smi: str):
+    """T11a-c, T2 at T11's width, T11-serve, T12 and T13, each timed.
+    Returns (T11's results, K1's numbers at T11's width with T13's
+    comparisons folded into its max |difference|, K2's max |difference| at
+    T11c's shapes)."""
+    t0 = time.perf_counter()
+    t11 = covtype_phase(args, dev, smi)
+    print(f"T11: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k1c, k2c_err = hist_covtype_phase(dev, t11, smi)
+    del t11["grad"], t11["hess"], t11["x_rows"], t11["q"]
+    print(f"T2 at T11 width: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    covtype_serve_phase(t11, dev, smi)
+    print(f"T11-serve: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    objectives_card_vs_cpu_phase(smi)
+    print(f"T12: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k1m_err = msd_phase(args, dev, smi)
+    print(f"T13: {time.perf_counter() - t0:.1f} s")
+    k1c["max_abs_err"] = max(k1c["max_abs_err"], k1m_err)
+    return t11, k1c, k2c_err
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=HIGGS_ROWS,
                     help="training rows of phase T3 (HIGGS's count)")
-    ap.add_argument("--only", choices=("all", "kernels", "rank"),
+    ap.add_argument("--only", choices=("all", "kernels", "rank",
+                                       "objectives"),
                     default="all",
                     help="kernels: phases 1-4 (with the SASS check), T2 and "
                     "T2q; rank: phases 1-2, T8, T2 at 136 features, T9 and "
-                    "T10; either then stops without a result line")
+                    "T10; objectives: phases 1-2, T11a-c, T2 at T11's "
+                    "width, T11-serve, T12 and T13; each then stops "
+                    "without a result line")
     args = ap.parse_args()
 
     import torch
@@ -1473,6 +2157,12 @@ def main() -> int:
         print(f"chip_smoke: rank phases passed in "
               f"{time.perf_counter() - t_start:.1f} s (--only rank: no "
               "result)")
+        return 0
+    if args.only == "objectives":
+        objective_phases(args, dev, smi)
+        print(f"chip_smoke: objective phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--only objectives: "
+              "no result)")
         return 0
 
     # -- 3. the HIGGS-width forest, round-tripped through text --------------
@@ -1587,6 +2277,9 @@ def main() -> int:
     # -- T8. ranking at MSLR width; T2 at 136 features; T9; T10 -------------
     t8, k1m = rank_phases(args, dev, smi)
 
+    # -- T11-T13. multiclass at Covertype width, T12, leaf renew at MSD -----
+    t11, k1c, k2c_err = objective_phases(args, dev, smi)
+
     # -- 6. the kernels line, then the device line ---------------------------
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
@@ -1621,10 +2314,18 @@ def main() -> int:
         "ms": k1m["ms"], "plain_ms": k1m["plain_ms"],
         "bound_ms": k1m["bound_ms"], "bound_by": k1m["bound_by"],
         "library_ms": k1m["library_ms"]}, {
+        "name": "hist_rows@covtype", "route": "cuda",
+        "source": "lambdagap_tpu_torch/csrc/hist.cu",
+        "replaces": "lambdagap_tpu/ops/hist_pallas.py:79",
+        "launches": t11["launches"], "max_abs_err": k1c["max_abs_err"],
+        "ms": k1c["ms"], "plain_ms": k1c["plain_ms"],
+        "bound_ms": k1c["bound_ms"], "bound_by": k1c["bound_by"],
+        "library_ms": k1c["library_ms"]}, {
         "name": "hist_rows_q", "route": "cuda",
         "source": "lambdagap_tpu_torch/csrc/hist_q.cu",
         "replaces": "lambdagap_tpu/ops/hist_pallas.py:207",
-        "launches": k2_launches, "max_abs_err": k2["max_abs_err"],
+        "launches": k2_launches,
+        "max_abs_err": max(k2["max_abs_err"], k2c_err),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"]}]}))

@@ -2,7 +2,8 @@
 
 A package of its own beside the JAX package (which stays the reference):
 it imports ``torch`` and ``numpy`` and nothing of ``lambdagap_tpu``. It
-trains a binary, L2 or ranking forest on the card and serves it::
+trains a forest with any objective of the JAX package on the card and
+serves it::
 
     import lambdagap_tpu_torch as lgt
     train = lgt.Dataset(X, label=y)
@@ -16,7 +17,10 @@ trains a binary, L2 or ranking forest on the card and serves it::
 A ranker takes query groups (sizes or per-row query ids) and optional
 positions: ``lgt.Dataset(X, label=rel, group=sizes, position=pos)`` with
 ``{"objective": "lambdarank", "lambdarank_target": "ndcg", "metric":
-"ndcg", "eval_at": [10]}`` (or ``rank_xendcg``).
+"ndcg", "eval_at": [10]}`` (or ``rank_xendcg``). A classifier over K
+classes takes labels 0..K-1 and ``{"objective": "multiclass", "num_class":
+K}`` (or ``multiclassova``), K trees a round, ``multi_logloss`` /
+``multi_error`` / ``auc_mu`` as metrics.
 
 Entry points run on the card unless ``device_type="cpu"`` is passed; the
 CPU runs every kernel's plain PyTorch version. See README.md ("The PyTorch

@@ -1,7 +1,7 @@
 """The user-facing ``Dataset`` and ``Booster``.
 
-The port of ``lambdagap_tpu/basic.py`` for dense numpy data and the
-binary, L2 and ranking training flows: ``Dataset(X, label=, weight=,
+The port of ``lambdagap_tpu/basic.py`` for dense numpy data and every
+objective's training flow: ``Dataset(X, label=, weight=,
 group=, position=, reference=, categorical_feature=, params=)`` bins
 lazily on first use (``group`` takes query sizes or per-row query ids);
 ``Booster(params, train_set)`` trains one iteration per ``update()``;

@@ -8,6 +8,7 @@ from typing import Dict, List, Tuple, Type
 import numpy as np
 
 from ..config import Config
+from ..utils import log
 
 _REGISTRY: Dict[str, Type["Metric"]] = {}
 
@@ -16,18 +17,39 @@ _METRIC_ALIASES = {
     "l2": "l2", "mean_squared_error": "l2", "mse": "l2", "regression_l2": "l2",
     "regression": "l2",
     "rmse": "rmse", "root_mean_squared_error": "rmse", "l2_root": "rmse",
-    "auc": "auc", "binary_logloss": "binary_logloss",
-    "binary": "binary_logloss", "binary_error": "binary_error",
+    "quantile": "quantile", "mape": "mape",
+    "mean_absolute_percentage_error": "mape",
+    "huber": "huber", "fair": "fair", "poisson": "poisson",
+    "gamma": "gamma", "gamma_deviance": "gamma_deviance", "tweedie": "tweedie",
     "ndcg": "ndcg", "lambdarank": "ndcg", "rank_xendcg": "ndcg",
     "xendcg": "ndcg", "xe_ndcg": "ndcg", "xe_ndcg_mart": "ndcg",
     "xendcg_mart": "ndcg",
     "map": "map", "mean_average_precision": "map",
     "precision": "precision",
+    "auc": "auc", "average_precision": "average_precision",
+    "binary_logloss": "binary_logloss", "binary": "binary_logloss",
+    "binary_error": "binary_error",
+    "auc_mu": "auc_mu",
+    "multi_logloss": "multi_logloss", "multiclass": "multi_logloss",
+    "softmax": "multi_logloss", "multiclassova": "multi_logloss",
+    "multi_error": "multi_error",
+    "cross_entropy": "cross_entropy", "xentropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda",
+    "xentlambda": "cross_entropy_lambda",
+    "kullback_leibler": "kldiv", "kldiv": "kldiv",
 }
 
 # default metric per objective (reference: Config::GetMetricType)
-_OBJECTIVE_DEFAULT_METRIC = {"regression": "l2", "binary": "binary_logloss",
-                             "lambdarank": "ndcg", "rank_xendcg": "ndcg"}
+_OBJECTIVE_DEFAULT_METRIC = {
+    "regression": "l2", "regression_l1": "l1", "huber": "huber",
+    "fair": "fair", "poisson": "poisson", "quantile": "quantile",
+    "mape": "mape", "gamma": "gamma", "tweedie": "tweedie",
+    "binary": "binary_logloss",
+    "multiclass": "multi_logloss", "multiclassova": "multi_logloss",
+    "cross_entropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda",
+    "lambdarank": "ndcg", "rank_xendcg": "ndcg",
+}
 
 
 class Metric:
@@ -47,7 +69,8 @@ class Metric:
                            else float(num_data))
 
     def eval(self, scores: np.ndarray) -> List[Tuple[str, float]]:
-        """scores: converted predictions [N]. Returns [(name, value)]."""
+        """scores: converted predictions, [N], or [K, N] for the multiclass
+        metrics. Returns [(name, value)]."""
         raise NotImplementedError
 
     def _avg(self, pointwise: np.ndarray) -> float:
@@ -82,9 +105,8 @@ def create_metrics(config: Config, metadata, num_data: int) -> List[Metric]:
     out: List[Metric] = []
     for name in metric_names_for(config):
         if name not in _REGISTRY:
-            raise NotImplementedError(
-                f"metric={name} is not ported to lambdagap_tpu_torch yet "
-                "(ROADMAP.md, port queue)")
+            # the JAX package warns and skips; the port ignores no option
+            log.fatal("Unknown metric %s", name)
         m = _REGISTRY[name](config)
         m.init(metadata, num_data)
         out.append(m)

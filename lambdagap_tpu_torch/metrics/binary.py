@@ -57,3 +57,24 @@ class AUCMetric(Metric):
     def eval(self, scores):
         return [("auc", _weighted_auc(self.label, np.asarray(scores),
                                       self.weight))]
+
+
+@register_metric
+class AveragePrecisionMetric(Metric):
+    name = "average_precision"
+    greater_is_better = True
+
+    def eval(self, scores):
+        """(reference: binary_metric.hpp AveragePrecisionMetric)"""
+        order = np.argsort(-np.asarray(scores), kind="stable")
+        y = self.label[order]
+        w = np.ones_like(y) if self.weight is None else self.weight[order]
+        tp = np.cumsum(w * (y == 1))
+        fp = np.cumsum(w * (y != 1))
+        total_pos = tp[-1]
+        if total_pos <= 0:
+            return [("average_precision", 1.0)]
+        precision = tp / np.maximum(tp + fp, EPS)
+        recall_delta = np.diff(np.concatenate([[0.0], tp])) / total_pos
+        return [("average_precision",
+                 float(np.sum(precision * recall_delta)))]

@@ -4,8 +4,9 @@ The port of ``lambdagap_tpu/models/gbdt.py``. A loaded model (LightGBM v4
 text: ``from_model_string`` / ``from_model_file``) is sliced, predicted on
 the configured device engine and saved back. Training (``GBDT(config,
 train_set)``) runs the JAX package's fused fast path: per iteration the
-objective's gradients, the bagging/GOSS sample of them
-(``models/sample_strategy``), one tree grown on the device by
+objective's gradients for all K classes at once, the bagging/GOSS sample
+of them (``models/sample_strategy``), then one tree per class grown on the
+device by
 :class:`~lambdagap_tpu_torch.models.fused_learner.FusedTreeLearner`, the
 training scores updated on the device with ``f32(leaf_value *
 shrinkage)[row_leaf]``, and every validation set scored tree by tree over
@@ -13,11 +14,19 @@ its binned matrix. Trees stay on the device until a host view is needed
 (save, predict), then materialize in one batched transfer with the
 f32-rounded shrinkage of ``_finalize_tree``.
 
-Validation scores take each tree's ``f32(leaf_value * shrinkage)``, the
-same values the training scores take; the boost-from-average init score
-is added to them once, before the first tree. (The JAX package's fast path
-adds that init score a second time through the first tree's bias when a
-validation set is attached; ROADMAP.md, Queue 3.)
+Objectives that refit their leaves (the L1 family: ``regression_l1``,
+``quantile``, ``mape``) take the JAX package's host-tree path instead
+(``_train_renewed``): the tree is grown on the device and materialized,
+each leaf refit on the host by the weighted percentile of its in-bag
+residuals, the shrinkage applied to the host tree in float64, and the
+scores updated with ``f32(leaf_value)[row_leaf]``. That path stops when no
+class's tree splits, as the JAX package's does.
+
+Validation scores take each tree's leaf values as the training scores
+take them; the boost-from-average init score is added to them once, before
+the first tree. (The JAX package's fast path adds that init score a second
+time through the first tree's bias when a validation set is attached;
+ROADMAP.md, Queue 3.)
 
 Options the port does not train yet raise NotImplementedError naming the
 knob (:func:`_refuse_unported`). Every predict goes to the device engine:
@@ -28,6 +37,7 @@ bit-identical raw scores.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -46,21 +56,32 @@ K_EPSILON = 1e-15
 _ROADMAP = "(ROADMAP.md, Queue 1)"
 
 
-def _finalize_tree(tree: Tree, shrinkage: float, bias: float) -> Tree:
-    """Shrinkage + boost-from-average bias fold (reference: Tree::Shrinkage
-    + Tree::AddBias, gbdt.cpp:415-421). The leaf multiply is rounded in
-    float32: the device training scores already took ``f32(leaf_value *
-    shrinkage)``, so the serialized leaf values must be those products or a
-    reload would disagree with training by an ulp."""
-    lv32 = (tree.leaf_value[:tree.num_leaves].astype(np.float32)
-            * np.float32(shrinkage)).astype(np.float32)
-    tree.leaf_value[:tree.num_leaves] *= shrinkage
-    tree.internal_value = [v * shrinkage for v in tree.internal_value]
-    tree.shrinkage *= shrinkage
-    tree.leaf_value[:tree.num_leaves] = lv32.astype(np.float64)
+def _apply_shrinkage(tree: Tree, rate: float) -> None:
+    """(reference: tree.h Shrinkage) in float64."""
+    tree.leaf_value[:tree.num_leaves] *= rate
+    tree.internal_value = [v * rate for v in tree.internal_value]
+    tree.shrinkage *= rate
+
+
+def _add_bias(tree: Tree, bias: float) -> None:
+    """Fold the boost-from-average init score into a tree (reference:
+    Tree::AddBias via gbdt.cpp:421)."""
     if abs(bias) > K_EPSILON:
         tree.leaf_value[:tree.num_leaves] += bias
         tree.internal_value = [v + bias for v in tree.internal_value]
+
+
+def _finalize_tree(tree: Tree, shrinkage: float, bias: float) -> Tree:
+    """Shrinkage + boost-from-average bias fold (gbdt.cpp:415-421). The
+    leaf multiply is rounded in float32: the device training scores
+    already took ``f32(leaf_value * shrinkage)``, so the serialized leaf
+    values must be those products or a reload would disagree with training
+    by an ulp."""
+    lv32 = (tree.leaf_value[:tree.num_leaves].astype(np.float32)
+            * np.float32(shrinkage)).astype(np.float32)
+    _apply_shrinkage(tree, shrinkage)
+    tree.leaf_value[:tree.num_leaves] = lv32.astype(np.float64)
+    _add_bias(tree, bias)
     return tree
 
 
@@ -113,9 +134,8 @@ def _refuse_unported(cfg: Config) -> None:
         no("feature_contri")
     if cfg.snapshot_freq > 0:
         no("snapshot_freq (crash-safe snapshots)")
-    if cfg.objective not in ("binary", "regression", "lambdarank",
-                             "rank_xendcg"):
-        no(f"training with objective={cfg.objective}")
+    if cfg.objective == "none":
+        no("training without an objective (custom gradients, fobj)")
 
 
 class GBDT:
@@ -146,6 +166,10 @@ class GBDT:
         self.valid_binned: List[torch.Tensor] = []
         self.valid_metrics: List[list] = []
         self.valid_scores: List[torch.Tensor] = []
+        # host wall (ms) of each tree grown, and of each leaf renew pass, in
+        # the last iteration
+        self.tree_ms: List[float] = []
+        self.renew_ms: List[float] = []
         if train_set is not None:
             self._setup_training(train_set)
 
@@ -198,8 +222,8 @@ class GBDT:
         return self.objective.get_gradients_fast(self.scores)
 
     def train_one_iter(self) -> bool:
-        """One boosting iteration (the JAX package's fused fast path).
-        Returns False: like the JAX package's fast path, a converged run
+        """One boosting iteration. Returns True when training should stop.
+        The fast path never does: like the JAX package's, a converged run
         appends constant trees instead of paying a sync to stop."""
         cfg = self.config
         K = self.num_tree_per_iteration
@@ -217,15 +241,14 @@ class GBDT:
         grad, hess = self.boosting()
         grad, hess, mask = self.sample_strategy.sample(self.iter_, grad,
                                                        hess)
+        self.tree_ms, self.renew_ms = [], []
+        if self.objective.is_renew_tree_output:
+            return self._train_renewed(grad, hess, mask, init_scores)
         for k in range(K):
-            rec = self.learner.train_device(grad[k], hess[k], mask)
+            rec = self._grow(grad[k], hess[k], mask)
             lv = rec.leaf_value * self.shrinkage_rate
             self.scores[k] += lv[rec.row_leaf]
-            if self.valid_sets:
-                t = self._device_tree_arrays(rec, lv)
-                for vi in range(len(self.valid_sets)):
-                    self.valid_scores[vi][k] += predict_tree_binned(
-                        self.valid_binned[vi], t, max(rec.max_depth, 1))
+            self._add_valid_tree_score(rec, lv, k)
             # drop the O(N) row -> leaf map from the kept record
             self.models.append(_LazyTree(self.learner,
                                          rec._replace(row_leaf=None),
@@ -233,6 +256,88 @@ class GBDT:
                                          init_scores[k]))
         self.iter_ += 1
         return False
+
+    def _train_renewed(self, grad, hess, mask, init_scores) -> bool:
+        """The JAX package's host-tree path for objectives that refit their
+        leaves (gbdt.py:612-660): each class's tree grown on the device and
+        materialized; a split tree's leaves refit, shrunk in float64, its
+        ``f32(leaf_value)`` added to the scores, the init score folded in;
+        an unsplit first tree holds the init score. Stops when no class's
+        tree split, dropping that round's trees unless they are the
+        first."""
+        cfg = self.config
+        K = self.num_tree_per_iteration
+        should_continue = False
+        for k in range(K):
+            rec = self._grow(grad[k], hess[k], mask)
+            tree = self.learner.materialize(rec)
+            if tree.num_leaves > 1:
+                should_continue = True
+                t0 = time.perf_counter()
+                self._renew_tree_output(tree, k, rec.row_leaf, mask)
+                self.renew_ms.append((time.perf_counter() - t0) * 1e3)
+                _apply_shrinkage(tree, self.shrinkage_rate)
+                lv = torch.from_numpy(
+                    tree.leaf_value.astype(np.float32)).to(self.device)
+                self.scores[k] += lv[rec.row_leaf]
+                self._add_valid_tree_score(rec, lv, k)
+                _add_bias(tree, init_scores[k])
+            elif len(self.models) < K:
+                if not cfg.boost_from_average and not self.has_init_score:
+                    init_scores[k] = self.objective.boost_from_score(k)
+                    self.scores[k] += init_scores[k]
+                    for vs in self.valid_scores:
+                        vs[k] += init_scores[k]
+                tree.leaf_value[0] = init_scores[k]
+            self.models.append(tree)
+        if not should_continue:
+            log.warning("Stopped training because there are no more leaves "
+                        "that meet the split requirements")
+            if len(self.models) > K:
+                del self.models[-K:]
+            return True
+        self.iter_ += 1
+        return False
+
+    def _grow(self, grad, hess, mask):
+        """One tree grown on the device; its host wall into ``tree_ms``."""
+        t0 = time.perf_counter()
+        rec = self.learner.train_device(grad, hess, mask)
+        self.tree_ms.append((time.perf_counter() - t0) * 1e3)
+        return rec
+
+    def _renew_tree_output(self, tree: Tree, k: int, row_leaf: torch.Tensor,
+                           mask: Optional[torch.Tensor]) -> None:
+        """The L1-family leaf refit (reference: RenewTreeOutput,
+        gbdt.cpp:412): each leaf's value becomes the objective's weighted
+        percentile of ``label - score`` over the leaf's in-bag rows, in
+        ascending row order as ``np.nonzero`` gives them — one stable
+        argsort of ``row_leaf`` orders every leaf's rows at once. The
+        scores, ``row_leaf`` and the mask are read to the host once."""
+        score = self.scores[k].cpu().numpy()
+        leaf_of = row_leaf.cpu().numpy()
+        mask_np = None if mask is None else mask.cpu().numpy()
+        order = np.argsort(leaf_of, kind="stable")
+        ends = np.cumsum(np.bincount(leaf_of, minlength=tree.num_leaves))
+        for leaf in range(tree.num_leaves):
+            rows = order[ends[leaf - 1] if leaf else 0:ends[leaf]]
+            if mask_np is not None:
+                rows = rows[mask_np[rows]]
+            if len(rows):
+                tree.leaf_value[leaf] = self.objective.renew_tree_output(
+                    rows, score)
+
+    def _add_valid_tree_score(self, rec, leaf_values: torch.Tensor,
+                              k: int) -> None:
+        """Add one tree's leaf values to every validation set's class-k
+        scores, traversing the tree's device tables over the binned
+        matrix."""
+        if not self.valid_sets:
+            return
+        t = self._device_tree_arrays(rec, leaf_values)
+        for vi in range(len(self.valid_sets)):
+            self.valid_scores[vi][k] += predict_tree_binned(
+                self.valid_binned[vi], t, max(rec.max_depth, 1))
 
     def _device_tree_arrays(self, rec, leaf_values: torch.Tensor):
         """A DeviceTree as the binned TreeArrays of ``ops/predict`` on the

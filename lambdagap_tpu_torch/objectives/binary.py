@@ -8,13 +8,12 @@ import torch
 
 from ..config import Config
 from ..utils import log
-from .base import K_EPSILON, ObjectiveFunction, register_objective
+from .base import K_EPSILON, ObjectiveFunction, exp64, register_objective
 
 
 @register_objective
 class BinaryLogloss(ObjectiveFunction):
     name = "binary"
-    trains = True
 
     def __init__(self, config: Config) -> None:
         super().__init__(config)
@@ -54,7 +53,7 @@ class BinaryLogloss(ObjectiveFunction):
         sample; in float64 both round to the same float32."""
         s = self.sigmoid
         ls = self.label_signed[None, :]
-        e = torch.exp((ls * s * scores).double()).float()
+        e = exp64(ls * s * scores)
         response = -ls * s / (1.0 + e)
         abs_r = response.abs()
         grad = response * self.label_weight[None, :]

@@ -354,8 +354,6 @@ class RankingBase(ObjectiveFunction):
     RankingObjective): the bucket loop on the device, position-bias Newton
     updates and the effective-pair-rate debug line."""
 
-    trains = True
-
     def __init__(self, config: Config) -> None:
         super().__init__(config)
         self.position_bias_regularization = \

@@ -25,8 +25,12 @@ the slice itself, and give every host thread its own sums when two build
 histograms at once on one stream; the threefry draws and the quantized
 levels on the card equal the CPU's bit for bit; and short trainings on the
 card (f32,
-quantized + bagging, GOSS, EFB, and rankers: lambdarank targets,
-rank_xendcg, positions with by-query bagging) equal the same on the CPU.
+quantized + bagging, GOSS, EFB, rankers: lambdarank targets,
+rank_xendcg, positions with by-query bagging; and the objectives of the
+multiclass slice: 7-class softmax with a categorical column, one-vs-all,
+multiclass GOSS, the renewed L1 family, the log-link losses and weighted
+cross_entropy_lambda) equal the same on the CPU, and a 7-class model
+served on the card with early stop equals the scan oracle.
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -585,3 +589,32 @@ def test_ranking_on_card_equals_cpu(extra, cuda_device):
         X, label=y, group=sizes, position=position), 10)
     np.testing.assert_allclose(card.predict(X), cpu.predict(X), rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_seven_class_early_stop_serving_on_card_equals_scan(cuda_device):
+    """A 7-class forest's compiled dispatch on the card with early stop
+    (the accumulation kernel's top-2 margin over seven scores) equals the
+    scan oracle on the card."""
+    from lambdagap_tpu_torch.ops.predict import (forest_to_arrays,
+                                                 predict_forest)
+    trees = synth.random_trees(5, 70, 31, 10, grid_size=40)
+    text = booster_from_numpy(synth.header(10, "multiclass num_class:7"),
+                              trees, CPU).model_to_string()
+    X = synth.random_rows(np.random.RandomState(3), 4096, 10)
+    forest, depth = forest_to_arrays(
+        lgt.Booster(model_str=text, params=CPU)._booster.models,
+        device=cuda_device)
+    x = torch.from_numpy(X).to(cuda_device)
+    tc = [i % 7 for i in range(len(trees))]
+    full = predict_forest(x, forest, tc, 7, depth).T.cpu().numpy()
+    top2 = np.sort(full, axis=1)[:, -2:]
+    margin = float(np.median(top2[:, 1] - top2[:, 0]))   # stops about half
+    bst = lgt.Booster(model_str=text, params={
+        "pred_early_stop": True, "pred_early_stop_freq": 2,
+        "pred_early_stop_margin": margin})
+    got = bst.predict(X, raw_score=True)
+    want = predict_forest(x, forest, tc, 7, depth, early_stop_freq=14,
+                          early_stop_margin=margin).T.cpu().numpy()
+    assert got.shape == (4096, 7) and np.array_equal(got, want)
+    assert (want != full).any()

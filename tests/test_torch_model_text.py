@@ -5,7 +5,8 @@ A model the JAX package trains and saves must load in
 ``lambdagap_tpu_torch`` with equal tree fields; the port's writer must give
 the same tree region byte for byte (the compiled artifact's source key
 hashes it); and ``convert.trees_from_numpy`` must build the same trees as
-the text route.
+the text route. A model the port trains, with any objective, must carry
+the header the JAX package writes for it and round-trip byte for byte.
 """
 import functools
 
@@ -53,13 +54,26 @@ def _case(name):
     elif name == "regression_sqrt":
         y = X[:, 0] * 3.0 + np.nan_to_num(X[:, 3])
         p = {**base, "objective": "regression", "reg_sqrt": True}
+    elif name == "multiclass7":
+        y = np.digitize(X[:, 0] + X[:, 2], [-2, -1, -.4, .4, 1, 2])
+        p = {**base, "objective": "multiclass", "num_class": 7}
+    elif name == "multiclassova":
+        y = (X[:, 0] > 0).astype(int) + (X[:, 1] > 0.5)
+        p = {**base, "objective": "multiclassova", "num_class": 3}
+    elif name == "quantile":
+        y = X[:, 0] * 3.0 + np.nan_to_num(X[:, 3])
+        p = {**base, "objective": "quantile", "alpha": 0.9}
+    elif name == "xentropy":
+        y = 1.0 / (1.0 + np.exp(-2.0 * X[:, 0]))
+        p = {**base, "objective": "cross_entropy"}
     else:
         raise ValueError(name)
     return lgb.train(p, lgb.Dataset(X, label=y), num_boost_round=6), X
 
 
 CASES = ["binary", "zero_as_missing", "categorical", "multiclass",
-         "regression_sqrt"]
+         "regression_sqrt", "multiclass7", "multiclassova", "quantile",
+         "xentropy"]
 
 _TREE_FIELDS = ("split_feature", "threshold_real", "default_left",
                 "missing_type", "left_child", "right_child",
@@ -133,3 +147,53 @@ def test_trees_from_numpy_matches_text_route(name):
     assert a == c
     assert np.array_equal(by_numpy.predict(X, raw_score=True),
                           by_text.predict(X, raw_score=True))
+
+
+HEADER_KEYS = ("objective", "num_class", "num_tree_per_iteration")
+
+
+def _header(text):
+    lines = text.split("\n\n", 1)[0].splitlines()
+    return {k: v for k, v in (ln.split("=", 1) for ln in lines if "=" in ln)
+            if k in HEADER_KEYS}
+
+
+@pytest.mark.parametrize("objective, extra, want", [
+    ("multiclass", {"num_class": 7}, "multiclass num_class:7"),
+    ("multiclassova", {"num_class": 7},
+     "multiclassova num_class:7 sigmoid:1"),
+    ("multiclassova", {"num_class": 3, "sigmoid": 1.5},
+     "multiclassova num_class:3 sigmoid:1.5"),
+    ("regression_l1", {}, "regression_l1"), ("huber", {}, "huber"),
+    ("fair", {}, "fair"), ("poisson", {}, "poisson"),
+    ("quantile", {"alpha": 0.9}, "quantile"), ("mape", {}, "mape"),
+    ("gamma", {}, "gamma"), ("tweedie", {}, "tweedie"),
+    ("cross_entropy", {}, "cross_entropy"),
+    ("cross_entropy_lambda", {}, "cross_entropy_lambda"),
+])
+def test_trained_model_header_reads_as_jax_writes_it(objective, extra, want):
+    """The port trains two rounds; its text's objective line is the JAX
+    package's, the JAX package reloads it and writes the same header, and
+    the port reloads it to the same header and tree region byte for byte
+    (the parameters section keeps the loading run's own), and from then on
+    round-trips it byte for byte."""
+    X, _y = _data(rows=300)
+    K = extra.get("num_class", 1)
+    y = (np.arange(300) % K if K > 1
+         else 1.0 / (1.0 + np.exp(-np.nan_to_num(X[:, 0])))
+         if objective.startswith("cross") else np.abs(X[:, 0]) + 0.5)
+    bst = lgt.train({"objective": objective, "num_leaves": 7,
+                     "verbose": -1, **extra, **CPU},
+                    lgt.Dataset(X, label=y), 2)
+    text = bst.model_to_string()
+    head = _header(text)
+    assert head == {"objective": want, "num_class": str(K),
+                    "num_tree_per_iteration": str(K)}
+    assert _header(lgb.Booster(model_str=text).model_to_string()) == head
+    again = lgt.Booster(model_str=text, params=CPU)
+    h1, blocks, _t = split_model_text(text)
+    h2, blocks2, _t = split_model_text(again.model_to_string())
+    assert h2 == h1 and blocks2 == blocks
+    third = lgt.Booster(model_str=again.model_to_string(), params=CPU)
+    assert third.model_to_string() == again.model_to_string()
+    assert bst.num_trees() == 2 * K

@@ -22,6 +22,8 @@ ES_BINARY = {"pred_early_stop": True, "pred_early_stop_freq": 3,
              "pred_early_stop_margin": 0.5}
 ES_MULTI = {"pred_early_stop": True, "pred_early_stop_freq": 2,
             "pred_early_stop_margin": 1.5}
+ES_MULTI7 = {"pred_early_stop": True, "pred_early_stop_freq": 1,
+             "pred_early_stop_margin": 0.6}
 
 
 def _data(rows=700, feats=8, seed=0):
@@ -67,6 +69,21 @@ def _case(name):
     elif name == "poisson":
         y = np.exp(0.3 * np.nan_to_num(X[:, 0])).astype(np.float32)
         p.update(objective="poisson")
+    elif name == "multiclass7":
+        y = np.digitize(X[:, 0] + X[:, 2], [-2, -1, -.4, .4, 1, 2])
+        p.update(objective="multiclass", num_class=7)
+        rounds = 5
+    elif name == "multiclass7_early_stop":
+        # the same 7-class model, loaded with early stop on
+        b7, X, _ = _case("multiclass7")
+        return (lgb.Booster(model_str=b7.model_to_string(),
+                            params={**JAX_PARAMS, **ES_MULTI7}), X, ES_MULTI7)
+    elif name == "quantile":
+        y = (X[:, 0] * 3.0 + np.nan_to_num(X[:, 3])).astype(np.float32)
+        p.update(objective="quantile", alpha=0.9)
+    elif name == "xentropy_lambda":
+        y = (1.0 / (1.0 + np.exp(-2.0 * X[:, 0]))).astype(np.float32)
+        p.update(objective="cross_entropy_lambda")
     b = lgb.train({**JAX_PARAMS, **p, **shared},
                   lgb.Dataset(X, label=y, categorical_feature=cats),
                   num_boost_round=rounds)
@@ -81,7 +98,8 @@ def _port(b, engine="compiled", **extra):
 
 CASES = ["binary", "multiclass", "binary_early_stop",
          "multiclass_early_stop", "zero_as_missing", "categorical",
-         "multiclassova", "poisson"]
+         "multiclassova", "poisson", "multiclass7", "multiclass7_early_stop",
+         "quantile", "xentropy_lambda"]
 
 
 @pytest.mark.parametrize("name", CASES)

@@ -276,16 +276,14 @@ def test_saturated_max_delta_step_differs_from_jax_only_at_a_tie():
     {"tpu_fused_learner": "0"},
     {"tree_layout": "sorted"},
     {"boosting": "dart"},
-    {"objective": "multiclass", "num_class": 3},
-    {"objective": "regression_l1"},
-    {"objective": "cross_entropy"},
+    {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
+    {"tree_learner": "feature"},
+    {"tree_learner": "voting"},
     {"feature_contri": [1.0] * 8},
     {"snapshot_freq": 1},
 ])
 def test_unported_options_refuse_loudly(params, tmp_path):
     X, y = _fused_data(seed=15)
-    if params.get("objective") == "multiclass":
-        y = np.abs(y).astype(int) % 3
     with pytest.raises(NotImplementedError, match="not ported"):
         lgt.train({"verbose": -1, **CPU, **params},
                   lgt.Dataset(X, label=y), 2)
