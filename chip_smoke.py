@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's training and serving paths on one CUDA card
-and check them.
+"""Drive the PyTorch port's training, serving and predict paths on one
+CUDA card and check them.
 
     python3 chip_smoke.py [--seed N] [--rows N]
-                          [--only kernels|rank|objectives]
+                          [--only kernels|rank|objectives|predict]
 
 Run from the root of a checkout. Phases, each fatal on failure:
 
 1. the card (name and power limit, as nvidia-smi reports them) and the
    torch / CUDA / nvcc versions;
 2. build every kernel of every path from ``lambdagap_tpu_torch/csrc/``
-   (traverse.cu, hist.cu, hist_q.cu: one nvcc per source, all started
-   together) into the git-ignored build dir, printing each kernel's
+   (traverse.cu, hist.cu, hist_q.cu, treeshap.cu: one nvcc per source, all
+   started together) into the git-ignored build dir, printing each kernel's
    registers, shared memory and spills; then the histogram kernels'
    atomics in SASS (``cuobjdump -sass``): every shared-memory add must be
    native, none a compare-and-swap loop;
@@ -135,10 +135,25 @@ T13. regression at YearPredictionMSD's width (``msd_like``: 463,715 +
    against numpy's percentile of their residuals at the scores before
    that tree; K1 against its plain version on the 90-feature matrix with
    round 1's L1 gradients, at the root and at a leaf at an offset;
-6. the kernels line (one JSON object, six entries; each entry's
+T14. the predict API on phase 3's forest, phase 5's rows and T3's and
+   T11a's boosters: ``predict_engine=tensor`` predicts the 20,000 rows and
+   serves phase 5's 240 requests ``array_equal`` to the scan oracle (its
+   4,096-row host wall beside the compiled engine's); ``pred_leaf`` under
+   ``compiled`` on 4,096 rows, the count zeroed just before and read just
+   after: K3 launched, the ``[4096, 500]`` leaves ``array_equal`` to the
+   tensor and scan engines'; ``pred_contrib`` through ``Booster.predict``
+   on the forest (4,096 rows), T3 (4,096 validation rows) and T11a (2,048
+   rows x 7 classes), the count of kernel S zeroed just before and read
+   just after, T3's and T11a's rows summing to their raw scores at rtol
+   1e-5 / atol 1e-6 (per class); kernel S against its plain version on the
+   forest at 256 and 4,096 rows, rtol 1e-9 / atol 1e-12, reruns
+   bit-identical, its device time, the plain version's and the float64
+   operation bound; refit of T3's model on its 500,000 validation rows:
+   ``decay_rate=1.0`` leaves every leaf as it was, 0.9 every leaf finite;
+6. the kernels line (one JSON object, seven entries; each entry's
    ``max_abs_err`` the largest of its kernel's comparisons, T13's K1 in
-   ``hist_rows@covtype`` and T11c's K2 in ``hist_rows_q``) and, last, the
-   device line.
+   ``hist_rows@covtype`` and T11c's K2 in ``hist_rows_q``; K3's launches
+   phase 5's and T14's) and, last, the device line.
 
 Needs one card; exits non-zero, printing no result, when there is none.
 Imports nothing of JAX nor of the JAX package.
@@ -169,6 +184,11 @@ H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
 # the f32 lanes, and no fused multiply-add to count twice — a quarter of
 # the f32 rate
 H100_INT32_OPS_PER_S = H100_F32_OPS_PER_S / 4
+# float64 outside the tensor cores (H100 SXM data sheet: 34 TFLOP/s; the
+# FP64 tensor cores' 67 serve matrix products only)
+H100_F64_OPS_PER_S = 34e12
+SHAP_ROWS = 4096                # T14: kernel S's timed batch
+SHAP_CHECK_ROWS = 256           # T14: S against its plain version
 HIGGS_ROWS = 10_500_000         # HIGGS's training rows (bench.py)
 VALID_ROWS = 500_000
 MAX_BIN = 255
@@ -2090,19 +2110,195 @@ def objective_phases(args, dev, smi: str):
 
 
 # ---------------------------------------------------------------------------
+# T14: the predict API — the tensor engine, pred_leaf on K3, pred_contrib on
+# kernel S, refit
+# ---------------------------------------------------------------------------
+def shap_bound(paths, rows: int, x_bytes: int, phi_bytes: int):
+    """Kernel S's bound: the rows, the path tables and phi moved once;
+    per (row, path) of e merged elements and d edges, 7 e(e+1)/2 float64
+    operations to extend, 4 e^2 for the unwound sums (their cheaper
+    branch; a division counted as one operation), 4 e for the
+    contributions and 6 d for the decisions."""
+    e = np.diff(np.asarray(paths.path_elem_lo)).astype(np.float64)
+    d = np.diff(np.asarray(paths.path_edge_lo)).astype(np.float64)
+    ops = rows * float((3.5 * e * (e + 1) + 4 * e * e + 4 * e + 6 * d).sum())
+    nbytes = x_bytes + phi_bytes + sum(
+        int(np.asarray(a).nbytes) for a in paths[:15])
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F64_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", ops, nbytes)
+
+
+def leaves_of(booster) -> np.ndarray:
+    return np.concatenate([t.leaf_value[:t.num_leaves]
+                           for t in booster._booster.host_models])
+
+
+def predict_phase(dev, smi: str, text: str, trees, data, plan, oracle,
+                  t3: dict, t11: dict) -> dict:
+    """T14 on phase 3's forest (its text and trees), phase 5's rows, plan
+    and scan oracle, and T3's and T11a's trained boosters. Returns K3's
+    pred_leaf launches and kernel S's entry of the kernels line."""
+    import torch
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.infer import TRAVERSE_LAUNCHES
+    from lambdagap_tpu_torch.models import shap
+
+    # -- the tensor engine: predict and serve == the scan oracle ------------
+    t0 = time.perf_counter()
+    bt = lgt.Booster(model_str=text, params={"predict_engine": "tensor"})
+    check(np.array_equal(bt.predict(data, raw_score=True), oracle),
+          "T14: the tensor engine's 20,000-row predict != scan oracle")
+    # the server: one tile of all the trees, one worker (every dispatch is
+    # some thousands of small torch ops, which four workers only contend
+    # for under the interpreter lock)
+    one_tile = lgt.Booster(model_str=text, params={
+        "predict_engine": "tensor", "predict_tree_tile": T})
+    with one_tile.as_server(raw_score=True, workers=1) as srv:
+        check(srv.cache.engine == "tensor", "T14: server not on the tensor "
+              "engine")
+        answers, secs = burst(srv, data, plan)
+    check_answers(answers, plan, oracle)
+    bc = lgt.Booster(model_str=text)
+    x4k = data[:SHAP_ROWS]
+    wall_t = wall_ms(lambda: bt.predict(x4k, raw_score=True), reps=5)
+    wall_c = wall_ms(lambda: bc.predict(x4k, raw_score=True), reps=5)
+    print(f"T14 tensor engine: {len(data)} rows (tiles of 64 trees) and "
+          f"{len(plan)} requests served by one worker ({secs:.2f} s, one "
+          f"tile of {T} trees) == scan oracle; host wall of a "
+          f"{SHAP_ROWS}-row predict {wall_t:.2f} ms (compiled engine "
+          f"{wall_c:.3f} ms) ({time.perf_counter() - t0:.1f} s) [{smi}]")
+
+    # -- pred_leaf under compiled: K3's carry (counts zeroed just before) ----
+    t0 = time.perf_counter()
+    TRAVERSE_LAUNCHES.reset()
+    leaves = bc.predict(x4k, pred_leaf=True)
+    leaf_launches = TRAVERSE_LAUNCHES.launches
+    check(leaf_launches >= 1, "T14: pred_leaf never launched K3")
+    check(leaves.shape == (SHAP_ROWS, T), f"T14: pred_leaf {leaves.shape}")
+    check(np.array_equal(leaves, bt.predict(x4k, pred_leaf=True)),
+          "T14: pred_leaf (K3) != the tensor engine's")
+    bs = lgt.Booster(model_str=text, params={"predict_engine": "scan"})
+    check(np.array_equal(leaves, bs.predict(x4k, pred_leaf=True)),
+          "T14: pred_leaf (K3) != the scan engine's")
+    print(f"T14 pred_leaf: [{SHAP_ROWS}, {T}] leaves from {leaf_launches} "
+          f"K3 launch(es) == tensor and scan engines "
+          f"({time.perf_counter() - t0:.1f} s) [{smi}]")
+
+    # -- pred_contrib: the main path through Booster.predict ----------------
+    t0 = time.perf_counter()
+    b3, b11 = t3["bst"], t11["bst"]
+    X3, X11 = t3["Xva"][:SHAP_ROWS], t11["Xva"][:2048]
+    bc.predict(data[:8], pred_contrib=True)     # builds the forest's paths
+    build_s = time.perf_counter() - t0
+    shap.TREE_SHAP_LAUNCHES.reset()
+    c_forest = bc.predict(x4k, pred_contrib=True)
+    c3 = b3.predict(X3, pred_contrib=True)
+    c11 = b11.predict(X11, pred_contrib=True)
+    torch.cuda.synchronize()
+    s_launches = shap.TREE_SHAP_LAUNCHES.launches
+    check(s_launches == 3, f"T14: kernel S launched {s_launches} times for "
+          "3 pred_contrib calls")
+    check(c_forest.shape == (SHAP_ROWS, F + 1)
+          and np.isfinite(c_forest).all(), "T14: forest contributions")
+    raw3 = b3.predict(X3, raw_score=True)
+    check(np.allclose(c3.sum(axis=1), raw3, rtol=1e-5, atol=1e-6),
+          "T14: T3 contributions do not sum to the raw scores")
+    F11 = X11.shape[1]
+    raw11 = b11.predict(X11, raw_score=True)
+    sums11 = c11.reshape(len(X11), 7, F11 + 1).sum(axis=2)
+    check(c11.shape == (len(X11), 7 * (F11 + 1))
+          and np.allclose(sums11, raw11, rtol=1e-5, atol=1e-6),
+          "T14: T11a contributions do not sum to the raw scores per class")
+    print(f"T14 pred_contrib: the {T}-tree forest's paths built in "
+          f"{build_s:.1f} s (host); S launches {s_launches} (forest "
+          f"{SHAP_ROWS} rows, T3 {len(X3)} rows, T11a {len(X11)} rows x 7 "
+          f"classes); row sums == raw scores (max |diff| T3 "
+          f"{np.abs(c3.sum(axis=1) - raw3).max():.3g}, T11a "
+          f"{np.abs(sums11 - raw11).max():.3g}) [{smi}]")
+
+    # -- kernel S against its plain version; times and bound ----------------
+    t0 = time.perf_counter()
+    paths = shap.build_paths(trees, [0] * len(trees), 1)
+    p = shap.to_device(paths, dev)
+    err = 0.0
+    for n in (SHAP_CHECK_ROWS, SHAP_ROWS):
+        x = torch.from_numpy(data[:n].astype(np.float64)).to(dev)
+        got = shap.tree_shap(x, p)
+        again = shap.tree_shap(x, p)
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = shap._tree_shap_reference(x, p, max_lattice=1 << 25)
+        b.record()
+        torch.cuda.synchronize()
+        plain_ms = a.elapsed_time(b)
+        check(torch.equal(got, again), f"T14: kernel S rerun differs at {n} "
+              "rows")
+        check(np.allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-9,
+                          atol=1e-12), f"T14: kernel S != plain at {n} rows")
+        err = max(err, float((got - want).abs().max()))
+        ms = cuda_ms(lambda: shap.tree_shap(x, p), reps=3, warm=1)
+        bound, by, ops, nbytes = shap_bound(paths, n, x.numel() * 8,
+                                            got.numel() * 8)
+        print(f"T14 kernel S @{n} rows x {len(paths.path_value)} paths "
+              f"(cap {shap.path_cap(paths.max_elems)}, longest merged path "
+              f"{paths.max_elems}): {ms:.3f} ms device (median of 3), plain "
+              f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({by}: {ops:.3g} "
+              f"float64 ops, {nbytes / 1e6:.1f} MB); max |S - plain| "
+              f"{err:.3g}; rerun bit-identical [{smi}]")
+        del x, got, again, want
+    print(f"T14 S checks: {time.perf_counter() - t0:.1f} s")
+
+    # -- refit on T3's validation rows ---------------------------------------
+    Xv, yv = t3["Xva"], t3["valid"].get_label()
+    old = leaves_of(b3)
+    t0 = time.perf_counter()
+    same = b3.refit(Xv, yv, decay_rate=1.0)
+    refit1_s = time.perf_counter() - t0
+    check(np.array_equal(leaves_of(same), old),
+          "T14: refit with decay_rate=1.0 changed a leaf")
+    t0 = time.perf_counter()
+    new = b3.refit(Xv, yv, decay_rate=0.9)
+    refit9_s = time.perf_counter() - t0
+    lv = leaves_of(new)
+    check(np.isfinite(lv).all() and not np.array_equal(lv, old),
+          "T14: refit with decay_rate=0.9")
+    print(f"T14 refit: T3's model on {len(Xv)} validation rows, "
+          f"decay_rate=1.0 every leaf unchanged ({refit1_s:.2f} s host "
+          f"wall), 0.9 every leaf finite ({refit9_s:.2f} s) [{smi}]")
+    return {"leaf_launches": leaf_launches, "shap": {
+        "name": "tree_shap", "route": "cuda",
+        "source": "lambdagap_tpu_torch/csrc/treeshap.cu",
+        "replaces": "lambdagap_tpu/native/treeshap.cpp:173",
+        "launches": s_launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": None}}
+
+
+def t11a_only(args, dev, smi: str) -> dict:
+    """T11a alone (``--only predict``): the 7-class model T14 explains."""
+    params, tr, va, Xva, _ = covtype_data(args, smi)
+    bst, _, _, _ = probed_train(params, tr, va, COV_ROUNDS, "T11a", smi)
+    return {"bst": bst, "Xva": Xva}
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=HIGGS_ROWS,
                     help="training rows of phase T3 (HIGGS's count)")
     ap.add_argument("--only", choices=("all", "kernels", "rank",
-                                       "objectives"),
+                                       "objectives", "predict"),
                     default="all",
                     help="kernels: phases 1-4 (with the SASS check), T2 and "
                     "T2q; rank: phases 1-2, T8, T2 at 136 features, T9 and "
                     "T10; objectives: phases 1-2, T11a-c, T2 at T11's "
-                    "width, T11-serve, T12 and T13; each then stops "
-                    "without a result line")
+                    "width, T11-serve, T12 and T13; predict: phases 1-3, "
+                    "phase 5's scan oracle, T3, T11a and T14; each then "
+                    "stops without a result line")
     args = ap.parse_args()
 
     import torch
@@ -2117,7 +2313,7 @@ def main() -> int:
                                            TRAVERSE_LAUNCHES, CompiledForest,
                                            compile_forest)
     from lambdagap_tpu_torch.infer import engine as eng
-    from lambdagap_tpu_torch.models import synth
+    from lambdagap_tpu_torch.models import shap, synth
     from lambdagap_tpu_torch.ops import hist_cuda
     from lambdagap_tpu_torch.ops.predict import (forest_to_arrays,
                                                  predict_forest)
@@ -2141,7 +2337,7 @@ def main() -> int:
     # -- 2. build every kernel of the path, in parallel ---------------------
     t0 = time.perf_counter()
     sources = [eng.TRAVERSE_SOURCE, hist_cuda.HIST_SOURCE,
-               hist_cuda.HIST_Q_SOURCE]
+               hist_cuda.HIST_Q_SOURCE, shap.TREE_SHAP_SOURCE]
     handles = [cuda_build.start_build(s) for s in sources]
     for s, h in zip(sources, handles):
         report = cuda_build.finish_build(h)
@@ -2185,6 +2381,25 @@ def main() -> int:
           f"{art.nbytes / 1e6:.2f} MB, sha256 {art.hash[:16]} "
           f"({time.perf_counter() - t0:.1f} s)")
     check(m["thr_bits"] == 16, "the 254-boundary grid needs u16 codes")
+
+    if args.only == "predict":
+        rng = np.random.RandomState(args.seed + 7)
+        data = synth.random_rows(rng, 20000, F)
+        plan = [((i * 977) % (len(data) - SIZES[i % len(SIZES)]),
+                 SIZES[i % len(SIZES)]) for i in range(REQUESTS)]
+        forest, depth = forest_to_arrays(gb.models, device=dev)
+        oracle = predict_forest(torch.from_numpy(data).to(dev), forest,
+                                [0] * T, 1, depth)[0].cpu().numpy()
+        del forest
+        t3 = train_phase(args, smi)
+        t11 = t11a_only(args, dev, smi)
+        t0 = time.perf_counter()
+        predict_phase(dev, smi, text, gb.models, data, plan, oracle, t3, t11)
+        print(f"T14: {time.perf_counter() - t0:.1f} s")
+        print(f"chip_smoke: predict phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--only predict: no "
+              "result)")
+        return 0
 
     # -- 4. K3 and the accumulation against their plain versions; times ----
     rng = np.random.RandomState(args.seed + 7)
@@ -2280,6 +2495,12 @@ def main() -> int:
     # -- T11-T13. multiclass at Covertype width, T12, leaf renew at MSD -----
     t11, k1c, k2c_err = objective_phases(args, dev, smi)
 
+    # -- T14. the predict API: tensor engine, pred_leaf, pred_contrib, refit -
+    t0 = time.perf_counter()
+    t14 = predict_phase(dev, smi, text, gb.models, data, plan, oracle, t3,
+                        t11)
+    print(f"T14: {time.perf_counter() - t0:.1f} s")
+
     # -- 6. the kernels line, then the device line ---------------------------
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
@@ -2287,7 +2508,8 @@ def main() -> int:
         "name": "traverse_forest", "route": "cuda",
         "source": "lambdagap_tpu_torch/csrc/traverse.cu",
         "replaces": "lambdagap_tpu/infer/engine.py:68",
-        "launches": launches, "max_abs_err": k3[4096]["max_abs_err"],
+        "launches": launches + t14["leaf_launches"],
+        "max_abs_err": k3[4096]["max_abs_err"],
         "ms": k3[4096]["ms"], "plain_ms": k3[4096]["plain_ms"],
         "bound_ms": k3[4096]["bound_ms"], "bound_by": k3[4096]["bound_by"],
         "library_ms": None}, {
@@ -2328,7 +2550,7 @@ def main() -> int:
         "max_abs_err": max(k2["max_abs_err"], k2c_err),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-        "library_ms": k2["library_ms"]}]}))
+        "library_ms": k2["library_ms"]}, t14["shap"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

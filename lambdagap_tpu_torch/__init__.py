@@ -22,6 +22,13 @@ classes takes labels 0..K-1 and ``{"objective": "multiclass", "num_class":
 K}`` (or ``multiclassova``), K trees a round, ``multi_logloss`` /
 ``multi_error`` / ``auc_mu`` as metrics.
 
+A Booster also answers ``predict(..., pred_leaf=True)`` (the traversal
+kernel's carry under the default ``compiled`` engine) and
+``predict(..., pred_contrib=True)`` (TreeSHAP on a CUDA kernel), refits,
+rolls back, dumps its JSON and pickles; ``predict_engine`` is ``compiled``,
+``tensor`` or ``scan``, all bit-identical. ``LGBMRegressor`` /
+``LGBMClassifier`` / ``LGBMRanker`` wrap ``train`` for scikit-learn users.
+
 Entry points run on the card unless ``device_type="cpu"`` is passed; the
 CPU runs every kernel's plain PyTorch version. See README.md ("The PyTorch
 port") for what is ported and ROADMAP.md for what is not yet.
@@ -31,7 +38,9 @@ from .callback import early_stopping, log_evaluation, record_evaluation
 from .config import Config
 from .engine import train
 from .serve import ForestServer
+from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
 
-__all__ = ["Booster", "Config", "Dataset", "ForestServer", "early_stopping",
+__all__ = ["Booster", "Config", "Dataset", "ForestServer", "LGBMClassifier",
+           "LGBMModel", "LGBMRanker", "LGBMRegressor", "early_stopping",
            "log_evaluation", "record_evaluation", "train"]
 __version__ = "0.2.0"

@@ -6,14 +6,18 @@ group=, position=, reference=, categorical_feature=, params=)`` bins
 lazily on first use (``group`` takes query sizes or per-row query ids);
 ``Booster(params, train_set)`` trains one iteration per ``update()``;
 ``Booster(params, model_file=..., model_str=...)`` loads a LightGBM v4
-text model; both predict, serve (``as_server``) and save. Entry points run
-on the card by default (``device_type="cuda"``, raising where there is
-none); ``params={"device_type": "cpu"}`` runs every kernel's plain version
-on the CPU. ``pred_leaf`` / ``pred_contrib``, pandas / Arrow / sparse /
-file inputs, ``refit`` and ``rollback_one_iter`` wait for later slices.
+text model; both predict (raw, converted, ``pred_leaf``, ``pred_contrib``),
+serve (``as_server``), save, dump, refit, roll back, and answer the JAX
+``Booster``'s inspection calls; a Booster pickles and copies through its
+model string. Entry points run on the card by default
+(``device_type="cuda"``, raising where there is none);
+``params={"device_type": "cpu"}`` runs every kernel's plain version on the
+CPU. A scipy sparse matrix is predicted one dense window of 65,536 rows at
+a time. Pandas / Arrow inputs and data files wait for the loader.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -25,8 +29,21 @@ from .utils import log
 
 
 def _to_matrix(data) -> np.ndarray:
-    """A 2-D float32 matrix from anything numpy can convert."""
-    return np.asarray(data, dtype=np.float32)
+    """A 2-D float64 matrix from anything numpy can convert (the JAX
+    package's conversion; the engines cast to float32, TreeSHAP decides in
+    float64)."""
+    return np.asarray(data, dtype=np.float64)
+
+
+def _is_scipy_sparse(data) -> bool:
+    return hasattr(data, "tocsr") and hasattr(data, "nnz")
+
+
+def _refuse_file(data) -> None:
+    if isinstance(data, (str, os.PathLike)):
+        raise NotImplementedError(
+            "predicting from a data file is not ported to lambdagap_tpu_torch "
+            "yet (ROADMAP.md, Queue 1: the loader); pass a matrix")
 
 
 class Dataset:
@@ -179,6 +196,20 @@ class Booster:
         (reference: basic.py:4050 Booster.update)."""
         return self._booster.train_one_iter()
 
+    def refit(self, data, label, weight=None, group=None,
+              decay_rate: float = 0.9, **kwargs) -> "Booster":
+        """Refit the existing tree structures to new data (reference:
+        basic.py Booster.refit -> GBDT::RefitTree). Returns a new Booster;
+        this one is unchanged."""
+        new = Booster(params=self.params, model_str=self.model_to_string())
+        new._booster.refit(_to_matrix(data), label, weight=weight,
+                           group=group, decay_rate=decay_rate)
+        return new
+
+    def rollback_one_iter(self) -> "Booster":
+        self._booster.rollback_one_iter()
+        return self
+
     @property
     def current_iteration(self) -> int:
         return self._booster.iter_
@@ -189,6 +220,56 @@ class Booster:
     def eval_valid(self):
         return self._booster.eval_valid()
 
+    def eval(self, data: Dataset, name: str, feval=None):
+        """Evaluate the configured metrics on a dataset (reference:
+        basic.py Booster.eval). The registered training and validation
+        sets use their scores; any other dataset is predicted and scored
+        by the metric set; ``feval(preds, data)`` adds its
+        ``(name, value, greater_is_better)`` tuples."""
+        from .metrics import create_metrics
+        gb = self._booster
+        if data._constructed is not None:
+            if data._constructed is gb.train_set:
+                out = [(name, m, v, g) for (_, m, v, g) in gb.eval_train()]
+                if out:
+                    return out
+                md = gb.train_set.metadata
+                metrics = create_metrics(self.config, md,
+                                         gb.train_set.num_data)
+                scores = gb._converted_scores(gb.scores)
+                return [(name, mn, float(v), m.greater_is_better)
+                        for m in metrics for mn, v in m.eval(scores)]
+            for vn, vds in gb.valid_sets:
+                if vds is data._constructed:
+                    return [(name, m, v, g) for (d, m, v, g)
+                            in gb.eval_valid() if d == vn]
+            if data.data is None:
+                log.fatal("Booster.eval needs the raw data: this Dataset "
+                          "was constructed and is not a registered "
+                          "train/valid set")
+        _refuse_file(data.data)
+        from .data.dataset import Metadata
+        X = _to_matrix(data.data)
+        md = Metadata()
+        if data.label is not None:
+            md.label = np.asarray(data.label, np.float32).reshape(-1)
+        if data.weight is not None:
+            md.weight = np.asarray(data.weight, np.float32).reshape(-1)
+        if data.group is not None:
+            md.set_group(np.asarray(data.group))
+        metrics = create_metrics(self.config, md, len(X))
+        # metrics consume output-space scores, as the training loop hands
+        # them (single-class [N], multiclass [K, N])
+        raw = self.predict(X)
+        scores = raw if raw.ndim == 1 else raw.T
+        out = [(name, mn, float(v), m.greater_is_better)
+               for m in metrics for mn, v in m.eval(scores)]
+        if feval is not None:
+            res = feval(np.asarray(raw), data)
+            res = [res] if isinstance(res, tuple) else res
+            out.extend((name, mn, float(v), gib) for mn, v, gib in res)
+        return out
+
     # ------------------------------------------------------------------
     def num_trees(self) -> int:
         return len(self._booster.models)
@@ -196,11 +277,27 @@ class Booster:
     def predict(self, data, raw_score: bool = False, start_iteration: int = 0,
                 num_iteration: int = -1, pred_leaf: bool = False,
                 pred_contrib: bool = False, **kwargs) -> np.ndarray:
-        if pred_leaf or pred_contrib:
-            raise NotImplementedError(
-                "pred_leaf / pred_contrib are not ported to "
-                "lambdagap_tpu_torch yet (ROADMAP.md, port queue)")
-        return self._booster.predict(_to_matrix(data), raw_score=raw_score,
+        if _is_scipy_sparse(data):
+            # densify one row window at a time
+            csr = data.tocsr()
+            step = 65536
+            return np.concatenate(
+                [self.predict(csr[lo:lo + step].toarray(),
+                              raw_score=raw_score,
+                              start_iteration=start_iteration,
+                              num_iteration=num_iteration,
+                              pred_leaf=pred_leaf,
+                              pred_contrib=pred_contrib, **kwargs)
+                 for lo in range(0, csr.shape[0], step)], axis=0)
+        _refuse_file(data)
+        mat = _to_matrix(data)
+        if pred_leaf:
+            return self._booster.predict_leaf(mat, start_iteration,
+                                              num_iteration)
+        if pred_contrib:
+            return self._booster.predict_contrib(mat, start_iteration,
+                                                 num_iteration)
+        return self._booster.predict(mat, raw_score=raw_score,
                                      start_iteration=start_iteration,
                                      num_iteration=num_iteration)
 
@@ -216,6 +313,14 @@ class Booster:
         self._booster.save_model(filename, start_iteration, ni, it)
         return self
 
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0, **kwargs) -> Dict[str, Any]:
+        """JSON-serializable model dict (reference: Booster.dump_model ->
+        GBDT::DumpModel)."""
+        from .models.model_text import dump_model
+        ni = -1 if num_iteration is None else num_iteration
+        return dump_model(self._booster, start_iteration, ni)
+
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0,
                         importance_type: str = "split") -> str:
@@ -223,11 +328,96 @@ class Booster:
         ni = -1 if num_iteration is None else num_iteration
         return self._booster.save_model_to_string(start_iteration, ni, it)
 
+    def model_from_string(self, model_str: str) -> "Booster":
+        """Load a model into this booster (reference:
+        Booster.model_from_string)."""
+        self._booster = GBDT.from_model_string(model_str, self.config)
+        return self
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        from .models.model_text import feature_importance
+        it = {"split": 0, "gain": 1}.get(importance_type, 0)
+        return feature_importance(self._booster, it)
+
+    def feature_name(self) -> List[str]:
+        return self._booster.feature_names
+
     def num_feature(self) -> int:
         return len(self._booster.feature_names)
 
     def num_model_per_iteration(self) -> int:
         return self._booster.num_tree_per_iteration
+
+    def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
+        """(reference: LGBM_BoosterGetLeafValue)"""
+        return float(self._booster._tree(tree_id).leaf_value[leaf_id])
+
+    def set_leaf_output(self, tree_id: int, leaf_id: int,
+                        value: float) -> "Booster":
+        """(reference: LGBM_BoosterSetLeafValue); drops the predict
+        caches."""
+        self._booster._tree(tree_id).leaf_value[leaf_id] = float(value)
+        self._booster.invalidate_predict_cache()
+        return self
+
+    def _leaf_extreme(self, fn) -> float:
+        b = self._booster
+        return float(sum(fn(b._tree(i).leaf_value[:max(
+            b._tree(i).num_leaves, 1)]) for i in range(len(b.models))))
+
+    def lower_bound(self) -> float:
+        """Smallest possible raw prediction: the sum of each tree's
+        smallest leaf value (reference: GBDT::GetLowerBoundValue)."""
+        return self._leaf_extreme(np.min)
+
+    def upper_bound(self) -> float:
+        """(reference: GBDT::GetUpperBoundValue)"""
+        return self._leaf_extreme(np.max)
+
+    def get_split_value_histogram(self, feature, bins=None,
+                                  xgboost_style: bool = False):
+        """Histogram of the numerical split thresholds used for one feature
+        (reference: basic.py Booster.get_split_value_histogram)."""
+        b = self._booster
+        if isinstance(feature, str):
+            feature = b.feature_names.index(feature)
+        vals = [t.threshold_real[k] for t in b.host_models
+                for k in range(t.num_internal)
+                if t.split_feature[k] == feature and not t.is_categorical[k]]
+        vals = np.asarray(vals, np.float64)
+        if bins is None:
+            bins = max(min(len(vals), 32), 1)
+        hist, edges = np.histogram(vals, bins=bins)
+        if xgboost_style:
+            return np.column_stack([edges[1:], hist])
+        return hist, edges
+
+    def shuffle_models(self, start_iteration: int = 0,
+                       end_iteration: int = -1) -> "Booster":
+        """Shuffle the tree order, seeded by ``data_random_seed``
+        (reference: GBDT::ShuffleModels)."""
+        b = self._booster
+        K = b.num_tree_per_iteration
+        lo = start_iteration * K
+        hi = len(b.models) if end_iteration < 0 else end_iteration * K
+        seg = b.host_models[lo:hi]
+        np.random.RandomState(self.config.data_random_seed).shuffle(seg)
+        b.models[lo:hi] = seg
+        b.invalidate_predict_cache()
+        return self
+
+    def set_train_data_name(self, name: str) -> "Booster":
+        self._train_name = name       # read by engine.train's eval loop
+        return self
+
+    def free_dataset(self) -> "Booster":
+        """Kept for API compatibility: datasets are garbage-collected."""
+        return self
+
+    def free_network(self) -> "Booster":
+        """Kept for API compatibility: there is no network to free."""
+        return self
 
     def as_server(self, **kwargs) -> "ForestServer":
         """Wrap this booster in a batched inference server
@@ -237,3 +427,29 @@ class Booster:
         batches."""
         from .serve import ForestServer
         return ForestServer(self, **kwargs)
+
+    # pickling and copying through the model string (reference: Booster
+    # __getstate__/__setstate__): the binned data and device state stay
+    # behind; an unpickled booster lands on the card unless its params say
+    # device_type=cpu
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_booster"] = None
+        state["config"] = None
+        state["_pickled_model"] = self.model_to_string()
+        return state
+
+    def __setstate__(self, state):
+        model_str = state.pop("_pickled_model", "")
+        self.__dict__.update(state)
+        self._booster = GBDT.from_model_string(
+            model_str, Config.from_params(self.params))
+        self.config = self._booster.config
+
+    def __copy__(self):
+        return self.__deepcopy__({})
+
+    def __deepcopy__(self, memo):
+        new = Booster.__new__(Booster)
+        new.__setstate__(self.__getstate__())
+        return new

@@ -14,8 +14,8 @@ selectable gradient targets and ``lambdagap_weight``
 The port's defaults differ from the JAX package's in two places:
 ``device_type`` is ``"cuda"`` (entry points run on the card unless the
 caller asks for ``"cpu"``), and ``predict_engine`` is ``"compiled"`` (the
-tensor engine is not ported yet; asking for it raises
-``NotImplementedError``).
+hand-written traversal kernel; ``"tensor"`` and ``"scan"`` run the same
+scores in plain torch ops).
 """
 from __future__ import annotations
 
@@ -361,9 +361,10 @@ class Config:
     pred_early_stop_margin: float = 10.0
     # device predict traversal engine: compiled = serving-shaped artifact
     # traversal (infer/ — quantized node blocks, pruned/merged trees, the
-    # CUDA traversal kernel; raw rows only); scan = sequential per-tree
-    # reference oracle (bit-identical outputs)
-    predict_engine: str = "compiled"     # compiled (infer artifact, CUDA traversal kernel) / scan (per-tree oracle); tensor is not ported yet
+    # CUDA traversal kernel; raw rows only); tensor = batched [rows x trees]
+    # traversal in torch ops (ops/predict_tensor.py); scan = sequential
+    # per-tree reference oracle (bit-identical outputs)
+    predict_engine: str = "compiled"     # compiled (infer artifact, CUDA traversal kernel) / tensor (batched torch ops) / scan (per-tree oracle)
     predict_tree_tile: int = 64          # trees per tensorized tile dispatch
 
     # -- infer (forest compiler; docs/serving.md "Compiled forest artifacts")
@@ -633,11 +634,6 @@ class Config:
             return False
 
     def _check(self) -> None:
-        if self.predict_engine == "tensor":
-            raise NotImplementedError(
-                "predict_engine=tensor is not ported to lambdagap_tpu_torch "
-                "yet (ROADMAP.md, port queue: 'tensor engine'); use "
-                "predict_engine=compiled or predict_engine=scan")
         checks = [
             (self.device_type in DEVICE_TYPES,
              f"device_type must be one of {DEVICE_TYPES}, "

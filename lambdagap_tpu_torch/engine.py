@@ -44,7 +44,6 @@ def train(params: Dict[str, Any], train_set: Dataset,
     valid_sets = valid_sets or []
     valid_names = valid_names or []
     valid_contains_train = False
-    train_name = "training"
     for i, vs in enumerate(valid_sets):
         name = valid_names[i] if i < len(valid_names) else f"valid_{i}"
         if vs is train_set:
@@ -52,7 +51,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
             ds = train_set.construct(booster.config)
             gb.train_metrics = create_metrics(booster.config, ds.metadata,
                                               ds.num_data)
-            train_name = name
+            booster._train_name = name
             continue
         booster.add_valid(vs, name)
 
@@ -71,6 +70,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
         stop = booster.update()
         evals = []
         if valid_contains_train:
+            train_name = getattr(booster, "_train_name", "training")
             evals.extend((train_name, m, v, g)
                          for (_, m, v, g) in gb.eval_train())
         evals.extend(gb.eval_valid())

@@ -554,6 +554,14 @@ class CompiledForest:
         self._leaf_value = torch.from_numpy(
             np.ascontiguousarray(b["leaf_value"], np.float32)).to(self.device)
 
+    def predict_leaf(self, x: torch.Tensor) -> torch.Tensor:
+        """Leaf index per (tree, row), [T, N] int32, from one traversal:
+        tree t's leaf is ``~carry[r, group_of_tree[t]]`` (compiling
+        renumbers nodes, never leaves). On the card: one launch."""
+        x = x.to(device=self.device, dtype=torch.float32).contiguous()
+        node = traverse_forest(x, self.tables)
+        return ~node.T[self._group_of_tree.long()]
+
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         """x: [N, >= width] f32 rows on this forest's device. On the card:
         two launches, the traversal and the accumulation."""

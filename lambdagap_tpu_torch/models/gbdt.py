@@ -32,8 +32,17 @@ Options the port does not train yet raise NotImplementedError naming the
 knob (:func:`_refuse_unported`). Every predict goes to the device engine:
 the JAX package's <=512-row native ``fastpred`` shortcut is not ported.
 ``predict_engine=compiled`` runs the compiled artifact through the CUDA
-traversal kernel; ``scan`` runs the per-tree oracle. Both return
-bit-identical raw scores.
+traversal kernel; ``tensor`` runs the batched [rows x trees] traversal in
+torch ops (``ops/predict_tensor``); ``scan`` runs the per-tree oracle. All
+three return bit-identical raw scores. ``pred_leaf`` under ``compiled``
+reads the traversal kernel's carry (``leaf[t, r] = ~carry[r,
+group_of_tree[t]]``: the artifact renumbers nodes, never leaves), under
+the other engines their own leaf dispatch. ``pred_contrib`` runs TreeSHAP
+(``models/shap``, kernel S on the card). ``refit`` takes its leaf indices
+from ``predict_leaf`` and keeps the JAX package's host Newton step and
+``decay_rate`` blend; ``rollback_one_iter`` subtracts the last
+iteration's trees from the training and validation scores through the
+binned traversal with negated leaf values.
 """
 from __future__ import annotations
 
@@ -46,14 +55,53 @@ import torch
 from ..config import Config
 from ..metrics import create_metrics
 from ..objectives import ObjectiveFunction, create_objective
-from ..ops.predict import (TreeArrays, forest_to_arrays, predict_forest,
-                           predict_tree_binned)
+from ..ops.predict import (TreeArrays, _round_depth, build_forest_blocks,
+                           forest_to_arrays, predict_forest,
+                           predict_forest_leaf, predict_tree_binned,
+                           tree_to_arrays)
+from ..ops.predict import to_device as to_device_arrays
+from ..ops.predict_tensor import (build_tree_tiles, predict_forest_leaf_tensor,
+                                  predict_forest_tensor)
 from ..utils import log
 from ..utils.device import resolve_device
 from .tree import Tree
 
 K_EPSILON = 1e-15
 _ROADMAP = "(ROADMAP.md, Queue 1)"
+
+
+def dispatch_forest_predict(cfg: Config, x: torch.Tensor, forest,
+                            tree_class, num_class: int, max_depth: int,
+                            binned: bool, early_stop_freq: int = 0,
+                            early_stop_margin: float = 0.0,
+                            blocks=None) -> torch.Tensor:
+    """Route a whole-forest score dispatch over the stacked tables through
+    the configured engine: ``tensor`` (and ``compiled``, whose artifact
+    models raw serving rows only, for the training-shaped replays) to the
+    tensorized engine, ``scan`` to the per-tree oracle. Both return
+    bit-identical [num_class, N] float32; ``blocks`` are the pre-sliced
+    tiles or blocks of :meth:`GBDT._device_forest`."""
+    if cfg.predict_engine in ("tensor", "compiled"):
+        return predict_forest_tensor(
+            x, forest, tree_class, num_class, max_depth, binned,
+            early_stop_freq, early_stop_margin,
+            tree_tile=cfg.predict_tree_tile, tiles=blocks)
+    return predict_forest(x, forest, tree_class, num_class, max_depth,
+                          early_stop_freq, early_stop_margin, blocks=blocks,
+                          binned=binned)
+
+
+def dispatch_forest_leaf(cfg: Config, x: torch.Tensor, forest,
+                         max_depth: int, binned: bool,
+                         blocks=None) -> torch.Tensor:
+    """Engine-routed leaf-index dispatch over the stacked tables ([T, N]
+    int32), as :func:`dispatch_forest_predict` routes (leaf indices are
+    engine-invariant)."""
+    if cfg.predict_engine in ("tensor", "compiled"):
+        return predict_forest_leaf_tensor(
+            x, forest, max_depth, binned, tree_tile=cfg.predict_tree_tile,
+            tiles=blocks)
+    return predict_forest_leaf(x, forest, max_depth, binned, blocks=blocks)
 
 
 def _apply_shrinkage(tree: Tree, rate: float) -> None:
@@ -154,6 +202,7 @@ class GBDT:
         self.generation = 0
         self._forest_cache = None
         self._compiled_cache = None
+        self._shap_cache = None
         self.objective: Optional[ObjectiveFunction] = create_objective(config)
         self.num_class = (self.objective.num_class if self.objective
                           else config.num_class)
@@ -443,6 +492,7 @@ class GBDT:
         flipping ``predict_engine`` on a live booster)."""
         self._forest_cache = None
         self._compiled_cache = None
+        self._shap_cache = None
         self.generation += 1
 
     def _es_freq(self) -> int:
@@ -456,17 +506,32 @@ class GBDT:
                 and self.objective.name in ("binary", "multiclass",
                                             "multiclassova") else 0)
 
+    def _refuse_linear(self, idx) -> None:
+        if any(getattr(self._tree(i), "is_linear", False) for i in idx):
+            raise NotImplementedError(
+                "linear-leaf forests are not ported to lambdagap_tpu_torch "
+                "yet (ROADMAP.md, port queue: linear leaves)")
+
     def _device_forest(self, idx):
-        """Stacked tensor forest on the booster's device for the scan
-        engine, cached per generation and slice. Returns (forest, depth,
-        tree_class)."""
-        key = (self.generation, len(self.models), idx[0], idx[-1], len(idx))
+        """Stacked tensor forest on the booster's device for the tensor and
+        scan engines, with its pre-sliced tiles (``predict_tree_tile``) or
+        blocks, cached per generation, slice and engine. Returns (forest,
+        depth, tree_class, blocks)."""
+        cfg = self.config
+        key = (self.generation, len(self.models), idx[0], idx[-1], len(idx),
+               cfg.predict_engine, cfg.predict_tree_tile)
         cache = self._forest_cache
         if cache is None or cache[0] != key:
             K = self.num_tree_per_iteration
             forest, depth = forest_to_arrays([self._tree(i) for i in idx],
                                              device=self.device)
-            self._forest_cache = (key, (forest, depth, [i % K for i in idx]))
+            tree_class = [i % K for i in idx]
+            if cfg.predict_engine in ("tensor", "compiled"):
+                blocks = build_tree_tiles(forest, tree_class,
+                                          cfg.predict_tree_tile)
+            else:
+                blocks = build_forest_blocks(forest, tree_class)
+            self._forest_cache = (key, (forest, depth, tree_class, blocks))
         return self._forest_cache[1]
 
     def _compiled_forest(self, start_iteration: int, num_iteration: int,
@@ -504,14 +569,13 @@ class GBDT:
         if self.config.predict_engine == "compiled":
             return self._compiled_forest(start_iteration, num_iteration,
                                          es_freq).predict(x)
-        if any(getattr(self._tree(i), "is_linear", False) for i in idx):
-            raise NotImplementedError(
-                "linear-leaf forests are not ported to lambdagap_tpu_torch "
-                "yet (ROADMAP.md, port queue: linear leaves)")
-        forest, depth, tree_class = self._device_forest(idx)
-        return predict_forest(
-            x, forest, tree_class, K, depth, early_stop_freq=es_freq,
-            early_stop_margin=float(self.config.pred_early_stop_margin))
+        self._refuse_linear(idx)
+        forest, depth, tree_class, blocks = self._device_forest(idx)
+        return dispatch_forest_predict(
+            self.config, x, forest, tree_class, K, depth, binned=False,
+            early_stop_freq=es_freq,
+            early_stop_margin=float(self.config.pred_early_stop_margin),
+            blocks=blocks)
 
     def predict_raw(self, data: np.ndarray, start_iteration: int = 0,
                     num_iteration: int = -1) -> np.ndarray:
@@ -525,6 +589,77 @@ class GBDT:
             res = res / max(1, len(idx) // max(K, 1))
         return res[0] if K == 1 else res.T
 
+    def _leaf_device(self, data: np.ndarray, start_iteration: int,
+                     num_iteration: int) -> torch.Tensor:
+        """Leaf index per (tree, row) [T, N] int32 on the booster's
+        device. Under ``compiled`` the traversal kernel's carry answers it
+        (one launch, no second traversal): tree t's leaf is
+        ``~carry[r, group_of_tree[t]]``."""
+        idx = self._model_slice(start_iteration, num_iteration)
+        x = torch.from_numpy(np.ascontiguousarray(data)).to(self.device)
+        if not idx:
+            return torch.zeros((0, x.shape[0]), dtype=torch.int32,
+                               device=self.device)
+        if self.config.predict_engine == "compiled":
+            return self._compiled_forest(start_iteration, num_iteration,
+                                         self._es_freq()).predict_leaf(x)
+        self._refuse_linear(idx)
+        forest, depth, _, blocks = self._device_forest(idx)
+        return dispatch_forest_leaf(self.config, x, forest, depth,
+                                    binned=False, blocks=blocks)
+
+    def predict_leaf(self, data: np.ndarray, start_iteration: int = 0,
+                     num_iteration: int = -1) -> np.ndarray:
+        """Leaf index per (row, tree): [N, T] int32 (reference:
+        predict_leaf_index path)."""
+        data = self._check_predict_shape(np.asarray(data, dtype=np.float32))
+        return self._leaf_device(data, start_iteration,
+                                 num_iteration).cpu().numpy().T
+
+    def _shap_paths(self, idx):
+        """The slice's TreeSHAP paths on the booster's device, cached per
+        generation and slice."""
+        key = (self.generation, len(self.models), idx[0], idx[-1], len(idx))
+        cache = self._shap_cache
+        if cache is None or cache[0] != key:
+            from .shap import build_paths, to_device
+            K = self.num_tree_per_iteration
+            paths = build_paths([self._tree(i) for i in idx],
+                                [i % K for i in idx], K)
+            self._shap_cache = (key, to_device(paths, self.device))
+        return self._shap_cache[1]
+
+    def predict_contrib(self, data: np.ndarray, start_iteration: int = 0,
+                        num_iteration: int = -1) -> np.ndarray:
+        """SHAP feature contributions: [N, F+1] per class, the last column
+        the expected value, each class's row summing to its raw score
+        (reference: Tree::PredictContrib / TreeSHAP, src/io/tree.cpp); K
+        classes lay out as [N, K*(F+1)]. Decisions in float64 on a float64
+        copy of ``data``."""
+        from .shap import tree_shap
+        data = np.asarray(data, dtype=np.float64)
+        data = np.ascontiguousarray(self._check_predict_shape(data))
+        N, F_data = data.shape
+        K = self.num_tree_per_iteration
+        idx = self._model_slice(start_iteration, num_iteration)
+        max_f = max((f for i in idx for f in
+                     self._tree(i).split_feature[:self._tree(i).num_internal]),
+                    default=-1)
+        if max_f >= F_data:
+            log.fatal("pred_contrib input has %d features but the model "
+                      "splits on feature %d", F_data, max_f)
+        if not idx:
+            phi = np.zeros((N, K, F_data + 1), np.float64)
+        else:
+            self._refuse_linear(idx)
+            x = torch.from_numpy(data).to(self.device)
+            phi = tree_shap(x, self._shap_paths(idx)).cpu().numpy()
+        if self.average_output:
+            phi /= max(1, len(idx) // max(K, 1))
+        if K == 1:
+            return phi[:, 0]
+        return phi.reshape(N, K * (F_data + 1))
+
     def predict(self, data: np.ndarray, raw_score: bool = False,
                 start_iteration: int = 0, num_iteration: int = -1
                 ) -> np.ndarray:
@@ -536,6 +671,104 @@ class GBDT:
             torch.from_numpy(np.ascontiguousarray(stacked)).to(self.device)
         ).cpu().numpy()
         return conv[0] if self.num_tree_per_iteration == 1 else conv.T
+
+    # ------------------------------------------------------------------
+    # refit and rollback
+    # ------------------------------------------------------------------
+    def refit(self, data: np.ndarray, label: np.ndarray, weight=None,
+              group=None, decay_rate: Optional[float] = None) -> None:
+        """Refit the leaf values of the existing trees on new data,
+        keeping the tree structures (reference: GBDT::RefitTree in
+        gbdt.cpp + SerialTreeLearner::FitByExistingTree). Each new leaf
+        output is the regularized Newton step over the rows that land in
+        the leaf (feature_histogram.hpp:198 CalculateSplittedLeafOutput),
+        summed on the host in float64 and blended with the old value by
+        ``refit_decay_rate``, iteration by iteration from zero scores, as
+        the JAX package does. The leaf indices come from
+        :meth:`predict_leaf`'s engine."""
+        from ..data.dataset import Metadata
+        cfg = self.config
+        decay = (cfg.refit_decay_rate if decay_rate is None
+                 else float(decay_rate))
+        X = np.ascontiguousarray(np.asarray(data, dtype=np.float32))
+        N = X.shape[0]
+        K = self.num_tree_per_iteration
+        trees = self.host_models
+        if not trees:
+            log.fatal("refit needs a trained model")
+        self._refuse_linear(range(len(trees)))
+        md = Metadata()
+        md.label = np.asarray(label, dtype=np.float32).reshape(-1)
+        if weight is not None:
+            md.weight = np.asarray(weight, dtype=np.float32).reshape(-1)
+        md.set_group(None if group is None else np.asarray(group))
+        md.check(N)
+        obj = create_objective(cfg)
+        if obj is None:
+            log.fatal("refit requires a built-in objective")
+        obj.init(md, N, self.device)
+        leaf_of = self._leaf_device(X, 0, -1).cpu().numpy()     # [T, N]
+        self.invalidate_predict_cache()     # leaf values change in place
+
+        l1, l2 = cfg.lambda_l1, cfg.lambda_l2
+        mds = cfg.max_delta_step
+
+        def newton_out(sg, sh):
+            num = (-np.sign(sg) * np.maximum(np.abs(sg) - l1, 0.0)
+                   if l1 > 0 else -sg)
+            out = num / (sh + l2 + K_EPSILON)
+            if mds > 0:
+                out = np.clip(out, -mds, mds)
+            return out
+
+        scores = torch.zeros((K, N), dtype=torch.float32, device=self.device)
+        for it in range(len(trees) // K):
+            grad, hess = obj.get_gradients_fast(scores)
+            g = grad.cpu().numpy()
+            h = hess.cpu().numpy()
+            for k in range(K):
+                t = trees[it * K + k]
+                L = t.num_leaves
+                lf = leaf_of[it * K + k]
+                sg = np.bincount(lf, weights=g[k], minlength=L)[:L]
+                sh = np.bincount(lf, weights=h[k], minlength=L)[:L]
+                new_out = newton_out(sg, sh) * t.shrinkage
+                old = t.leaf_value[:L].copy()
+                t.leaf_value[:L] = decay * old + (1.0 - decay) * new_out
+                scores[k] += torch.from_numpy(
+                    t.leaf_value[lf].astype(np.float32)).to(self.device)
+
+    def rollback_one_iter(self) -> None:
+        """Drop the last iteration's trees and subtract their scores
+        (reference: GBDT::RollbackOneIter, gbdt.cpp:456): each tree is
+        re-added to the training and validation scores with negated leaf
+        values, through the binned traversal, as the JAX package does. A
+        loaded model has no scores: its trees are dropped."""
+        K = self.num_tree_per_iteration
+        if self.iter_ <= 0 or len(self.models) < K:
+            return
+        self._materialize_lazy()
+        last = range(len(self.models) - K, len(self.models))
+        self._refuse_linear(last)
+        if self.train_set is not None:
+            lr = self.learner
+            x_train = (lr.x_rows if lr.bundle is None else
+                       torch.from_numpy(np.ascontiguousarray(
+                           self.train_set.binned)).to(self.device))
+            for k, i in enumerate(last):
+                tree = self.models[i]
+                arrs = tree_to_arrays(tree, feature_meta=lr.meta_host,
+                                      use_inner_feature=True)
+                arrs = arrs._replace(leaf_value=-arrs.leaf_value)
+                t = to_device_arrays(arrs, self.device)
+                depth = _round_depth(tree.max_depth + 1)
+                self.scores[k] += predict_tree_binned(x_train, t, depth)
+                for vi in range(len(self.valid_sets)):
+                    self.valid_scores[vi][k] += predict_tree_binned(
+                        self.valid_binned[vi], t, depth)
+        del self.models[-K:]
+        self.iter_ -= 1
+        self.invalidate_predict_cache()
 
     # ------------------------------------------------------------------
     # serialization
@@ -626,6 +859,7 @@ class GBDT:
         cfg.update(params)
         booster = cls(cfg)
         booster.models = list(trees)
+        booster.iter_ = len(trees) // booster.num_tree_per_iteration
         booster.max_feature_idx = int(header.get("max_feature_idx", 0))
         if header.get("average_output"):
             booster.average_output = True

@@ -5,8 +5,9 @@ per-tree ``Tree=N`` blocks from Tree::ToString (src/io/tree.cpp:339),
 LoadModelFromString; decision_type bit encoding from
 include/LightGBM/tree.h:20-21,274-281.)
 
-A copy of ``lambdagap_tpu/models/model_text.py`` up to the JSON dump (the
-port imports nothing of the JAX package). The tree region this module
+A copy of ``lambdagap_tpu/models/model_text.py``, the JSON dump
+(:func:`dump_model`) included (the port imports nothing of the JAX
+package). The tree region this module
 writes must be byte-identical to the JAX package's: the compiled artifact's
 ``source_key`` hashes it (``infer/compile.py``). A model saved here loads
 in the reference's LightGBM and vice versa for the shared feature set
@@ -323,3 +324,86 @@ def load_model_from_string(text: str):
         body = blk.split("\n", 1)[1] if "\n" in blk else ""
         trees.append(tree_from_string(body))
     return header, trees
+
+
+# ---------------------------------------------------------------------------
+# JSON dump (reference: gbdt_model_text.cpp DumpModel + tree.cpp Tree::ToJSON)
+# ---------------------------------------------------------------------------
+
+_MT_NAMES = {0: "None", 1: "Zero", 2: "NaN"}
+
+
+def _node_to_dict(tree: Tree, node: int) -> Dict:
+    if node < 0:
+        leaf = ~node
+        return {
+            "leaf_index": leaf,
+            "leaf_value": float(tree.leaf_value[leaf]),
+            "leaf_weight": float(tree.leaf_weight[leaf]),
+            "leaf_count": int(tree.leaf_count[leaf]),
+        }
+    if tree.is_categorical[node]:
+        bits = np.asarray(tree.cat_bitset_real[node], dtype=np.uint32)
+        cats = [str(32 * w + b) for w in range(len(bits))
+                for b in range(32) if (bits[w] >> b) & 1]
+        threshold = "||".join(cats)
+        decision_type = "=="
+    else:
+        threshold = tree.threshold_real[node]
+        decision_type = "<="
+    return {
+        "split_index": node,
+        "split_feature": tree.split_feature[node],
+        "split_gain": float(tree.split_gain[node]),
+        "threshold": threshold,
+        "decision_type": decision_type,
+        "default_left": bool(tree.default_left[node]),
+        "missing_type": _MT_NAMES.get(tree.missing_type[node], "None"),
+        "internal_value": float(tree.internal_value[node]),
+        "internal_weight": float(tree.internal_weight[node]),
+        "internal_count": int(tree.internal_count[node]),
+        "left_child": _node_to_dict(tree, tree.left_child[node]),
+        "right_child": _node_to_dict(tree, tree.right_child[node]),
+    }
+
+
+def dump_model(booster, start_iteration: int = 0,
+               num_iteration: int = -1) -> Dict:
+    """Model as a JSON-serializable dict
+    (reference: GBDT::DumpModel, src/boosting/gbdt_model_text.cpp;
+    Python Booster.dump_model)."""
+    K = booster.num_tree_per_iteration
+    feature_names = list(booster.feature_names)
+    total_iters = len(booster.models) // max(K, 1)
+    start_iteration = max(0, min(start_iteration, total_iters))
+    num_used = len(booster.models)
+    if num_iteration > 0:
+        num_used = min((start_iteration + num_iteration) * K, num_used)
+    trees = []
+    models = booster.host_models
+    for i in range(start_iteration * K, num_used):
+        t = models[i]
+        trees.append({
+            "tree_index": i - start_iteration * K,
+            "num_leaves": t.num_leaves,
+            "num_cat": sum(t.is_categorical[:t.num_internal]),
+            "shrinkage": float(t.shrinkage),
+            "tree_structure": _node_to_dict(
+                t, 0 if t.num_internal > 0 else ~0),
+        })
+    imp = feature_importance(booster, start=start_iteration * K, end=num_used)
+    return {
+        "name": "tree",
+        "version": MODEL_VERSION,
+        "num_class": booster.num_class if booster.num_class > 1 else 1,
+        "num_tree_per_iteration": K,
+        "label_index": 0,
+        "max_feature_idx": len(feature_names) - 1,
+        "objective": booster.objective_string(),
+        "average_output": bool(getattr(booster, "average_output", False)),
+        "feature_names": feature_names,
+        "feature_infos": booster.feature_infos(),
+        "tree_info": trees,
+        "feature_importances": {
+            feature_names[i]: int(v) for i, v in enumerate(imp) if v > 0},
+    }

@@ -15,17 +15,26 @@ node is NaN-missing, missing values follow ``default_left``, and a
 categorical value goes left iff its bit is set in the node's bitset.
 
 The binned traversal (:func:`predict_tree_binned`) scores a validation
-set tree by tree during training. Linear leaves wait for later slices.
+set tree by tree during training. A whole forest is dispatched in bounded
+blocks of ``tree_block`` trees (:func:`build_forest_blocks`, the JAX
+package's layout: only the tail block pads, with all-zero no-op trees that
+land on a zero leaf and add exactly +0.0 after every real tree), which the
+tensor engine (``ops/predict_tensor.py``) consumes as its tiles.
+:func:`predict_forest_leaf` gives the leaf index per (tree, row) for
+``pred_leaf`` and ``refit``. Linear leaves wait for later slices.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 K_ZERO_THRESHOLD = 1e-35
 MT_NONE, MT_ZERO, MT_NAN = 0, 1, 2
+# trees per scan-engine block (the JAX package's
+# LAMBDAGAP_PREDICT_TREE_BLOCK default)
+DEFAULT_TREE_BLOCK = 64
 
 
 class TreeArrays(NamedTuple):
@@ -270,37 +279,134 @@ def predict_tree_binned(x_binned: torch.Tensor, t: TreeArrays,
     return t.leaf_value[_traverse_leaf_id_binned(x_binned, t, max_depth)]
 
 
+def predict_leaf_index_binned(x_binned: torch.Tensor, t: TreeArrays,
+                              max_depth: int) -> torch.Tensor:
+    """Leaf index per row over the binned matrix (refit / rollback)."""
+    return _traverse_leaf_id_binned(x_binned, t, max_depth)
+
+
 def _tree(forest: TreeArrays, i: int) -> TreeArrays:
     return TreeArrays(*(a[i] for a in forest))
+
+
+def _leaf_id(x: torch.Tensor, t: TreeArrays, max_depth: int,
+             binned: bool) -> torch.Tensor:
+    return (_traverse_leaf_id_binned(x, t, max_depth) if binned
+            else _traverse_leaf_id(x, t, max_depth))
+
+
+def _forest_block(forest: TreeArrays, tree_class: Sequence[int], b: int,
+                  tree_block: int, T: int) -> Tuple[TreeArrays, List[int]]:
+    """Trees [b, b+tree_block) of the stacked forest; only the TAIL block
+    pads, with no-op trees (all-zero arrays: the bounded traversal never
+    leaves node 0 and lands on ``leaf_value[-1] == 0``, adding exactly
+    +0.0 — and pads sit strictly after every real tree, so early-stop
+    margins are unaffected)."""
+    hi = min(b + tree_block, T)
+    pad = tree_block - (hi - b)
+
+    def cut(a: torch.Tensor) -> torch.Tensor:
+        blk = a[b:hi]
+        if pad:
+            blk = torch.cat([blk, torch.zeros((pad,) + tuple(a.shape[1:]),
+                                              dtype=a.dtype,
+                                              device=a.device)])
+        return blk
+
+    tc = [int(k) for k in tree_class[b:hi]] + [0] * pad
+    return TreeArrays(*(cut(a) for a in forest)), tc
+
+
+def build_forest_blocks(forest: TreeArrays, tree_class: Sequence[int],
+                        tree_block: Optional[int] = None):
+    """Pre-slice a stacked tensor forest into bounded, padded tree blocks
+    ONCE (the booster's and the serve cache's forest is immutable between
+    calls). Returns a tuple of ``(block TreeArrays, block tree_class,
+    n_real)``, or None when the forest fits a single block."""
+    T = len(tree_class)
+    if tree_block is None:
+        tree_block = DEFAULT_TREE_BLOCK
+    if tree_block <= 0 or T <= tree_block:
+        return None
+    out = []
+    for b in range(0, T, tree_block):
+        blk, tc = _forest_block(forest, tree_class, b, tree_block, T)
+        out.append((blk, tc, min(b + tree_block, T) - b))
+    return tuple(out)
+
+
+def _predict_forest_block(x: torch.Tensor, forest: TreeArrays,
+                          tree_class: Sequence[int], carry, max_depth: int,
+                          binned: bool, early_stop_freq: int,
+                          early_stop_margin: float):
+    """One block of trees, threading the (out, stopped, i) carry: one f32
+    add per tree in forest order."""
+    out, stopped, i = carry
+    for j, k in enumerate(tree_class):
+        t = _tree(forest, j)
+        vals = t.leaf_value[_leaf_id(x, t, max_depth, binned)]
+        if early_stop_freq <= 0:
+            out[k] += vals
+            continue
+        out[k] += torch.where(stopped, 0.0, vals)
+        i += 1
+        if i % early_stop_freq == 0:
+            stopped |= margin_of(out) > early_stop_margin
+    return out, stopped, i
+
+
+def init_carry(num_class: int, n: int, device) -> tuple:
+    """The (scores, stopped, trees seen) carry threaded across blocks."""
+    return (torch.zeros((num_class, n), dtype=torch.float32, device=device),
+            torch.zeros(n, dtype=torch.bool, device=device), 0)
 
 
 def predict_forest(x: torch.Tensor, forest: TreeArrays,
                    tree_class: Sequence[int], num_class: int,
                    max_depth: int, early_stop_freq: int = 0,
-                   early_stop_margin: float = 0.0) -> torch.Tensor:
+                   early_stop_margin: float = 0.0, blocks=None,
+                   binned: bool = False) -> torch.Tensor:
     """Sum a whole forest's leaf values into per-class scores.
 
-    x: [N, D] raw f32 rows on the forest's device. forest: tensor
-    TreeArrays stacked along a leading T axis (``forest_to_arrays(...,
-    device=)``). tree_class: class index of each tree (iter-major,
-    class-minor). early_stop_freq/margin: every ``freq`` trees, rows whose
-    margin exceeds ``margin`` stop accumulating (reference:
-    src/boosting/prediction_early_stop.cpp; binary margin = 2*|score|,
-    multiclass = top1 - top2). Returns [num_class, N] float32."""
-    N = x.shape[0]
-    out = torch.zeros((num_class, N), dtype=torch.float32, device=x.device)
-    stopped = torch.zeros(N, dtype=torch.bool, device=x.device)
-    tc = [int(k) for k in tree_class]
-    for i, k in enumerate(tc):
-        t = _tree(forest, i)
-        vals = t.leaf_value[_traverse_leaf_id(x, t, max_depth)]
-        if early_stop_freq <= 0:
-            out[k] += vals
-            continue
-        out[k] += torch.where(stopped, 0.0, vals)
-        if (i + 1) % early_stop_freq == 0:
-            stopped |= margin_of(out) > early_stop_margin
-    return out
+    x: [N, D] raw f32 rows (or, ``binned``, the [N, F] binned matrix) on
+    the forest's device. forest: tensor TreeArrays stacked along a leading
+    T axis (``forest_to_arrays(..., device=)``). tree_class: class index
+    of each tree (iter-major, class-minor). early_stop_freq/margin: every
+    ``freq`` trees, rows whose margin exceeds ``margin`` stop accumulating
+    (reference: src/boosting/prediction_early_stop.cpp; binary margin =
+    2*|score|, multiclass = top1 - top2). ``blocks`` from
+    :func:`build_forest_blocks` run the same trees block by block with the
+    carry threaded through (the padded tail adds +0.0). Returns
+    [num_class, N] float32."""
+    carry = init_carry(num_class, x.shape[0], x.device)
+    if blocks is None:
+        blocks = ((forest, [int(k) for k in tree_class], len(tree_class)),)
+    for blk, tc, _ in blocks:
+        carry = _predict_forest_block(x, blk, tc, carry, max_depth, binned,
+                                      early_stop_freq, early_stop_margin)
+    return carry[0]
+
+
+def predict_forest_leaf(x: torch.Tensor, forest: TreeArrays,
+                        max_depth: int, binned: bool = False,
+                        tree_block: Optional[int] = None,
+                        blocks=None) -> torch.Tensor:
+    """Leaf index per (tree, row) for a whole forest: [T, N] int32,
+    dispatched in the same bounded blocks as :func:`predict_forest` (the
+    pads' rows are dropped)."""
+    T = forest.leaf_value.shape[0]
+    if blocks is None:
+        blocks = build_forest_blocks(forest, [0] * T, tree_block)
+    if blocks is None:
+        blocks = ((forest, [0] * T, T),)
+    outs = []
+    for blk, _, n_real in blocks:
+        outs.extend(_leaf_id(x, _tree(blk, j), max_depth, binned)
+                    for j in range(n_real))
+    if not outs:
+        return torch.zeros((0, x.shape[0]), dtype=torch.int32,
+                           device=x.device)
+    return torch.stack(outs).to(torch.int32)
 
 
 def margin_of(out: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,11 @@ warm, but keeps the same plan so a request is dispatched in the same
 chunks, the per-bucket accounting reads the same, and ``warm`` still pays
 the one-time kernel build before the first request.
 
+The engine is the booster's ``predict_engine``: ``compiled`` serves the
+compiled artifact (the traversal and accumulation kernels), ``tensor``
+the stacked tables in ``predict_tree_tile`` tiles through the tensorized
+engine, ``scan`` the per-tree oracle.
+
 Numerics: a bucket dispatch runs the exact device ops of
 ``GBDT.predict_raw`` on the same engine, and rows are independent, so
 padded batches return bit-identical outputs to a direct
@@ -23,7 +28,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.predict import forest_to_arrays, predict_forest
+from ..models.gbdt import dispatch_forest_predict
+from ..ops.predict import forest_to_arrays
+from ..ops.predict_tensor import build_tree_tiles
 from ..utils import log
 
 DEFAULT_BUCKETS = (1, 8, 64, 512, 4096)
@@ -92,15 +99,18 @@ class CompiledForestCache:
         self._forest = None
         self.artifact = None
         self._compiled = None
-        if idx and self.engine == "scan":
+        if idx and self.engine in ("scan", "tensor"):
             if any(getattr(t, "is_linear", False) for t in trees):
                 raise NotImplementedError(
                     "linear-leaf forests are not ported to "
                     "lambdagap_tpu_torch yet (ROADMAP.md, port queue: "
                     "linear leaves)")
             forest, depth = forest_to_arrays(trees, device=self.device)
-            self._forest = (forest, depth,
-                            [i % self.num_class for i in idx])
+            tree_class = [i % self.num_class for i in idx]
+            tiles = (build_tree_tiles(forest, tree_class,
+                                      cfg.predict_tree_tile)
+                     if self.engine == "tensor" else None)
+            self._forest = (forest, depth, tree_class, tiles)
         elif idx:
             from ..infer import CompiledForest, compile_forest
             art = compile_forest(gbdt, start_iteration, num_iteration)
@@ -127,10 +137,11 @@ class CompiledForestCache:
         if self._compiled is not None:
             out = self._compiled.predict(xb)
         else:
-            forest, depth, tree_class = self._forest
-            out = predict_forest(xb, forest, tree_class, self.num_class,
-                                 depth, early_stop_freq=self._es_freq,
-                                 early_stop_margin=self._es_margin)
+            forest, depth, tree_class, tiles = self._forest
+            out = dispatch_forest_predict(
+                self.gbdt.config, xb, forest, tree_class, self.num_class,
+                depth, binned=False, early_stop_freq=self._es_freq,
+                early_stop_margin=self._es_margin, blocks=tiles)
         if self.gbdt.average_output:
             out = out / self._n_iters
         obj = self.gbdt.objective

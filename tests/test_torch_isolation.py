@@ -128,8 +128,8 @@ def test_cuda_tensor_never_reaches_the_plain_traversal():
 
 
 @pytest.mark.parametrize("params, exc, match", [
-    ({"predict_engine": "tensor", "device_type": "cpu"},
-     NotImplementedError, "not ported"),
+    ({"predict_engine": "bogus", "device_type": "cpu"},
+     RuntimeError, "unknown predict_engine"),
     ({"device_type": "tpu"}, RuntimeError, "device_type must be one of"),
 ])
 def test_config_refuses_what_the_port_does_not_run(params, exc, match):

@@ -30,7 +30,14 @@ rank_xendcg, positions with by-query bagging; and the objectives of the
 multiclass slice: 7-class softmax with a categorical column, one-vs-all,
 multiclass GOSS, the renewed L1 family, the log-link losses and weighted
 cross_entropy_lambda) equal the same on the CPU, and a 7-class model
-served on the card with early stop equals the scan oracle.
+served on the card with early stop equals the scan oracle. TreeSHAP's
+kernel S equals its plain version at rtol 1e-9 / atol 1e-12 on numeric
+(NaN and zero rows), 3-class and categorical forests and on a
+16,384-leaf tree whose longest merged path is near the 256-element cap,
+reruns bit-identically and counts one launch a call; ``pred_leaf`` under
+the compiled engine on the card is one traversal launch and equals the
+tensor engine's leaves; ``predict_engine=tensor`` on the card serves the
+scan oracle's scores.
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -618,3 +625,106 @@ def test_seven_class_early_stop_serving_on_card_equals_scan(cuda_device):
                           early_stop_margin=margin).T.cpu().numpy()
     assert got.shape == (4096, 7) and np.array_equal(got, want)
     assert (want != full).any()
+
+
+def _deep_tree(seed=0, features=255, leaves=16384):
+    """A 16,384-leaf tree whose leftmost path splits 250 distinct features
+    in a row (then random splits): its longest merged path has 251-256
+    elements, at the top of kernel S's cap. Every other leaf is zeroed:
+    the unwound sums of long paths are ill-conditioned (the recurrence's
+    subtractions amplify rounding by up to C(e, k) z^k, and this
+    synthetic tree's internal edges have zero fraction 1), so summing
+    many such paths in two orders parts far beyond rounding, while the
+    one path left runs the same operations in the same order in the
+    kernel and its plain version."""
+    from lambdagap_tpu_torch.models import shap
+    from lambdagap_tpu_torch.models.tree import Tree
+    rng = np.random.RandomState(seed)
+    tree = Tree(max_leaves=leaves)
+    for f in range(250):
+        tree.split(0, f, f, 0, float(rng.randn()), bool(f % 2), f % 3, 1.0,
+                   float(rng.normal(0, 0.02)), float(rng.normal(0, 0.02)),
+                   1.0, 1.0, 1, 1)
+    while tree.num_leaves < leaves:
+        f = int(rng.randint(features))
+        tree.split(int(rng.randint(tree.num_leaves)), f, f, 0,
+                   float(rng.randn()), bool(rng.rand() < 0.5),
+                   int(rng.randint(3)), 1.0, float(rng.normal(0, 0.02)),
+                   float(rng.normal(0, 0.02)), 1.0, 1.0, 1, 1)
+    longest = np.diff(shap.build_paths([tree], [0], 1).path_elem_lo).argmax()
+    tree.leaf_value[:leaves][np.arange(leaves) != longest] = 0.0
+    tree.leaf_value[longest] = 0.05
+    return tree
+
+
+def _shap_case(kind):
+    """(trees, tree classes, classes, rows) for kernel S."""
+    rng = np.random.RandomState(4)
+    if kind == "deep":
+        return [_deep_tree()], [0], 1, synth.random_rows(rng, 16, 255)
+    if kind == "multiclass":
+        trees = synth.random_trees(6, 30, 31, 10, grid_size=40)
+        return trees, [i % 3 for i in range(30)], 3, \
+            synth.random_rows(rng, 300, 10)
+    text, trees, feats = _forest(kind)
+    return trees, [0] * len(trees), 1, _rows(kind, 300, feats, seed=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["numeric", "multiclass", "categorical",
+                                  "deep"])
+def test_tree_shap_kernel_equals_plain_version(kind, cuda_device):
+    from lambdagap_tpu_torch.models import shap
+    trees, tc, K, X = _shap_case(kind)
+    paths = shap.build_paths(trees, tc, K)
+    if kind == "deep":
+        assert 250 < paths.max_elems <= 256
+        assert np.count_nonzero(paths.path_value) == 1
+    p = shap.to_device(paths, cuda_device)
+    x = torch.from_numpy(X.astype(np.float64)).to(cuda_device)
+    want = shap._tree_shap_reference(x, p)
+    before = shap.TREE_SHAP_LAUNCHES.launches
+    got = shap.tree_shap(x, p)
+    again = shap.tree_shap(x, p)
+    torch.cuda.synchronize()
+    assert shap.TREE_SHAP_LAUNCHES.launches == before + 2
+    assert got.shape == (len(X), K, X.shape[1] + 1)
+    assert torch.equal(got, again)
+    n = 2 if kind == "deep" else len(X)       # the CPU's deep walk is slow
+    cpu = shap._tree_shap_reference(x[:n].cpu(), shap.to_device(paths, "cpu"))
+    np.testing.assert_allclose(got[:n].cpu().numpy(), cpu.numpy(),
+                               rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["numeric", "categorical"])
+def test_pred_leaf_on_card_is_one_traversal_launch(kind, cuda_device):
+    text, _trees, feats = _forest(kind)
+    X = _rows(kind, 601, feats, seed=5)
+    bst = lgt.Booster(model_str=text)
+    bst.predict(X[:8], pred_leaf=True)            # compile and upload
+    eng.TRAVERSE_LAUNCHES.reset()
+    eng.ACCUMULATE_LAUNCHES.reset()
+    got = bst.predict(X, pred_leaf=True)
+    assert eng.TRAVERSE_LAUNCHES.launches == 1
+    assert eng.ACCUMULATE_LAUNCHES.launches == 0
+    tensor = lgt.Booster(model_str=text, params={"predict_engine": "tensor",
+                                                 "predict_tree_tile": 5})
+    assert np.array_equal(got, tensor.predict(X, pred_leaf=True))
+    assert np.array_equal(got, lgt.Booster(model_str=text, params=CPU)
+                          .predict(X, pred_leaf=True))
+
+
+@pytest.mark.cuda
+def test_tensor_engine_on_card_serves_the_scan_oracle(cuda_device):
+    text, _trees, feats = _forest("categorical")
+    X = _rows("categorical", 700, feats, seed=6)
+    ref = lgt.Booster(model_str=text, params={"predict_engine": "scan"}
+                      ).predict(X, raw_score=True)
+    bst = lgt.Booster(model_str=text, params={"predict_engine": "tensor",
+                                              "predict_tree_tile": 5})
+    assert np.array_equal(bst.predict(X, raw_score=True), ref)
+    with bst.as_server(raw_score=True) as server:
+        assert np.array_equal(server.predict(X), ref)
