@@ -3,7 +3,7 @@
 CUDA card and check them.
 
     python3 chip_smoke.py [--seed N] [--rows N]
-                          [--only kernels|rank|objectives|predict]
+                          [--only kernels|rank|objectives|predict|shap]
 
 Run from the root of a checkout. Phases, each fatal on failure:
 
@@ -146,9 +146,12 @@ T14. the predict API on phase 3's forest, phase 5's rows and T3's and
    rows x 7 classes), the count of kernel S zeroed just before and read
    just after, T3's and T11a's rows summing to their raw scores at rtol
    1e-5 / atol 1e-6 (per class); kernel S against its plain version on the
-   forest at 256 and 4,096 rows, rtol 1e-9 / atol 1e-12, reruns
-   bit-identical, its device time, the plain version's and the float64
-   operation bound; refit of T3's model on its 500,000 validation rows:
+   forest at 1, 256 and 4,096 rows, rtol 1e-9 / atol 1e-12, reruns and
+   row 0 bit-identical in every batch, its device time, the plain
+   version's and the float64 operation bound, the CUDA launches a call
+   makes, and the path build's host time, warp groups, packing efficiency
+   and long paths (``--only shap`` runs phases 1-3 and these checks
+   alone); refit of T3's model on its 500,000 validation rows:
    ``decay_rate=1.0`` leaves every leaf as it was, 0.9 every leaf finite;
 6. the kernels line (one JSON object, seven entries; each entry's
    ``max_abs_err`` the largest of its kernel's comparisons, T13's K1 in
@@ -187,8 +190,8 @@ H100_INT32_OPS_PER_S = H100_F32_OPS_PER_S / 4
 # float64 outside the tensor cores (H100 SXM data sheet: 34 TFLOP/s; the
 # FP64 tensor cores' 67 serve matrix products only)
 H100_F64_OPS_PER_S = 34e12
-SHAP_ROWS = 4096                # T14: kernel S's timed batch
-SHAP_CHECK_ROWS = 256           # T14: S against its plain version
+SHAP_ROWS = 4096                # T14: kernel S's batch on the main path
+SHAP_TIMED_ROWS = (1, 256, SHAP_ROWS)   # T14: S against plain, timed
 HIGGS_ROWS = 10_500_000         # HIGGS's training rows (bench.py)
 VALID_ROWS = 500_000
 MAX_BIN = 255
@@ -2211,45 +2214,16 @@ def predict_phase(dev, smi: str, text: str, trees, data, plan, oracle,
     check(c11.shape == (len(X11), 7 * (F11 + 1))
           and np.allclose(sums11, raw11, rtol=1e-5, atol=1e-6),
           "T14: T11a contributions do not sum to the raw scores per class")
-    print(f"T14 pred_contrib: the {T}-tree forest's paths built in "
-          f"{build_s:.1f} s (host); S launches {s_launches} (forest "
+    print(f"T14 pred_contrib: the {T}-tree forest's first call (paths "
+          f"built and uploaded) {build_s:.1f} s; S launches {s_launches} "
+          f"(forest "
           f"{SHAP_ROWS} rows, T3 {len(X3)} rows, T11a {len(X11)} rows x 7 "
           f"classes); row sums == raw scores (max |diff| T3 "
           f"{np.abs(c3.sum(axis=1) - raw3).max():.3g}, T11a "
           f"{np.abs(sums11 - raw11).max():.3g}) [{smi}]")
 
     # -- kernel S against its plain version; times and bound ----------------
-    t0 = time.perf_counter()
-    paths = shap.build_paths(trees, [0] * len(trees), 1)
-    p = shap.to_device(paths, dev)
-    err = 0.0
-    for n in (SHAP_CHECK_ROWS, SHAP_ROWS):
-        x = torch.from_numpy(data[:n].astype(np.float64)).to(dev)
-        got = shap.tree_shap(x, p)
-        again = shap.tree_shap(x, p)
-        a, b = torch.cuda.Event(enable_timing=True), \
-            torch.cuda.Event(enable_timing=True)
-        a.record()
-        want = shap._tree_shap_reference(x, p, max_lattice=1 << 25)
-        b.record()
-        torch.cuda.synchronize()
-        plain_ms = a.elapsed_time(b)
-        check(torch.equal(got, again), f"T14: kernel S rerun differs at {n} "
-              "rows")
-        check(np.allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-9,
-                          atol=1e-12), f"T14: kernel S != plain at {n} rows")
-        err = max(err, float((got - want).abs().max()))
-        ms = cuda_ms(lambda: shap.tree_shap(x, p), reps=3, warm=1)
-        bound, by, ops, nbytes = shap_bound(paths, n, x.numel() * 8,
-                                            got.numel() * 8)
-        print(f"T14 kernel S @{n} rows x {len(paths.path_value)} paths "
-              f"(cap {shap.path_cap(paths.max_elems)}, longest merged path "
-              f"{paths.max_elems}): {ms:.3f} ms device (median of 3), plain "
-              f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({by}: {ops:.3g} "
-              f"float64 ops, {nbytes / 1e6:.1f} MB); max |S - plain| "
-              f"{err:.3g}; rerun bit-identical [{smi}]")
-        del x, got, again, want
-    print(f"T14 S checks: {time.perf_counter() - t0:.1f} s")
+    s = shap_kernel_phase(dev, smi, trees, data)
 
     # -- refit on T3's validation rows ---------------------------------------
     Xv, yv = t3["Xva"], t3["valid"].get_label()
@@ -2268,13 +2242,80 @@ def predict_phase(dev, smi: str, text: str, trees, data, plan, oracle,
     print(f"T14 refit: T3's model on {len(Xv)} validation rows, "
           f"decay_rate=1.0 every leaf unchanged ({refit1_s:.2f} s host "
           f"wall), 0.9 every leaf finite ({refit9_s:.2f} s) [{smi}]")
+    big = s[SHAP_ROWS]
     return {"leaf_launches": leaf_launches, "shap": {
         "name": "tree_shap", "route": "cuda",
         "source": "lambdagap_tpu_torch/csrc/treeshap.cu",
         "replaces": "lambdagap_tpu/native/treeshap.cpp:173",
-        "launches": s_launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "launches": s_launches,
+        "max_abs_err": max(v["max_abs_err"] for v in s.values()),
+        "ms": big["ms"], "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
         "library_ms": None}}
+
+
+def shap_kernel_phase(dev, smi: str, trees, data) -> dict:
+    """Kernel S on phase 3's forest against its plain version at 1, 256
+    and 4,096 rows (rtol 1e-9 / atol 1e-12), each rerun bit-identical:
+    the path build's host time, the warp groups and their packing, the
+    long paths, the CUDA launches a call makes, S's device time, the plain
+    version's and the bound. Returns each row count's numbers."""
+    import torch
+    from lambdagap_tpu_torch.models import shap
+
+    t0 = time.perf_counter()
+    paths = shap.build_paths(trees, [0] * len(trees), 1)
+    build_s = time.perf_counter() - t0
+    p = shap.to_device(paths, dev)
+    groups = paths.class_groups[-1]
+    lane_path = np.asarray(paths.lane_path)
+    eff = float((lane_path >= 0).sum()) / max(1, 32 * groups)
+    print(f"T14 S layout: {len(paths.path_value)} paths (longest merged "
+          f"path {paths.max_elems} elements) in {groups} warp groups, "
+          f"packing efficiency {eff:.4f} (lanes used / 32 x groups), "
+          f"{paths.num_long} long paths; paths built in {build_s:.3f} s "
+          f"(host) [{smi}]")
+    out, first = {}, None
+    for n in SHAP_TIMED_ROWS:
+        x = torch.from_numpy(data[:n].astype(np.float64)).to(dev)
+        plan = shap.launch_plan(paths, n, x.shape[1])
+        got = shap.tree_shap(x, p)
+        again = shap.tree_shap(x, p)
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = shap._tree_shap_reference(x, p, max_lattice=1 << 25)
+        b.record()
+        torch.cuda.synchronize()
+        plain_ms = a.elapsed_time(b)
+        check(torch.equal(got, again), f"T14: kernel S rerun differs at {n} "
+              "rows")
+        check(np.allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-9,
+                          atol=1e-12), f"T14: kernel S != plain at {n} rows")
+        first = got[:1] if first is None else first
+        check(torch.equal(got[:1], first), f"T14: kernel S's row 0 at {n} "
+              "rows != row 0 alone")
+        err = float((got - want).abs().max())
+        ms = cuda_ms(lambda: shap.tree_shap(x, p), reps=3 if n > 256 else 10,
+                     warm=1)
+        bound, by, ops, nbytes = shap_bound(paths, n, x.numel() * 8,
+                                            got.numel() * 8)
+        print(f"T14 kernel S @{n} rows x {len(paths.path_value)} paths: "
+              f"{ms:.4f} ms device (median of {3 if n > 256 else 10}), "
+              f"plain {plain_ms:.1f} ms, bound {bound:.4f} ms ({by}: "
+              f"{ops:.3g} float64 ops, {nbytes / 1e6:.1f} MB); "
+              f"{plan['cuda_launches']} CUDA launches a call ("
+              f"{plan['passes']} pass(es), grid "
+              f"{plan['row_tiles']} row tiles x {plan['chunks']} chunks of "
+              f"{plan['groups_per_chunk']} groups, {plan['warps']} warps x "
+              f"{plan['tile']} rows a block, {plan['smem_bytes']} B shared); "
+              f"max |S - plain| {err:.3g}; rerun and row 0 bit-identical "
+              f"[{smi}]")
+        out[n] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                  "bound_by": by, "max_abs_err": err}
+        del x, got, again, want
+    print(f"T14 S checks: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def t11a_only(args, dev, smi: str) -> dict:
@@ -2291,14 +2332,15 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=HIGGS_ROWS,
                     help="training rows of phase T3 (HIGGS's count)")
     ap.add_argument("--only", choices=("all", "kernels", "rank",
-                                       "objectives", "predict"),
+                                       "objectives", "predict", "shap"),
                     default="all",
                     help="kernels: phases 1-4 (with the SASS check), T2 and "
                     "T2q; rank: phases 1-2, T8, T2 at 136 features, T9 and "
                     "T10; objectives: phases 1-2, T11a-c, T2 at T11's "
                     "width, T11-serve, T12 and T13; predict: phases 1-3, "
-                    "phase 5's scan oracle, T3, T11a and T14; each then "
-                    "stops without a result line")
+                    "phase 5's scan oracle, T3, T11a and T14; shap: phases "
+                    "1-3 and T14's kernel S checks; each then stops without "
+                    "a result line")
     args = ap.parse_args()
 
     import torch
@@ -2381,6 +2423,15 @@ def main() -> int:
           f"{art.nbytes / 1e6:.2f} MB, sha256 {art.hash[:16]} "
           f"({time.perf_counter() - t0:.1f} s)")
     check(m["thr_bits"] == 16, "the 254-boundary grid needs u16 codes")
+
+    if args.only == "shap":
+        data = synth.random_rows(np.random.RandomState(args.seed + 7), 20000,
+                                 F)
+        shap_kernel_phase(dev, smi, gb.models, data)
+        print(f"chip_smoke: kernel S phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--only shap: no "
+              "result)")
+        return 0
 
     if args.only == "predict":
         rng = np.random.RandomState(args.seed + 7)

@@ -25,9 +25,17 @@ expected value ``sum(lv * lcnt) / sum(lcnt)`` (0 when the counts sum to 0;
 a stump's single leaf value) goes into the last column; tree t adds into
 class ``tree_class[t]``.
 
-:func:`tree_shap` is the wrapper: on a CUDA tensor it launches the
-hand-written kernel S (``csrc/treeshap.cu``) once or raises, a path longer
-than the kernel's cap included; on a CPU tensor it runs the plain version
+:func:`build_paths` also lays the paths out for kernel S: each class's
+paths packed into warp groups of at most 32 lanes (best-fit decreasing by
+length, :func:`_pack_lanes`), a path of e merged elements on e + 1
+consecutive lanes, the root dummy first; a CSR of edges per element, so a
+lane decides only its own element's edges; and the list of paths too long
+for a warp (more than 32 elements), which take the kernel's per-lane path.
+
+:func:`tree_shap` is the wrapper: on a CUDA tensor it makes kernel S's
+launches (``csrc/treeshap.cu``: at most three a pass of rows,
+:func:`launch_plan`) or raises, a path longer than the long-path kernel's
+cap included; on a CPU tensor it runs the plain version
 (:func:`_tree_shap_reference`), the same per-path recurrence as float64
 torch ops over a ``[rows, paths, path_len]`` lattice, chunked so its
 memory stays bounded. Linear leaves are not ported: callers refuse linear
@@ -46,15 +54,26 @@ from ..infer.engine import LaunchCounter
 from .tree import Tree
 
 TREE_SHAP_SOURCE = "treeshap.cu"
-# path caps (elements, the root dummy included) the kernel is compiled
-# for; a forest whose longest merged path needs more raises
-PATH_CAPS = (8, 16, 32, 64, 128, 256)
+WARP = 32
+# path caps (elements, the root dummy included) the long-path kernel is
+# compiled for; a forest whose longest merged path needs more raises
+PATH_CAPS = (64, 128, 256)
 FLAG_DEFAULT_LEFT, FLAG_MT_SHIFT, FLAG_CATEGORICAL = 1, 1, 8
 MT_ZERO, MT_NAN = 1, 2
 K_ZERO_THRESHOLD = 1e-35
-# bytes of the kernel's per-lane accumulators ([warps, 32, F] float64)
-SCRATCH_BYTES = 256 << 20
-WARPS_PER_BLOCK = 4
+# bytes of a pass's workspace (its chunk slices, [slices, rows, F]
+# float64: a batch runs in passes of as many rows as this holds, one row
+# at least), and of the long-path kernel's per-lane accumulators
+SCRATCH_BYTES = 512 << 20
+# the grouped kernel: warps a block, rows a tile, shared memory a block
+# (rows and per-warp partials), and chunks (enough for one row's grid to
+# fill the 132 SMs; the ordered reduction adds a class's chunks serially)
+WARPS_PER_BLOCK = 8
+TILE_ROWS = 16
+SMEM_TARGET = 48 << 10
+SMEM_MAX = 226 << 10           # of 227 KB: the kernel's static table too
+MAX_CHUNKS = 512
+LONG_WARPS_PER_BLOCK = 4
 
 TREE_SHAP_LAUNCHES = LaunchCounter()
 
@@ -78,8 +97,22 @@ class ShapPaths(NamedTuple):
     edge_node: object      # i32 [Ed] internal node of each edge
     edge_slot: object      # i32 [Ed] element slot (1-based) << 1 | left
     bias: object           # f64 [K] the class's summed expected values
+    # kernel S's lane layout: warp groups by class, lanes by group
+    class_group_lo: object  # i32 [K + 1] first warp group of each class
+    lane_path: object      # i32 [G * 32] path of each lane, -1 idle
+    lane_slot: object      # i32 [G * 32] its element slot (0 the dummy)
+    elem_edge_lo: object   # i32 [E + 1] CSR into elem_edge
+    elem_edge: object      # i32 [Ed] node << 1 | left, by element
+    long_path: object      # i32 [L] paths of more than 32 elements
+    class_long_lo: object  # i32 [K + 1] first long path of each class
     max_elems: int         # longest merged path, root dummy included
     max_edges: int         # deepest leaf
+    class_groups: tuple    # class_group_lo on the host
+    num_long: int          # paths of more than 32 elements
+    max_feature: int       # largest split feature, -1 for none
+
+
+NUM_TABLES = 22            # the array fields of ShapPaths
 
 
 def _expected_value(tree: Tree) -> float:
@@ -140,13 +173,12 @@ def build_paths(trees: Sequence[Tree], tree_class: Sequence[int],
     words.append(np.zeros(1, np.uint32))      # never empty
     cat_bits = np.concatenate(words)
     if not feats:
+        i0, k0 = np.zeros(0, np.int32), np.zeros(num_class + 1, np.int32)
         return ShapPaths(
-            np.zeros(0, np.int32), np.zeros(0), np.zeros(0, np.int32),
-            np.zeros(0, np.int32), np.zeros(0, np.int32), cat_bits,
-            np.zeros(0), np.zeros(1, np.int32), np.zeros(1, np.int32),
-            np.zeros(num_class + 1, np.int32), np.zeros(0, np.int32),
-            np.zeros(0), np.zeros(0, np.int32), np.zeros(0, np.int32),
-            bias, 1, 0)
+            i0, np.zeros(0), i0, i0, i0, cat_bits, np.zeros(0),
+            np.zeros(1, np.int32), np.zeros(1, np.int32), k0, i0,
+            np.zeros(0), i0, i0, bias, k0, i0, i0, np.zeros(1, np.int32),
+            i0, i0, k0, 1, 0, (0,) * (num_class + 1), 0, -1)
     node_feat = np.concatenate(feats)
     left = np.concatenate(lefts)
     right = np.concatenate(rights)
@@ -225,6 +257,34 @@ def build_paths(trees: Sequence[Tree], tree_class: Sequence[int],
     edge_slot = np.empty(len(srt), np.int64)
     edge_slot[srt] = slot[edge_group]
     edge_lo = np.concatenate([[0], np.cumsum(depth)]).astype(np.int64)
+    edge_node = e_node[pp, ss]
+    edge_left = e_left[pp, ss].astype(np.int64)
+    # each element's own edges, depth order within it
+    edge_elem = elem_lo[pp] + edge_slot - 1
+    by_elem = np.argsort(edge_elem, kind="stable")
+    elem_edge_lo = np.concatenate(
+        [[0], np.cumsum(np.bincount(edge_elem, minlength=int(elem_lo[-1])))])
+    # warp groups by class; paths past a warp's lanes go on the long list
+    lanes = n_elem + 1
+    fits = lanes <= WARP
+    lane_path, lane_slot, group_lo = [], [], [0]
+    for k in range(num_class):
+        paths = np.arange(class_path_lo[k], class_path_lo[k + 1])
+        paths = paths[fits[paths]]
+        group, first, groups = _pack_lanes(lanes[paths])
+        lp = np.full(groups * WARP, -1, np.int64)
+        ls = np.full(groups * WARP, -1, np.int64)
+        owner = np.repeat(np.arange(len(paths)), lanes[paths])
+        slot_of = np.arange(len(owner)) - np.repeat(
+            np.cumsum(lanes[paths]) - lanes[paths], lanes[paths])
+        at = group[owner] * WARP + first[owner] + slot_of
+        lp[at] = paths[owner]
+        ls[at] = slot_of
+        lane_path.append(lp)
+        lane_slot.append(ls)
+        group_lo.append(group_lo[-1] + groups)
+    long_path = np.nonzero(~fits)[0]                # by class already
+    class_long_lo = np.searchsorted(long_path, class_path_lo)
     return ShapPaths(
         node_feat=node_feat.astype(np.int32),
         node_thr=np.concatenate(thrs),
@@ -238,11 +298,70 @@ def build_paths(trees: Sequence[Tree], tree_class: Sequence[int],
         class_path_lo=class_path_lo,
         elem_feat=g_feat[g_order].astype(np.int32),
         elem_zero=zero[g_order],
-        edge_node=e_node[pp, ss].astype(np.int32),
-        edge_slot=(edge_slot << 1 | e_left[pp, ss]).astype(np.int32),
+        edge_node=edge_node.astype(np.int32),
+        edge_slot=(edge_slot << 1 | edge_left).astype(np.int32),
         bias=bias,
+        class_group_lo=np.asarray(group_lo, np.int32),
+        lane_path=np.concatenate(lane_path).astype(np.int32),
+        lane_slot=np.concatenate(lane_slot).astype(np.int32),
+        elem_edge_lo=elem_edge_lo.astype(np.int32),
+        elem_edge=(edge_node[by_elem] << 1 | edge_left[by_elem])
+        .astype(np.int32),
+        long_path=long_path.astype(np.int32),
+        class_long_lo=class_long_lo.astype(np.int32),
         max_elems=int(n_elem.max()) + 1,
-        max_edges=int(depth.max()))
+        max_edges=int(depth.max()),
+        class_groups=tuple(group_lo),
+        num_long=len(long_path),
+        max_feature=int(node_feat.max()))
+
+
+def _pack_lanes(lanes: np.ndarray):
+    """Best-fit decreasing of items of ``lanes`` lanes each (2..32) into
+    warp groups of 32 lanes (GPUTreeShap's packing), item sizes taken a
+    size at a time: the open groups with the fewest free lanes that still
+    hold an item first, each taking as many items of that size as fit.
+    Returns (group of each item, its first lane, number of groups)."""
+    n = len(lanes)
+    group = np.zeros(n, np.int64)
+    first = np.zeros(n, np.int64)
+    fill = np.zeros(n, np.int64)                 # lanes used, per group
+    free = [np.zeros(0, np.int64) for _ in range(WARP + 1)]
+    groups = 0
+
+    def place(items, bins, q, s):
+        """items[t] into bins[t // q] at the next free lanes; bins re-filed
+        by their free lanes."""
+        t = np.arange(len(items))
+        b = bins[t // q]
+        group[items] = b
+        first[items] = fill[b] + (t % q) * s
+        fill[bins] += np.bincount(t // q, minlength=len(bins)) * s
+        left = WARP - fill[bins]
+        for c in np.unique(left):
+            free[c] = np.concatenate([free[c], bins[left == c]])
+
+    order = np.argsort(-lanes, kind="stable")
+    sizes = lanes[order]
+    for s in np.unique(sizes)[::-1]:
+        items = order[sizes == s]
+        for c in range(int(s), WARP):
+            if not len(items):
+                break
+            if not len(free[c]):
+                continue
+            q = c // s
+            take = min(len(free[c]), -(-len(items) // q))
+            bins, free[c] = free[c][:take], free[c][take:]
+            cnt = min(len(items), take * q)
+            place(items[:cnt], bins, q, s)
+            items = items[cnt:]
+        if len(items):
+            q = WARP // s
+            new = groups + np.arange(-(-len(items) // q))
+            groups += len(new)
+            place(items, new, q, s)
+    return group, first, groups
 
 
 def to_device(p: ShapPaths, device: torch.device) -> ShapPaths:
@@ -253,12 +372,12 @@ def to_device(p: ShapPaths, device: torch.device) -> ShapPaths:
         if a.dtype == np.uint32:
             a = a.astype(np.int64)
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return ShapPaths(*(up(a) for a in p[:15]), p.max_elems, p.max_edges)
+    return ShapPaths(*(up(a) for a in p[:NUM_TABLES]), *p[NUM_TABLES:])
 
 
 def path_cap(max_elems: int) -> int:
-    """The smallest compiled cap that holds ``max_elems`` path elements;
-    a longer path raises, naming the cap."""
+    """The smallest cap of the long-path kernel that holds ``max_elems``
+    path elements; a longer path raises, naming the cap."""
     for cap in PATH_CAPS:
         if max_elems <= cap:
             return cap
@@ -424,28 +543,80 @@ def _kernel_lib() -> ctypes.CDLL:
             p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             lib.lg_tree_shap.argtypes = [
                 p, p, p, p, p, p,       # node feat/thr/flags/cat_lo/nw, bits
-                p, p, p, p,             # path value, elem/edge lo, class lo
-                p, p, p, p, p,          # elem feat/zero, edge node/slot, bias
-                p, i64, i64, i32,       # x, rows, features, classes
-                i32, i64, p, p, p]      # cap, blocks, scratch, phi, stream
+                p, p, p, p, p,          # class groups, lane path/slot, path
+                p, p, p, p,             # elem lo, value; elem feat/zero,
+                p, p, p, p, p, p,       # edge lo/codes; long paths/lo; path
+                p, i64, i32, i32,       # edge lo, edge node/slot; bias; x,
+                                        # rows, features, classes
+                i32, i32, i32, i32,     # warps, tile, groups/chunk, chunks
+                i32, i32,               # shared bytes, staged
+                i32, i64, p,            # long cap, blocks, scratch
+                p, p, p]                # workspace, phi, stream
             lib.lg_tree_shap.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def launch_plan(p: ShapPaths, rows: int, width: int) -> dict:
+    """Kernel S's launches for ``rows`` x ``width`` float64 rows: the
+    grouped kernel's block (``warps``) and row tile (``tile``, staged in
+    ``smem_bytes`` of shared memory with the warps' partials, unless
+    ``staged`` is False: one warp and one row a block adding straight into
+    its slice), its ``chunks`` (every class's warp groups cut
+    ``groups_per_chunk`` at a time), the long-path kernel's cap and
+    blocks; the ``passes`` of at most ``pass_rows`` rows (``row_tiles``
+    tiles) a batch runs in, a pass's workspace and scratch sizes (doubles)
+    and the CUDA launches of the whole call. What orders a row's sums
+    (warps, chunks) follows the forest and the width alone, so a row
+    gets the same bits in any batch."""
+    K = len(p.class_groups) - 1
+    G = p.class_groups[-1]
+    F = max(width, 1)
+    warps = WARPS_PER_BLOCK
+    tile = min(TILE_ROWS, SMEM_TARGET // ((warps + 1) * F * 8))
+    staged = tile >= 1 or (warps + 1) * F * 8 <= SMEM_MAX
+    if not staged:
+        warps = 1
+    per_chunk = max(1, -(-G // min(MAX_CHUNKS, max(1, -(-G // warps)))))
+    counts = np.diff(p.class_groups)
+    grouped = int((-(-counts // per_chunk)).sum())
+    if grouped > 65535:
+        raise ValueError(f"tree_shap: {grouped} path chunks exceed the "
+                         "grid's 65,535")
+    cap = path_cap(p.max_elems) if p.num_long else 0
+    slices = max(1, grouped + (K if cap else 0))
+    passes = -(-rows // max(1, min(rows, SCRATCH_BYTES // (slices * F * 8))))
+    pass_rows = -(-rows // passes) if passes else 0
+    tile = max(1, min(tile, pass_rows))
+    long_blocks = 0
+    if cap:
+        long_warps = min(pass_rows, SCRATCH_BYTES // (WARP * 8 * F))
+        long_blocks = max(1, long_warps // LONG_WARPS_PER_BLOCK)
+    return {"warps": warps, "tile": tile, "staged": staged,
+            "smem_bytes": (warps + 1) * tile * F * 8 if staged else 0,
+            "chunks": grouped, "groups_per_chunk": per_chunk,
+            "long_cap": cap, "long_blocks": long_blocks,
+            "passes": passes, "pass_rows": pass_rows,
+            "row_tiles": -(-pass_rows // tile),
+            "workspace": (grouped + (K if cap else 0)) * pass_rows * width,
+            "scratch": long_blocks * LONG_WARPS_PER_BLOCK * WARP * width,
+            "cuda_launches":
+                passes * (int(grouped > 0) + int(cap > 0) + 1)}
 
 
 def _check(x: torch.Tensor, p: ShapPaths) -> None:
     if x.dtype != torch.float64 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError("tree_shap expects contiguous float64 rows [N, F], "
                          f"got {x.dtype} {tuple(x.shape)}")
-    for name, a in zip(ShapPaths._fields[:15], p[:15]):
+    for name, a in zip(ShapPaths._fields[:NUM_TABLES], p[:NUM_TABLES]):
         if a.device != x.device:
             raise ValueError(f"tree_shap: table {name} is on {a.device}, "
                              f"rows on {x.device}")
         if not a.is_contiguous():
             raise ValueError(f"tree_shap: table {name} must be contiguous")
-    if p.node_feat.numel() and int(p.node_feat.max()) >= x.shape[1]:
+    if p.max_feature >= x.shape[1]:
         raise ValueError(f"rows have {x.shape[1]} features but the forest "
-                         f"splits on feature {int(p.node_feat.max())}")
+                         f"splits on feature {p.max_feature}")
 
 
 def tree_shap(x: torch.Tensor, p: ShapPaths) -> torch.Tensor:
@@ -453,38 +624,43 @@ def tree_shap(x: torch.Tensor, p: ShapPaths) -> torch.Tensor:
     [N, F]) under the forest ``p`` (:func:`to_device` on x's device): per
     class, one column per feature and the expected value last.
 
-    On a CUDA tensor this launches kernel S once on the current stream
-    (raising if the launch fails, or if a path is longer than its cap); on
-    a CPU tensor it runs the plain version."""
+    On a CUDA tensor this makes kernel S's launches on the current stream,
+    pass by pass (:func:`launch_plan`; raising if one fails, or if a path
+    is longer than the long-path kernel's cap) and counts one; on a CPU
+    tensor it runs the plain version."""
     if x.device.type == "cpu":
         return _tree_shap_reference(x, p)
     if x.device.type != "cuda":
         raise ValueError(f"tree_shap runs on cuda or cpu, not {x.device}")
     _check(x, p)
-    cap = path_cap(p.max_elems)
     N, F = x.shape
     K = int(p.bias.shape[0])
+    plan = launch_plan(p, N, F)
     phi = torch.empty((N, K, F + 1), dtype=torch.float64, device=x.device)
     if N == 0:
         return phi
-    warps = max(1, min(N, SCRATCH_BYTES // (32 * 8 * max(F, 1))))
-    blocks = -(-warps // WARPS_PER_BLOCK)
-    scratch = torch.empty(blocks * WARPS_PER_BLOCK * 32 * max(F, 1),
-                          dtype=torch.float64, device=x.device)
+    ws = torch.empty(plan["workspace"], dtype=torch.float64, device=x.device)
+    scratch = torch.empty(plan["scratch"], dtype=torch.float64,
+                          device=x.device)
     lib = _kernel_lib()
+    tables = [a.data_ptr() for a in (
+        p.node_feat, p.node_thr, p.node_flags, p.node_cat_lo, p.node_cat_nw,
+        p.cat_bits, p.class_group_lo, p.lane_path, p.lane_slot,
+        p.path_elem_lo, p.path_value, p.elem_feat, p.elem_zero,
+        p.elem_edge_lo, p.elem_edge, p.long_path, p.class_long_lo,
+        p.path_edge_lo, p.edge_node, p.edge_slot, p.bias)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.lg_tree_shap(
-            p.node_feat.data_ptr(), p.node_thr.data_ptr(),
-            p.node_flags.data_ptr(), p.node_cat_lo.data_ptr(),
-            p.node_cat_nw.data_ptr(), p.cat_bits.data_ptr(),
-            p.path_value.data_ptr(), p.path_elem_lo.data_ptr(),
-            p.path_edge_lo.data_ptr(), p.class_path_lo.data_ptr(),
-            p.elem_feat.data_ptr(), p.elem_zero.data_ptr(),
-            p.edge_node.data_ptr(), p.edge_slot.data_ptr(),
-            p.bias.data_ptr(), x.data_ptr(), N, F, K, cap, blocks,
-            scratch.data_ptr(), phi.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"tree_shap kernel launch failed (code {rc})")
+        for r0 in range(0, N, plan["pass_rows"]):
+            n = min(plan["pass_rows"], N - r0)
+            rc = lib.lg_tree_shap(
+                *tables, x[r0].data_ptr(), n, F, K, plan["warps"],
+                plan["tile"], plan["groups_per_chunk"], plan["chunks"],
+                plan["smem_bytes"], int(plan["staged"]), plan["long_cap"],
+                plan["long_blocks"], scratch.data_ptr(), ws.data_ptr(),
+                phi[r0].data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"tree_shap kernel launch failed (code {rc})")
     TREE_SHAP_LAUNCHES.add()
     return phi

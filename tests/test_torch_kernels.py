@@ -32,12 +32,18 @@ multiclass GOSS, the renewed L1 family, the log-link losses and weighted
 cross_entropy_lambda) equal the same on the CPU, and a 7-class model
 served on the card with early stop equals the scan oracle. TreeSHAP's
 kernel S equals its plain version at rtol 1e-9 / atol 1e-12 on numeric
-(NaN and zero rows), 3-class and categorical forests and on a
-16,384-leaf tree whose longest merged path is near the 256-element cap,
-reruns bit-identically and counts one launch a call; ``pred_leaf`` under
-the compiled engine on the card is one traversal launch and equals the
-tensor engine's leaves; ``predict_engine=tensor`` on the card serves the
-scan oracle's scores.
+(NaN and zero rows), 3-class and categorical forests, on one row, on
+255-leaf trees at MSLR-WEB30K's 136 features, at 4,000 features (the
+partials in the workspace, not shared memory), on a 16,384-leaf tree whose
+longest merged path is near the 256-element cap and on a forest mixing
+that tree with ordinary ones (the grouped and the long-path kernels in
+one call), reruns bit-identically and counts one launch a call; a row's
+contributions are ``torch.equal`` in any batch and whether the batch runs
+in one pass or several; S's division by a reciprocal equals ``/`` bit for
+bit on every divisor of its table and on arbitrary ones;
+``pred_leaf`` under the compiled engine on the card is one traversal
+launch and equals the tensor engine's leaves; ``predict_engine=tensor`` on
+the card serves the scan oracle's scores.
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -658,28 +664,50 @@ def _deep_tree(seed=0, features=255, leaves=16384):
 
 
 def _shap_case(kind):
-    """(trees, tree classes, classes, rows) for kernel S."""
+    """(trees, tree classes, classes, rows) for kernel S. "mixed": the
+    deep tree and ten ordinary 31-leaf trees, so that one call runs both
+    the grouped and the long-path kernels; "mslr": 255-leaf trees over
+    MSLR-WEB30K's 136 features; "wide": 4,000 features, too many for the
+    per-warp partials in shared memory."""
     rng = np.random.RandomState(4)
     if kind == "deep":
         return [_deep_tree()], [0], 1, synth.random_rows(rng, 16, 255)
+    if kind == "mixed":
+        trees = [_deep_tree()] + synth.random_trees(9, 10, 31, 255,
+                                                    grid_size=40)
+        return trees, [0] * 11, 1, synth.random_rows(rng, 16, 255)
     if kind == "multiclass":
         trees = synth.random_trees(6, 30, 31, 10, grid_size=40)
         return trees, [i % 3 for i in range(30)], 3, \
             synth.random_rows(rng, 300, 10)
-    text, trees, feats = _forest(kind)
-    return trees, [0] * len(trees), 1, _rows(kind, 300, feats, seed=4)
+    if kind == "mslr":
+        trees = synth.random_trees(8, 12, 255, 136, grid_size=60)
+        return trees, [0] * 12, 1, synth.random_rows(rng, 200, 136)
+    if kind == "wide":
+        trees = synth.random_trees(10, 6, 31, 4000, grid_size=20)
+        return trees, [0] * 6, 1, synth.random_rows(rng, 12, 4000)
+    text, trees, feats = _forest("numeric" if kind == "one_row" else kind)
+    rows = 1 if kind == "one_row" else 300
+    return trees, [0] * len(trees), 1, _rows(kind, rows, feats, seed=4)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["numeric", "multiclass", "categorical",
-                                  "deep"])
+                                  "deep", "one_row", "mslr", "mixed",
+                                  "wide"])
 def test_tree_shap_kernel_equals_plain_version(kind, cuda_device):
     from lambdagap_tpu_torch.models import shap
     trees, tc, K, X = _shap_case(kind)
     paths = shap.build_paths(trees, tc, K)
-    if kind == "deep":
-        assert 250 < paths.max_elems <= 256
-        assert np.count_nonzero(paths.path_value) == 1
+    plan = shap.launch_plan(paths, len(X), X.shape[1])
+    if kind in ("deep", "mixed"):
+        assert 250 < paths.max_elems <= 256 and paths.num_long >= 1
+        assert np.count_nonzero(paths.path_value) == 1 + 310 * (
+            kind == "mixed")
+        assert plan["cuda_launches"] == 3       # grouped, long, reduction
+    else:
+        assert plan["cuda_launches"] == 2 and plan["long_cap"] == 0
+    assert plan["staged"] == (kind != "wide")
     p = shap.to_device(paths, cuda_device)
     x = torch.from_numpy(X.astype(np.float64)).to(cuda_device)
     want = shap._tree_shap_reference(x, p)
@@ -690,12 +718,92 @@ def test_tree_shap_kernel_equals_plain_version(kind, cuda_device):
     assert shap.TREE_SHAP_LAUNCHES.launches == before + 2
     assert got.shape == (len(X), K, X.shape[1] + 1)
     assert torch.equal(got, again)
-    n = 2 if kind == "deep" else len(X)       # the CPU's deep walk is slow
+    n = 2 if kind in ("deep", "mixed") else len(X)   # slow on the CPU
     cpu = shap._tree_shap_reference(x[:n].cpu(), shap.to_device(paths, "cpu"))
     np.testing.assert_allclose(got[:n].cpu().numpy(), cpu.numpy(),
                                rtol=1e-9, atol=1e-12)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["numeric", "multiclass", "mixed"])
+def test_tree_shap_row_does_not_depend_on_its_batch(kind, cuda_device,
+                                                    monkeypatch):
+    """A row's contributions have the same bits alone, inside a batch and
+    in a batch cut into passes (a small workspace budget)."""
+    from lambdagap_tpu_torch.models import shap
+    trees, tc, K, X = _shap_case(kind)
+    paths = shap.build_paths(trees, tc, K)
+    p = shap.to_device(paths, cuda_device)
+    x = torch.from_numpy(X.astype(np.float64)).to(cuda_device)
+    full = shap.tree_shap(x, p)
+    for r in (0, 1, len(X) - 1):
+        assert torch.equal(shap.tree_shap(x[r:r + 1], p), full[r:r + 1])
+    slices = shap.launch_plan(paths, 1, X.shape[1])["chunks"] + K
+    monkeypatch.setattr(shap, "SCRATCH_BYTES", slices * X.shape[1] * 8 * 5)
+    plan = shap.launch_plan(paths, len(X), X.shape[1])
+    assert plan["passes"] > 1 and plan["pass_rows"] <= 5
+    assert torch.equal(shap.tree_shap(x, p), full)
+
+
+@pytest.mark.cuda
+def test_tree_shap_division_equals_ieee_division(cuda_device):
+    """Kernel S divides by a reciprocal refined once a divisor; the
+    quotient equals ``/`` bit for bit: every divisor of its table (1-32)
+    and arbitrary divisors (the quotient it divides by), over numerators
+    of every exponent, near multiples of the divisor, zeros, subnormals,
+    infinities and NaN."""
+    import ctypes
+    from lambdagap_tpu_torch.models import shap
+    lib = shap._kernel_lib()
+    vp = ctypes.c_void_p
+    lib.lg_tree_shap_div_check.argtypes = [vp, vp, ctypes.c_int64,
+                                           ctypes.c_int, vp, vp, vp]
+    lib.lg_tree_shap_div_check.restype = ctypes.c_int
+    rng = np.random.RandomState(11)
+
+    def bits(n):                # every float64 bit pattern, NaN included
+        w = rng.randint(0, 1 << 32, (2, n), dtype=np.uint64)
+        return (w[0] << np.uint64(32) | w[1]).view(np.float64)
+
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 5e-324,
+                        -5e-324, 2.2250738585072014e-308, 1.0,
+                        np.finfo(np.float64).max], np.float64)
+    table = np.arange(1, 33, dtype=np.float64)
+    nums = np.concatenate([
+        bits(1 << 14),
+        rng.rand(1 << 14), rng.rand(1 << 12) * 1e-300,
+        np.ldexp(rng.rand(1 << 12), rng.randint(-1074, -1000, 1 << 12)),
+        special])
+    near = np.outer(rng.randint(1, 1 << 20, 256).astype(np.float64), table)
+    near = np.concatenate([near, np.nextafter(near, 0), np.nextafter(
+        near, np.inf)]).ravel()
+    cases = [
+        (1, np.repeat(nums, 32), np.tile(table, len(nums))),
+        (1, near, np.tile(table, len(near) // 32)),
+        (0, np.repeat(nums, 32), np.tile(table, len(nums))),
+        (0, nums, bits(len(nums))),
+        (0, np.repeat(nums[:4096], len(special)),
+         np.tile(special, 4096)),
+        (0, rng.rand(1 << 14), rng.rand(1 << 14) * 10.0 ** rng.randint(
+            -300, 300, 1 << 14)),
+    ]
+    for positive, xs, ys in cases:
+        x = torch.from_numpy(np.ascontiguousarray(xs)).to(cuda_device)
+        y = torch.from_numpy(np.ascontiguousarray(ys)).to(cuda_device)
+        q, ref = torch.empty_like(x), torch.empty_like(x)
+        rc = lib.lg_tree_shap_div_check(
+            x.data_ptr(), y.data_ptr(), len(x), positive, q.data_ptr(),
+            ref.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        torch.cuda.synchronize()
+        assert torch.equal(q.view(torch.int64), ref.view(torch.int64))
+        with np.errstate(all="ignore"):
+            host = xs / ys
+        ok = ~np.isnan(host)
+        assert np.array_equal(ref.cpu().numpy()[ok].view(np.int64),
+                              host[ok].view(np.int64))
 
 
 @pytest.mark.cuda

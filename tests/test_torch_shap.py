@@ -145,7 +145,10 @@ def test_stump_and_zero_count_trees_give_expected_value_only():
 
 
 def test_path_cap_names_the_cap():
-    assert shap.path_cap(1) == 8 and shap.path_cap(256) == 256
+    # the long-path kernel's caps: only paths of more than 32 elements
+    # reach it
+    assert shap.path_cap(33) == 64 and shap.path_cap(65) == 128
+    assert shap.path_cap(256) == 256
     with pytest.raises(ValueError, match="at most 256"):
         shap.path_cap(257)
 
