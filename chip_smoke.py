@@ -25,15 +25,23 @@ Run from the root of a checkout. Phases, each fatal on failure:
    16,384-leaf trees: the node carries must be ``torch.equal``; the
    accumulation kernel against the plain leaf gather + forest-order loop
    on that forest and on a 3-class one, at 1, 97 and 4096 rows, early stop
-   off and on: ``torch.equal``; then both kernels' device times (CUDA
-   events, median of 30, L2 warm and flushed) and bounds, and
+   off and on: ``torch.equal``; the fused kernel (one launch: K3's walk,
+   the leaf values, the accumulation) against its plain version and
+   against K3 + A on every one of those forests and batches (the HIGGS and
+   3-class forests also at 8, 64 and 601 rows, early stop off and on, row
+   0 alone against row 0 in each batch): ``torch.equal``, its counters
+   zero after every launch; then the three kernels' device times
+   (CUDA events, median of 30, L2 warm and flushed) and bounds, the
+   parent's two-launch dispatch (K3 + A) beside the fused kernel, and
    ``CompiledForest.predict``'s host wall, at 1, 64, 256, 1024 and 4096
    rows;
 5. the serving path: ``Booster(model_str=...).as_server(raw_score=True)``
    on the card answers requests of 1..4096 rows from 4 threads, each
    answer ``array_equal`` to the port's scan oracle on the card; the launch
-   counts are zeroed just before and read just after, and every traversal
-   launch has its accumulation launch;
+   counts are zeroed just before and read just after, and every compiled
+   dispatch (a ``CompiledForest.predict`` call) made exactly one fused
+   launch, with no launch of K3 or the accumulation alone (so in every
+   served phase below);
 T2. the f32 histogram kernel (K1) against its plain version on the card at
    seven shapes (the HIGGS root, a leaf read at an offset inside its
    parent's slice with junk around it, u16 bins with a ragged count, count
@@ -70,7 +78,7 @@ T4. the example shape (16,000 x 20, 63 leaves, 30 rounds, validation set,
    quantized validation AUC within 0.02 of the f32 one;
 T5. the T3 model through ``model_to_string`` -> ``Booster(model_str=)`` ->
    ``as_server(raw_score=True)``: a burst, each answer ``array_equal`` to
-   the scan oracle on the card, one accumulation launch per K3 launch;
+   the scan oracle on the card, one fused launch per dispatch;
 T7. EFB: 200,000 rows of 8 dense features and 4 groups of 6 mutually
    exclusive sparse columns (bundles form, fewer columns than features),
    f32 and quantized, on the card and on the CPU at T4's bar, K1 and K2
@@ -119,7 +127,7 @@ T2 at T11's width: K1 against its plain version (``torch.equal``, rerun
 T11-serve. T11a's 7-class model served on the card, early stop off and on
    (a margin that stops some rows): each [rows, 7] answer ``array_equal``
    to the scan oracle, converted outputs its softmax at rtol 1e-6, one
-   accumulation launch per K3 launch;
+   fused launch per dispatch;
 T12. 16,000 x 20 with a 12-category column, 31 leaves, 10 rounds with a
    validation set and early stopping, on the card and on the CPU:
    multiclass, multiclassova, multiclass + GOSS, regression_l1 (also with
@@ -139,8 +147,9 @@ T14. the predict API on phase 3's forest, phase 5's rows and T3's and
    T11a's boosters: ``predict_engine=tensor`` predicts the 20,000 rows and
    serves phase 5's 240 requests ``array_equal`` to the scan oracle (its
    4,096-row host wall beside the compiled engine's); ``pred_leaf`` under
-   ``compiled`` on 4,096 rows, the count zeroed just before and read just
-   after: K3 launched, the ``[4096, 500]`` leaves ``array_equal`` to the
+   ``compiled`` on 4,096 rows, the counts zeroed just before and read just
+   after: K3 alone launched once and nothing else, the ``[4096, 500]``
+   leaves ``array_equal`` to the
    tensor and scan engines'; ``pred_contrib`` through ``Booster.predict``
    on the forest (4,096 rows), T3 (4,096 validation rows) and T11a (2,048
    rows x 7 classes), the count of kernel S zeroed just before and read
@@ -153,10 +162,11 @@ T14. the predict API on phase 3's forest, phase 5's rows and T3's and
    and long paths (``--only shap`` runs phases 1-3 and these checks
    alone); refit of T3's model on its 500,000 validation rows:
    ``decay_rate=1.0`` leaves every leaf as it was, 0.9 every leaf finite;
-6. the kernels line (one JSON object, seven entries; each entry's
+6. the kernels line (one JSON object, eight entries; each entry's
    ``max_abs_err`` the largest of its kernel's comparisons, T13's K1 in
-   ``hist_rows@covtype`` and T11c's K2 in ``hist_rows_q``; K3's launches
-   phase 5's and T14's) and, last, the device line.
+   ``hist_rows@covtype`` and T11c's K2 in ``hist_rows_q``; the fused
+   kernel's launches phase 5's, K3's phase 5's and T14's pred_leaf, the
+   accumulation's phase 5's, none) and, last, the device line.
 
 Needs one card; exits non-zero, printing no result, when there is none.
 Imports nothing of JAX nor of the JAX package.
@@ -371,6 +381,69 @@ def higgs_like(seed: int, n: int, f: int = F):
     return X, (z > 0.0).astype(np.float32)
 
 
+def fused_bound(x, tables, T: int, L: int, K: int, steps: int):
+    """The fused kernel's bound: the rows, the artifact's node tables, the
+    leaf table, the CSR of each group's trees, the tree classes and the
+    scores, each once (not the carry nor the workspace, which stay on the
+    chip's side of the bound); one f32 operation per decision step and per
+    (row, tree) add."""
+    import torch
+    R = x.shape[0]
+    G = int(tables.group_root.shape[0])
+    nbytes = x.numel() * 4 + sum(int(a.nbytes) for a in
+                                 tables.artifact_tables()
+                                 if isinstance(a, torch.Tensor))
+    nbytes += T * L * 4 + (G + 1) * 4 + T * 4 + T * 4 + K * R * 4
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = (steps + R * T) / H100_F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes)
+
+
+class Dispatches:
+    """Within the block: counts the compiled engine's dispatches (calls of
+    ``CompiledForest.predict``, from any thread) and zeroes the three
+    launch counters on entry; reads them on exit (``fused``, ``k3``,
+    ``acc``)."""
+
+    def __enter__(self):
+        from lambdagap_tpu_torch.infer import engine as eng
+        self.eng, self.calls, self.lock = eng, 0, threading.Lock()
+        self.orig = orig = eng.CompiledForest.predict
+
+        def counted(cf, x):
+            with self.lock:
+                self.calls += 1
+            return orig(cf, x)
+        eng.CompiledForest.predict = counted
+        for c in (eng.PREDICT_LAUNCHES, eng.TRAVERSE_LAUNCHES,
+                  eng.ACCUMULATE_LAUNCHES):
+            c.reset()
+        return self
+
+    def __exit__(self, *exc):
+        eng = self.eng
+        eng.CompiledForest.predict = self.orig
+        self.fused = eng.PREDICT_LAUNCHES.launches
+        self.k3 = eng.TRAVERSE_LAUNCHES.launches
+        self.acc = eng.ACCUMULATE_LAUNCHES.launches
+        return False
+
+    def check(self, tag: str) -> None:
+        """One fused launch per dispatch, and neither K3 alone (it serves
+        pred_leaf only) nor the accumulation alone."""
+        check(self.calls > 0 and self.fused == self.calls,
+              f"{tag}: {self.fused} fused launches for {self.calls} "
+              "compiled dispatches")
+        check(self.k3 == 0, f"{tag}: {self.k3} K3-alone launches")
+        check(self.acc == 0, f"{tag}: {self.acc} accumulation-alone "
+              "launches on the serve path")
+
+    def line(self) -> str:
+        return (f"{self.calls} dispatches, {self.fused} fused launches, "
+                f"K3 alone {self.k3}, accumulation alone {self.acc}")
+
+
 def acc_bound(R: int, G: int, T: int, L: int, K: int):
     """The accumulation's bound: the carry read once, the leaf table and
     the two [T] maps read once, the scores written once; one add per (row,
@@ -386,12 +459,13 @@ def acc_bound(R: int, G: int, T: int, L: int, K: int):
 # 4: the serving kernels (K3, the accumulation) against their plain versions
 # ---------------------------------------------------------------------------
 def serve_kernels_phase(seed: int, rng, dev, smi: str, art, cf):
-    """K3 and the accumulation kernel against their plain versions on the
-    card, ``torch.equal``: the HIGGS-width forest, a 70-category forest with
-    hostile values, two 16,384-leaf trees, a 3-class forest with early stop
-    off and on. Then both kernels' device times (L2 warm and flushed),
-    bounds, and the dispatch's host wall at 1, 64, 256, 1,024 and 4,096
-    rows."""
+    """K3, the accumulation kernel and the fused kernel against their plain
+    versions on the card, ``torch.equal``: the HIGGS-width forest, a
+    70-category forest with hostile values, two 16,384-leaf trees, a
+    3-class forest with early stop off and on. Then the kernels' device
+    times (L2 warm and flushed) and bounds, K3 + A's two launches beside
+    the fused kernel, and the dispatch's host wall at 1, 64, 256, 1,024
+    and 4,096 rows. Returns K3's, A's and the fused kernel's numbers."""
     import torch
     import lambdagap_tpu_torch as lgt
     from lambdagap_tpu_torch.convert import booster_from_numpy
@@ -484,9 +558,63 @@ def serve_kernels_phase(seed: int, rng, dev, smi: str, art, cf):
               f"{f.num_trees} trees) at 1, 97, 4096 rows, early stop off and "
               f"on (freq {3 * K}, margin 0.5: {stopped} of 4096 rows "
               "stopped)")
-    print(f"K3 launches in the comparisons: {eng.TRAVERSE_LAUNCHES.launches},"
-          f" accumulation launches {eng.ACCUMULATE_LAUNCHES.launches} (not "
-          f"counted below) ({time.perf_counter() - t0:.1f} s)")
+
+    # the fused kernel: every forest and batch K3 and A were held on, early
+    # stop off and on, against its plain version and against K3 + A
+    err["fused"] = 0.0
+
+    def fused_against_plain(tag, f, x, freq=0, margin=0.0):
+        t = f.tables
+        ref = eng._predict_forest_reference(
+            x, t, t.group_tree_lo, t.group_tree, f._leaf_value,
+            f._tree_class, f.num_class, freq, margin)
+        got = eng.predict_forest(x, t, t.group_tree_lo, t.group_tree,
+                                 f._leaf_value, f._tree_class, f.num_class,
+                                 freq, margin)
+        two = eng.accumulate_forest(eng.traverse_forest(x, t),
+                                    f._group_of_tree, f._leaf_value,
+                                    f._tree_class, f.num_class, freq, margin)
+        torch.cuda.synchronize()
+        check(got.shape == ref.shape, f"fused scores shape {got.shape}")
+        if ref.numel():
+            err["fused"] = max(err["fused"], float((got - ref).abs().max()))
+        check(torch.equal(got, ref) and torch.equal(got, two),
+              f"fused kernel != plain (or K3 + A) on the {tag} forest at "
+              f"{x.shape[0]} rows, early stop {freq} "
+              f"({int((got != ref).sum())} scores differ)")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        check(int(eng._counters[(dev.index, stream)].abs().sum()) == 0,
+              "fused kernel left a counter nonzero")
+        return got
+
+    frng = np.random.RandomState(seed + 9)   # phase 5's rows stay as they were
+    for name, f in (("HIGGS", cf), ("3-class", cf3)):
+        K = f.num_class
+        for n in (1, 8, 64, 97, 601, 4096):
+            x = torch.from_numpy(synth.random_rows(frng, n, F)).to(dev)
+            off = fused_against_plain(name, f, x)
+            on = fused_against_plain(name, f, x, 3 * K, 0.5)
+            if n == 4096:
+                check(not torch.equal(off, on), f"early stop never stopped "
+                      f"a row of the {name} forest (fused)")
+            check(torch.equal(fused_against_plain(name, f, x[:1]),
+                              off[:, :1]),
+                  f"fused: row 0 alone != row 0 in {n} rows ({name})")
+    for n in (8, 601, 4096):
+        fused_against_plain("categorical", ccf, torch.from_numpy(
+            synth.hostile_rows(frng, n, cfeats)).to(dev))
+    for n in (1, 64, 4096):
+        fused_against_plain("16,384-leaf", big, torch.from_numpy(
+            synth.random_rows(frng, n, F)).to(dev))
+    print(f"fused kernel == plain == K3 + A on the HIGGS and 3-class forests "
+          f"at 1, 8, 64, 97, 601, 4096 rows (early stop off and on; row 0 "
+          f"alone == row 0 in each batch), on the 70-category forest at 8, "
+          f"601, 4096 and the 16,384-leaf trees at 1, 64, 4096; counters "
+          f"zero after every launch")
+    print(f"launches in the comparisons: K3 {eng.TRAVERSE_LAUNCHES.launches},"
+          f" accumulation {eng.ACCUMULATE_LAUNCHES.launches}, fused "
+          f"{eng.PREDICT_LAUNCHES.launches} (not counted below) "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     # times: K3, the accumulation, the dispatch
     x4k = torch.from_numpy(synth.random_rows(rng, 4096, F)).to(dev)
@@ -504,7 +632,7 @@ def serve_kernels_phase(seed: int, rng, dev, smi: str, art, cf):
           f"{cuda_ms(lambda: one.add_(1)):.4f} ms [{smi}]")
     T, L = cf._leaf_value.shape
     G = int(tables.group_root.shape[0])
-    k3, acc = {}, {}
+    k3, acc, fused = {}, {}, {}
     for n in (1, 64, 256, 1024, 4096):
         xn = x4k[:n].contiguous()
         carry = eng.traverse_forest(xn, tables)
@@ -527,9 +655,22 @@ def serve_kernels_phase(seed: int, rng, dev, smi: str, art, cf):
               f"({a_by}: {a_bytes / 1e6:.2f} MB) [{smi}]")
         acc[n] = {"ms": a_ms, "cold_ms": a_cold, "bound_ms": a_bound,
                   "bound_by": a_by}
+        # the fused kernel, and the parent's two launches in the same call
+        f_ms, f_cold = warm_cold(lambda: cf.predict(xn))
+        two_ms, two_cold = warm_cold(lambda: eng._accumulate_forest(
+            eng.traverse_forest(xn, tables), cf._group_of_tree,
+            cf._leaf_value, cf._tree_class, 1, 0, 0.0))
+        f_bound, f_by, f_bytes = fused_bound(xn, tables, T, L, 1, steps)
+        print(f"fused kernel @{n} rows x {G} groups x {T} trees: {f_ms:.4f} "
+              f"ms (L2 warm) {f_cold:.4f} ms (L2 flushed); K3 + A, two "
+              f"launches: {two_ms:.4f} / {two_cold:.4f} ms; bound "
+              f"{f_bound:.4f} ms ({f_by}: {f_bytes / 1e6:.2f} MB, {steps} "
+              f"steps + {n * T} adds) [{smi}]")
+        fused[n] = {"ms": f_ms, "cold_ms": f_cold, "bound_ms": f_bound,
+                    "bound_by": f_by, "two_launch_ms": two_ms}
         print(f"CompiledForest.predict @{n} rows: "
               f"{wall_ms(lambda: cf.predict(xn)):.3f} ms (host wall incl. "
-              f"sync; two launches) [{smi}]")
+              f"sync; one launch) [{smi}]")
     carry = eng.traverse_forest(x4k, tables)
     k3[4096]["plain_ms"] = cuda_ms(
         lambda: eng._traverse_all_reference(x4k, tables), reps=20)
@@ -546,9 +687,17 @@ def serve_kernels_phase(seed: int, rng, dev, smi: str, art, cf):
           f"ms, gather + forest-order loop {acc[4096]['plain_ms']:.3f} ms "
           f"(device); the loop's host wall {loop_ms:.3f} ms @4096 rows, "
           f"{loop1_ms:.3f} ms @1 row (incl. sync) [{smi}]")
+    t = cf.tables
+    fused[4096]["plain_ms"] = cuda_ms(
+        lambda: eng._predict_forest_reference(
+            x4k, t, t.group_tree_lo, t.group_tree, cf._leaf_value,
+            cf._tree_class, 1, 0, 0.0), reps=10)
+    print(f"fused kernel's plain version @4096 rows: "
+          f"{fused[4096]['plain_ms']:.3f} ms (device) [{smi}]")
     k3[4096]["max_abs_err"] = err["k3"]
     acc[4096]["max_abs_err"] = err["acc"]
-    return k3, acc
+    fused[4096]["max_abs_err"] = err["fused"]
+    return k3, acc, fused
 
 
 # ---------------------------------------------------------------------------
@@ -1110,8 +1259,6 @@ def efb_phase(smi: str) -> None:
 def serve_trained_phase(bst, Xva, dev, smi: str, tag: str = "T5") -> None:
     import lambdagap_tpu_torch as lgt
     import torch
-    from lambdagap_tpu_torch.infer import (ACCUMULATE_LAUNCHES,
-                                           TRAVERSE_LAUNCHES)
     from lambdagap_tpu_torch.ops.predict import (forest_to_arrays,
                                                  predict_forest)
     text = bst.model_to_string()
@@ -1120,21 +1267,17 @@ def serve_trained_phase(bst, Xva, dev, smi: str, tag: str = "T5") -> None:
     data = np.ascontiguousarray(Xva[:20_000])
     plan = [((i * 977) % (len(data) - SIZES[i % len(SIZES)]),
              SIZES[i % len(SIZES)]) for i in range(REQUESTS)]
-    TRAVERSE_LAUNCHES.reset()
-    ACCUMULATE_LAUNCHES.reset()
-    with srv_bst.as_server(raw_score=True, workers=1) as server:
-        answers, secs = burst(server, data, plan)
-    k3, acc = TRAVERSE_LAUNCHES.launches, ACCUMULATE_LAUNCHES.launches
-    check(k3 > 0 and acc == k3, f"{tag} serve path: {k3} K3 launches, "
-          f"{acc} accumulation launches")
+    with Dispatches() as d:
+        with srv_bst.as_server(raw_score=True, workers=1) as server:
+            answers, secs = burst(server, data, plan)
+    d.check(f"{tag} serve path")
     forest, depth = forest_to_arrays(gb.models, device=dev)
     oracle = predict_forest(torch.from_numpy(data).to(dev), forest,
                             [0] * len(gb.models), 1, depth)[0].cpu().numpy()
     check_answers(answers, plan, oracle)
     print(f"{tag} served the trained model ({len(gb.models)} trees, "
           f"{len(text) / 1e6:.2f} MB of text): {REQUESTS} requests in "
-          f"{secs:.2f} s, each == scan oracle; K3 and accumulation "
-          f"launches {k3} each [{smi}]")
+          f"{secs:.2f} s, each == scan oracle; {d.line()} [{smi}]")
 
 
 # ---------------------------------------------------------------------------
@@ -1848,8 +1991,6 @@ def covtype_serve_phase(t11: dict, dev, smi: str) -> None:
     launches."""
     import torch
     import lambdagap_tpu_torch as lgt
-    from lambdagap_tpu_torch.infer import (ACCUMULATE_LAUNCHES,
-                                           TRAVERSE_LAUNCHES)
     from lambdagap_tpu_torch.ops.predict import (forest_to_arrays,
                                                  predict_forest)
     text = t11["bst"].model_to_string()
@@ -1874,13 +2015,10 @@ def covtype_serve_phase(t11: dict, dev, smi: str) -> None:
         want = oracle if not extra else predict_forest(
             x, forest, tc, K, depth, early_stop_freq=K,
             early_stop_margin=margin).T.cpu().numpy()
-        TRAVERSE_LAUNCHES.reset()
-        ACCUMULATE_LAUNCHES.reset()
-        with bst.as_server(raw_score=True, workers=1) as server:
-            answers, secs = burst(server, data, plan)
-        k3, acc = TRAVERSE_LAUNCHES.launches, ACCUMULATE_LAUNCHES.launches
-        check(k3 > 0 and acc == k3, f"T11-serve [{name}]: {k3} K3 launches,"
-              f" {acc} accumulation launches")
+        with Dispatches() as d:
+            with bst.as_server(raw_score=True, workers=1) as server:
+                answers, secs = burst(server, data, plan)
+        d.check(f"T11-serve [{name}]")
         check_answers(answers, plan, want)
         conv = bst.predict(data[:4096])
         z = want[:4096].astype(np.float64)
@@ -1895,8 +2033,8 @@ def covtype_serve_phase(t11: dict, dev, smi: str) -> None:
         print(f"T11-serve [{name}]: {len(gb.models)} trees (7 classes), "
               f"{REQUESTS} requests in {secs:.2f} s, each == scan oracle "
               f"([rows, 7] raw scores), converted == its softmax at rtol "
-              f"1e-6; K3 and accumulation launches {k3} each; {stopped} of "
-              f"{len(data)} rows stopped early [{smi}]")
+              f"1e-6; {d.line()}; {stopped} of {len(data)} rows stopped "
+              f"early [{smi}]")
 
 
 def objectives_card_vs_cpu_phase(smi: str) -> None:
@@ -2145,7 +2283,6 @@ def predict_phase(dev, smi: str, text: str, trees, data, plan, oracle,
     pred_leaf launches and kernel S's entry of the kernels line."""
     import torch
     import lambdagap_tpu_torch as lgt
-    from lambdagap_tpu_torch.infer import TRAVERSE_LAUNCHES
     from lambdagap_tpu_torch.models import shap
 
     # -- the tensor engine: predict and serve == the scan oracle ------------
@@ -2166,19 +2303,23 @@ def predict_phase(dev, smi: str, text: str, trees, data, plan, oracle,
     bc = lgt.Booster(model_str=text)
     x4k = data[:SHAP_ROWS]
     wall_t = wall_ms(lambda: bt.predict(x4k, raw_score=True), reps=5)
-    wall_c = wall_ms(lambda: bc.predict(x4k, raw_score=True), reps=5)
+    with Dispatches() as d:
+        wall_c = wall_ms(lambda: bc.predict(x4k, raw_score=True), reps=5)
+    d.check("T14 compiled predict")
     print(f"T14 tensor engine: {len(data)} rows (tiles of 64 trees) and "
           f"{len(plan)} requests served by one worker ({secs:.2f} s, one "
           f"tile of {T} trees) == scan oracle; host wall of a "
           f"{SHAP_ROWS}-row predict {wall_t:.2f} ms (compiled engine "
-          f"{wall_c:.3f} ms) ({time.perf_counter() - t0:.1f} s) [{smi}]")
+          f"{wall_c:.3f} ms: {d.line()}) ({time.perf_counter() - t0:.1f} "
+          f"s) [{smi}]")
 
     # -- pred_leaf under compiled: K3's carry (counts zeroed just before) ----
     t0 = time.perf_counter()
-    TRAVERSE_LAUNCHES.reset()
-    leaves = bc.predict(x4k, pred_leaf=True)
-    leaf_launches = TRAVERSE_LAUNCHES.launches
-    check(leaf_launches >= 1, "T14: pred_leaf never launched K3")
+    with Dispatches() as d:
+        leaves = bc.predict(x4k, pred_leaf=True)
+    leaf_launches = d.k3
+    check(leaf_launches == 1 and d.fused == 0 and d.acc == 0,
+          f"T14: pred_leaf made {d.line()}")
     check(leaves.shape == (SHAP_ROWS, T), f"T14: pred_leaf {leaves.shape}")
     check(np.array_equal(leaves, bt.predict(x4k, pred_leaf=True)),
           "T14: pred_leaf (K3) != the tensor engine's")
@@ -2351,9 +2492,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import lambdagap_tpu_torch as lgt
     from lambdagap_tpu_torch.convert import booster_from_numpy
-    from lambdagap_tpu_torch.infer import (ACCUMULATE_LAUNCHES,
-                                           TRAVERSE_LAUNCHES, CompiledForest,
-                                           compile_forest)
+    from lambdagap_tpu_torch.infer import CompiledForest, compile_forest
     from lambdagap_tpu_torch.infer import engine as eng
     from lambdagap_tpu_torch.models import shap, synth
     from lambdagap_tpu_torch.ops import hist_cuda
@@ -2455,7 +2594,7 @@ def main() -> int:
     # -- 4. K3 and the accumulation against their plain versions; times ----
     rng = np.random.RandomState(args.seed + 7)
     cf = CompiledForest(art, dev)
-    k3, acc = serve_kernels_phase(args.seed, rng, dev, smi, art, cf)
+    k3, acc, fused = serve_kernels_phase(args.seed, rng, dev, smi, art, cf)
     if args.only == "kernels":
         hist_phase(dev, args.seed + 11, smi)
         hist_q_phase(dev, args.seed + 12, smi)
@@ -2464,22 +2603,18 @@ def main() -> int:
 
     # -- 5. the main path ----------------------------------------------------
     data = synth.random_rows(rng, 20000, F)
-    TRAVERSE_LAUNCHES.reset()
-    ACCUMULATE_LAUNCHES.reset()
-    bst = lgt.Booster(model_str=text, params={"predict_engine": "compiled"})
-    server = bst.as_server(raw_score=True)
-    check(server.cache.device.type == "cuda", "server not on the card")
-    plan = [((i * 977) % (len(data) - SIZES[i % len(SIZES)]),
-             SIZES[i % len(SIZES)]) for i in range(REQUESTS)]
-    answers, serve_s = burst(server, data, plan)
-    snap = server.stats_snapshot()
-    conv = bst.predict(data[:4096])
-    server.close()
-    launches = TRAVERSE_LAUNCHES.launches
-    acc_launches = ACCUMULATE_LAUNCHES.launches
-    check(launches > 0, "the main path never launched the traversal kernel")
-    check(acc_launches == launches, f"the serve path made {acc_launches} "
-          f"accumulation launches for {launches} traversals")
+    with Dispatches() as d5:
+        bst = lgt.Booster(model_str=text,
+                          params={"predict_engine": "compiled"})
+        server = bst.as_server(raw_score=True)
+        check(server.cache.device.type == "cuda", "server not on the card")
+        plan = [((i * 977) % (len(data) - SIZES[i % len(SIZES)]),
+                 SIZES[i % len(SIZES)]) for i in range(REQUESTS)]
+        answers, serve_s = burst(server, data, plan)
+        snap = server.stats_snapshot()
+        conv = bst.predict(data[:4096])
+        server.close()
+    d5.check("phase 5 serve path")
 
     xall = torch.from_numpy(data).to(dev)
     forest, depth = forest_to_arrays(gb.models, device=dev)
@@ -2495,9 +2630,7 @@ def main() -> int:
           f"threads in {serve_s:.2f} s, each == scan oracle; latency p50 "
           f"{lat['p50']:.3f} ms p99 {lat['p99']:.3f} ms; "
           f"{snap['throughput_rows_per_s']:.0f} rows/s; "
-          f"{snap['batches']['count']} batches; K3 launches {launches}, "
-          f"accumulation launches {acc_launches} "
-          f"[{smi}]")
+          f"{snap['batches']['count']} batches; {d5.line()} [{smi}]")
 
     # -- 5b. the same burst per worker count; closed-loop one-row latency ----
     for workers in (1, 4):
@@ -2556,10 +2689,18 @@ def main() -> int:
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
+        "name": "predict_forest", "route": "cuda",
+        "source": "lambdagap_tpu_torch/csrc/traverse.cu",
+        "replaces": "lambdagap_tpu/infer/engine.py:68",
+        "launches": d5.fused,
+        "max_abs_err": fused[4096]["max_abs_err"],
+        "ms": fused[4096]["ms"], "plain_ms": fused[4096]["plain_ms"],
+        "bound_ms": fused[4096]["bound_ms"],
+        "bound_by": fused[4096]["bound_by"], "library_ms": None}, {
         "name": "traverse_forest", "route": "cuda",
         "source": "lambdagap_tpu_torch/csrc/traverse.cu",
         "replaces": "lambdagap_tpu/infer/engine.py:68",
-        "launches": launches + t14["leaf_launches"],
+        "launches": d5.k3 + t14["leaf_launches"],
         "max_abs_err": k3[4096]["max_abs_err"],
         "ms": k3[4096]["ms"], "plain_ms": k3[4096]["plain_ms"],
         "bound_ms": k3[4096]["bound_ms"], "bound_by": k3[4096]["bound_by"],
@@ -2567,7 +2708,7 @@ def main() -> int:
         "name": "accumulate_forest", "route": "cuda",
         "source": "lambdagap_tpu_torch/csrc/traverse.cu",
         "replaces": "lambdagap_tpu/infer/engine.py:181",
-        "launches": acc_launches,
+        "launches": d5.acc,
         "max_abs_err": acc[4096]["max_abs_err"],
         "ms": acc[4096]["ms"], "plain_ms": acc[4096]["plain_ms"],
         "bound_ms": acc[4096]["bound_ms"], "bound_by": acc[4096]["bound_by"],

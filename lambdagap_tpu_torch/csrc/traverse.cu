@@ -1,5 +1,8 @@
-// Compiled-forest traversal (K3) and forest-order accumulation for Hopper
-// (sm_90a): the two launches of one serve dispatch.
+// Compiled-forest prediction for Hopper (sm_90a): one serve dispatch is ONE
+// launch of `predict_kernel` (K3's walk with the forest-order accumulation
+// fused into its epilogue). K3 alone (`traverse_kernel`) serves pred_leaf;
+// the accumulation alone (`accumulate_kernel`) stays as the public
+// function over a carry and as the yardstick of the two-launch dispatch.
 //
 // K3 replaces lambdagap_tpu/infer/engine.py `_traverse_kernel` (:68-119),
 // the Pallas kernel that `_traverse_block` launches once per node block and
@@ -11,8 +14,8 @@
 // left iff its bit is set). The result is `~leaf` for each (row, group),
 // written group-major: out[g * rows + r], int32.
 //
-// The accumulation replaces the XLA work around that kernel in the same
-// file: `_leaf_values` (:159) and the `lax.scan` of `_accumulate`
+// The accumulation (A) replaces the XLA work around that kernel in the
+// same file: `_leaf_values` (:159) and the `lax.scan` of `_accumulate`
 // (:181-219). Tree t's leaf value leaf_value[t * L + ~carry[r, g(t)]] is
 // added into out[tree_class[t] * rows + r] in forest order, one f32 add
 // per tree, with the early-stop replay: after tree i with (i + 1) % freq
@@ -26,10 +29,11 @@
 // load costs about one L1 wavefront per lane, and the SMs' L1 wavefront
 // rate bounds the walk (12.5 M steps / 132 SMs ~ 48 us at ~2 GHz; PERF.md
 // section 6). At a few rows the walk is bound by latency instead: every
-// step waits on L2. The accumulation must read the carry and the leaf
-// table once and write the scores (8.7 MB, ~0.003 ms); it is bound by the
-// latency of its dependent gathers (group id -> carry -> leaf value) and
-// of a row's serial add chain.
+// step waits on L2. A alone must read the carry and the leaf table once
+// and write the scores (8.7 MB, ~0.003 ms), but was bound by latency: its
+// dependent gathers (group id -> carry -> leaf value), a row's serial add
+// chain, and, around it, a second launch and the carry's round trip
+// through memory.
 //
 // What the design does about it:
 //  - K3's nodes are 16-byte records, re-laid at upload so each group's
@@ -48,13 +52,28 @@
 //    steps broadcast one root record; each thread walks kRowsPerThread rows
 //    as independent chains, their loads in flight together; the numeric
 //    decision has no branches;
-//  - the carry is written group-major, so a warp's stores (and the
-//    accumulation's loads) are 128-byte coalesced;
-//  - the accumulation gives a row to one lane of warp 0 of its block, which
-//    alone adds into it, in forest order, so the order is the plain
-//    version's on every run. The other warps gather the next chunk of
-//    kChunk trees' leaf values (carry -> leaf, the chunk's group ids loaded
-//    a chunk ahead) into a second shared buffer meanwhile;
+//  - K3 alone writes the carry group-major, so a warp's stores (and A
+//    alone's loads) are 128-byte coalesced; A alone gives a row to one
+//    lane of warp 0 of its block, which adds into it in forest order
+//    while the other warps gather the next chunk of leaf values;
+//  - the fused kernel's epilogue turns each finished (row, group) into
+//    its trees' leaf values at once (the group's trees from a CSR built at
+//    upload, `group_tree_lo` / `group_tree`) and stores them into a
+//    [trees, rows rounded up to 32] workspace, a warp's stores 128-byte
+//    coalesced; the carry never goes to memory;
+//  - a row tile's walk blocks arrive on a counter (threadfence, then one
+//    atomicAdd); 8 accumulation blocks of 32 rows, which draw their
+//    tickets after every walk block has drawn its own, wait for their
+//    tile's count and add its rows over every tree in forest order,
+//    reading the workspace through L2 (__ldcg: a line another block wrote
+//    is never read from a stale L1). All 8 warps stage chunks of it into
+//    shared memory, the next chunk's loads in flight in registers, while
+//    a lane of warp 0 per row adds the current one in batches without a
+//    branch, so only the adds form a chain. The order of the sum is the
+//    forest's whichever block runs when: the scores are the scan oracle's
+//    bits on every run. The last accumulation block of a tile resets its
+//    counters and the last block to draw a ticket the ticket, so the
+//    counters (zeroed once at allocation) need no clearing launch;
 //  - one class's score lives in a register; more classes' scores live in
 //    shared memory;
 //  - built WITHOUT --use_fast_math, so the NaN test and the |v| <= 1e-35
@@ -62,7 +81,7 @@
 //    __float2int_rz, which saturates like XLA's convert (1e10 -> INT_MAX).
 //
 // Plain C interface for ctypes (no PyTorch headers): the wrappers are
-// `traverse_forest` and `accumulate_forest` in
+// `predict_forest`, `traverse_forest` and `accumulate_forest` in
 // lambdagap_tpu_torch/infer/engine.py.
 
 #include <cstdint>
@@ -136,11 +155,13 @@ __device__ __forceinline__ bool go_left(const int4 rec, const float v,
 // Walk groups [g0, g1) for the block's rows. A warp takes one (group, row
 // set) at a time: its lanes take different rows of the group,
 // kRowsPerThread each, as independent chains whose loads are in flight
-// together; the carries are stored together, 128-byte coalesced.
-template <bool kSmemRows>
+// together; `done(g, row0, r, node)` then takes the finished carries
+// (row0 + r[i] < rows are live): K3 stores them, the fused kernel turns
+// them into leaf values.
+template <bool kSmemRows, typename Done>
 __device__ __forceinline__ void walk_groups(const TraverseArgs a, int g0,
                                             int g1, const float* s_x,
-                                            int64_t row0) {
+                                            int64_t row0, const Done& done) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int stride = row_stride(a.width);
@@ -189,11 +210,36 @@ __device__ __forceinline__ void walk_groups(const TraverseArgs a, int g0,
         node[i] = node[i] < 0 ? node[i] : next;
       }
     }
+    done(g, row0, r, node);
+  }
+}
+
+// K3's epilogue: the carries, 128-byte coalesced stores.
+struct StoreCarry {
+  int32_t* out;  // [groups, rows]
+  int64_t rows;
+  __device__ __forceinline__ void operator()(
+      int g, int64_t row0, const int (&r)[kRowsPerThread],
+      const int32_t (&node)[kRowsPerThread]) const {
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
-      if (row0 + r[i] < a.rows) a.out[(int64_t)g * a.rows + row0 + r[i]] = node[i];
+      if (row0 + r[i] < rows) out[(int64_t)g * rows + row0 + r[i]] = node[i];
     }
   }
+};
+
+// Stage the row tile's features in shared memory (row stride odd).
+__device__ __forceinline__ void stage_rows(const TraverseArgs& a,
+                                           int64_t row0, float* s_x) {
+  const int w = a.width;
+  const int stride = row_stride(w);
+  const int live_rows = (int)min((int64_t)kBlockRows, a.rows - row0);
+  for (int i = threadIdx.x; i < live_rows * w; i += kThreads) {
+    const int r = i / w;
+    const int c = i - r * w;
+    s_x[r * stride + c] = __ldg(a.x + (row0 + r) * a.x_stride + c);
+  }
+  __syncthreads();
 }
 
 template <bool kSmemRows>
@@ -204,18 +250,8 @@ __global__ void __launch_bounds__(kThreads)
   const int g0 = blockIdx.y * kBlockGroups;
   const int g1 = min(g0 + kBlockGroups, a.groups);
   const int64_t row0 = (int64_t)blockIdx.x * kBlockRows;
-  if (kSmemRows) {
-    const int w = a.width;
-    const int stride = row_stride(w);
-    const int live_rows = (int)min((int64_t)kBlockRows, a.rows - row0);
-    for (int i = threadIdx.x; i < live_rows * w; i += kThreads) {
-      const int r = i / w;
-      const int c = i - r * w;
-      s_x[r * stride + c] = __ldg(a.x + (row0 + r) * a.x_stride + c);
-    }
-    __syncthreads();
-  }
-  walk_groups<kSmemRows>(a, g0, g1, s_x, row0);
+  if (kSmemRows) stage_rows(a, row0, s_x);
+  walk_groups<kSmemRows>(a, g0, g1, s_x, row0, StoreCarry{a.out, a.rows});
 }
 
 // ---- the accumulation ----------------------------------------------------
@@ -257,12 +293,13 @@ __device__ __forceinline__ void push_top2(float v, float& t1, float& t2) {
 }
 
 // Class scores of one row: one class in a register; more in shared
-// memory, lane-strided (this lane's class k at a[k * kAccRows]).
-template <bool kOneClass>
+// memory, strided by the rows a block adds at once (this thread's class k
+// at a[k * kStride], its row threadIdx.x % kStride).
+template <bool kOneClass, int kStride>
 struct Scores;
 
-template <>
-struct Scores<true> {
+template <int kStride>
+struct Scores<true, kStride> {
   float a;
   __device__ __forceinline__ void init(float*, int) { a = 0.0f; }
   __device__ __forceinline__ void add(int, float v) { a += v; }
@@ -275,24 +312,24 @@ struct Scores<true> {
   }
 };
 
-template <>
-struct Scores<false> {
+template <int kStride>
+struct Scores<false, kStride> {
   float* a;
   __device__ __forceinline__ void init(float* s, int K) {
-    a = s + (threadIdx.x & 31);
-    for (int j = 0; j < K; ++j) a[j * kAccRows] = 0.0f;
+    a = s + threadIdx.x % kStride;
+    for (int j = 0; j < K; ++j) a[j * kStride] = 0.0f;
   }
   __device__ __forceinline__ void add(int k, float v) {
-    a[k * kAccRows] += v;
+    a[k * kStride] += v;
   }
   __device__ __forceinline__ float margin(int K) const {
     float t1 = __int_as_float(0xff800000), t2 = t1;  // -inf
-    for (int j = 0; j < K; ++j) push_top2(a[j * kAccRows], t1, t2);
+    for (int j = 0; j < K; ++j) push_top2(a[j * kStride], t1, t2);
     return t1 - t2;
   }
   __device__ __forceinline__ void store(float* out, int64_t rows, int64_t r,
                                         int K) const {
-    for (int j = 0; j < K; ++j) out[j * rows + r] = a[j * kAccRows];
+    for (int j = 0; j < K; ++j) out[j * rows + r] = a[j * kStride];
   }
 };
 
@@ -377,7 +414,7 @@ __global__ void __launch_bounds__(kAccThreads)
   const int64_t row = (int64_t)blockIdx.x * kAccRows + lane;
   const int64_t rowc = row < a.rows ? row : a.rows - 1;
   const int64_t chunks = (a.trees + kChunk - 1) / kChunk;
-  Scores<kOneClass> sc;
+  Scores<kOneClass, kAccRows> sc;
   Maps m;
   if (warp == 0) {
     sc.init(s_scores, a.num_class);
@@ -414,6 +451,252 @@ __global__ void __launch_bounds__(kAccThreads)
   if (warp == 0 && row < a.rows) sc.store(a.out, a.rows, row, a.num_class);
 }
 
+// ---- the fused kernel: K3's walk, leaf values, the accumulation -----------
+// A row tile is group_tiles walk blocks and kAccBlocks accumulation blocks
+// of 32 rows. Each block draws a ticket (an atomic counter) when it starts
+// and takes the ticket's work: first every walk block, then every
+// accumulation block. An accumulation block waits until its tile's walk
+// blocks have all arrived; they drew smaller tickets, so they are already
+// running and never wait: the wait cannot deadlock, whatever order the
+// hardware starts blocks in, and no block waits while a walk still needs
+// its slot. It then adds its rows, a lane of warp 0 a row, in forest
+// order, while all 8 warps stage chunks of the workspace into shared
+// memory, the next chunk in flight in registers. A tile's 256 rows are
+// thus added on 8 SMs at once (one block adding them all measured 3x
+// slower at 4,096 rows: its SM's loads and instructions bound it).
+constexpr int kAccRowsFused = 32;  // rows of an accumulation block
+constexpr int kAccBlocks = kBlockRows / kAccRowsFused;
+constexpr int kAccChunk = 64;      // trees a chunk
+constexpr int kAccLoads = kAccChunk / kWarps;
+constexpr int kAddBatch = 8;       // shared loads issued ahead of their adds
+// a wait longer than this many polls (a 64 ns sleep and an L2 round trip
+// each: a second or more in all) gives up rather than hang the card; the
+// scores are then wrong, and the tests and chip_smoke.py compare every
+// score with the plain version's
+constexpr long long kMaxPolls = 1LL << 22;
+static_assert(kAccChunk * kAccRowsFused == kThreads * kAccLoads,
+              "a chunk is kAccLoads values a thread");
+
+struct PredictArgs {
+  TraverseArgs t;                 // the walk (t.out unused)
+  const int32_t* group_tree_lo;   // [groups + 1] CSR: a group's trees
+  const int32_t* group_tree;      // [trees], forest order within a group
+  const float* leaf_value;        // [trees, leaves]
+  int64_t leaves;
+  const int32_t* tree_class;      // [trees]
+  int64_t trees;
+  int num_class;
+  int es_freq;
+  float es_margin;
+  int group_tiles;
+  float* ws;                      // [trees, ws_stride] leaf values
+  int64_t ws_stride;              // rows rounded up to 32: a tree's 32
+  //                                 rows of an accumulation block are one
+  //                                 aligned 128-byte line
+  int32_t* counters;              // 0 between launches: the ticket,
+  //                                 then arrivals [row tiles], then the
+  //                                 finished accumulation blocks [row tiles]
+  float* out;                     // [num_class, rows]
+};
+
+// The fused epilogue: each finished (row, group) writes its group's trees'
+// leaf values (+0.0 for a carry that is not ~leaf, as the plain
+// where(done, v, 0)); for each tree the warp's 32 x kRowsPerThread stores
+// are 128-byte coalesced, and its kRowsPerThread leaf loads in flight
+// together.
+struct StoreLeafValues {
+  const int32_t* group_tree_lo;
+  const int32_t* group_tree;
+  const float* leaf_value;
+  int64_t leaves;
+  float* ws;
+  int64_t ws_stride;
+  int64_t rows;
+  __device__ __forceinline__ void operator()(
+      int g, int64_t row0, const int (&r)[kRowsPerThread],
+      const int32_t (&node)[kRowsPerThread]) const {
+    const int lo = __ldg(group_tree_lo + g);
+    const int hi = __ldg(group_tree_lo + g + 1);
+    for (int j = lo; j < hi; ++j) {
+      const int64_t t = __ldg(group_tree + j);
+      const float* lv = leaf_value + t * leaves;
+      float* w = ws + t * ws_stride + row0;
+      float v[kRowsPerThread];
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+        v[i] = node[i] < 0 ? __ldg(lv + ~node[i]) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+        if (row0 + r[i] < rows) __stcg(w + r[i], v[i]);
+    }
+  }
+};
+
+// The rows of one accumulation block: rows [rowa, rowa + nra), nra <= 32,
+// every tree added in forest order by lane r of warp 0 into row rowa + r,
+// the early-stop replay included (a stopped row adds +0.0, as the plain
+// version). With the rows rounded up to np = 1 << shift, a chunk is
+// kAccChunk x 32 / np trees (64 at 32 rows, 2,048 at one row), its value
+// (tree t, row r) at s_val[t * np + r]: thread i stages values i + 256 j,
+// row i % np of trees i / np + j * (256 / np).
+template <bool kOneClass>
+__device__ __forceinline__ void accumulate_rows(const PredictArgs& a,
+                                                int64_t rowa, int nra,
+                                                float* smem) {
+  constexpr int kStage = kAccChunk * kAccRowsFused;  // values a chunk
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int shift = 0;
+  while ((1 << shift) < nra) ++shift;
+  const int per = kStage >> shift;  // trees a chunk
+  const int rr = threadIdx.x & ((1 << shift) - 1);
+  const int tt = threadIdx.x >> shift;
+  const int step = kThreads >> shift;
+  const bool loads = rr < nra;
+  const int64_t T = a.trees;
+  const int64_t chunks = (T + per - 1) / per;
+  float* s_val = smem;  // [2][kStage]
+  const float* src = a.ws + rowa + rr;
+  float v[kAccLoads];
+  auto load = [&](int64_t c) {
+    const int64_t t0 = c * per + tt;
+#pragma unroll
+    for (int j = 0; j < kAccLoads; ++j) {
+      const int64_t t = t0 + j * step;
+      if (loads && t < T) v[j] = __ldcg(src + t * a.ws_stride);
+    }
+  };
+  auto stage = [&](int64_t c) {
+    float* dst = s_val + (c & 1) * kStage + threadIdx.x;
+#pragma unroll
+    for (int j = 0; j < kAccLoads; ++j)
+      if (loads) dst[j * kThreads] = v[j];
+  };
+  Scores<kOneClass, kAccRowsFused> sc;
+  if (warp == 0) sc.init(smem + 2 * kStage, a.num_class);
+  bool stopped = false;
+  int until = a.es_freq;
+  load(0);
+  stage(0);
+  __syncthreads();
+  if (chunks > 1) load(1);
+  for (int64_t c = 0; c < chunks; ++c) {
+    if (warp == 0 && lane < nra) {
+      const float* sv = s_val + (c & 1) * kStage + lane;
+      const int64_t t0 = c * per;
+      const int n = T - t0 < per ? (int)(T - t0) : per;
+      // the adds between two early-stop checks run without a branch, their
+      // shared loads issued kAddBatch at a time ahead of them
+      for (int tl = 0; tl < n;) {
+        int seg = n - tl;
+        if (a.es_freq > 0 && until < seg) seg = until;
+        int j = tl;
+        for (; j + kAddBatch <= tl + seg; j += kAddBatch) {
+          float x[kAddBatch];
+#pragma unroll
+          for (int i = 0; i < kAddBatch; ++i) x[i] = sv[(j + i) << shift];
+#pragma unroll
+          for (int i = 0; i < kAddBatch; ++i)
+            sc.add(kOneClass ? 0 : __ldg(a.tree_class + t0 + j + i),
+                   stopped ? 0.0f : x[i]);
+        }
+        for (; j < tl + seg; ++j)
+          sc.add(kOneClass ? 0 : __ldg(a.tree_class + t0 + j),
+                 stopped ? 0.0f : sv[j << shift]);
+        tl += seg;
+        if (a.es_freq > 0 && (until -= seg) == 0) {
+          until = a.es_freq;
+          stopped = stopped || sc.margin(a.num_class) > a.es_margin;
+        }
+      }
+    }
+    if (c + 1 < chunks) {
+      stage(c + 1);
+      if (c + 2 < chunks) load(c + 2);
+    }
+    __syncthreads();
+  }
+  if (warp == 0 && lane < nra)
+    sc.store(a.out, a.t.rows, rowa + lane, a.num_class);
+}
+
+// dynamic shared memory of the fused kernel: a walk block's row tile
+// features, or an accumulation block's two chunks and (more than one
+// class) its class scores
+__host__ __device__ constexpr size_t tail_smem_bytes(int num_class) {
+  return sizeof(float) *
+         (2 * kAccChunk * kAccRowsFused +
+          (num_class > 1 ? (size_t)num_class * kAccRowsFused : 0));
+}
+
+template <bool kSmemRows, bool kOneClass>
+__global__ void __launch_bounds__(kThreads)
+    predict_kernel(const PredictArgs args) {
+  extern __shared__ float smem[];
+  __shared__ int s_ticket;
+  const PredictArgs a = args;  // a local copy, as in accumulate_kernel
+  int32_t* ticket = a.counters;
+  if (threadIdx.x == 0) {
+    const int mine = atomicAdd(ticket, 1);
+    // every block has drawn its ticket: ready for the next launch
+    if (mine == (int)gridDim.x - 1) atomicExch(ticket, 0);
+    s_ticket = mine;
+  }
+  __syncthreads();
+  // tickets: every walk block (row tile by row tile), then every
+  // accumulation block
+  const int64_t row_tiles = (a.t.rows + kBlockRows - 1) / kBlockRows;
+  const int64_t walks = row_tiles * a.group_tiles;
+  int64_t tile;
+  int item;  // < group_tiles: a group tile; else an accumulation block
+  if (s_ticket < walks) {
+    tile = s_ticket / a.group_tiles;
+    item = (int)(s_ticket - tile * a.group_tiles);
+  } else {
+    tile = (s_ticket - walks) / kAccBlocks;
+    item = a.group_tiles + (int)(s_ticket - walks - tile * kAccBlocks);
+  }
+  int32_t* arrivals = a.counters + 1 + tile;
+  int32_t* finished = a.counters + 1 + row_tiles + tile;
+  const int64_t row0 = tile * kBlockRows;
+  if (item < a.group_tiles) {  // a walk block
+    const int g0 = item * kBlockGroups;
+    const int g1 = min(g0 + kBlockGroups, a.t.groups);
+    if (kSmemRows) stage_rows(a.t, row0, smem);
+    walk_groups<kSmemRows>(
+        a.t, g0, g1, smem, row0,
+        StoreLeafValues{a.group_tree_lo, a.group_tree, a.leaf_value, a.leaves,
+                        a.ws, a.ws_stride, a.t.rows});
+    // every thread's workspace stores reach L2 before the block arrives
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) atomicAdd(arrivals, 1);
+    return;
+  }
+  // an accumulation block: rows [rowa, rowa + nra) of the tile
+  const int64_t rowa = row0 + (int64_t)(item - a.group_tiles) * kAccRowsFused;
+  const int64_t left = a.t.rows - rowa;
+  const int nra = left <= 0 ? 0 : (left < kAccRowsFused ? (int)left : kAccRowsFused);
+  if (nra > 0) {
+    if (threadIdx.x == 0) {
+      for (long long polls = 0;
+           atomicAdd(arrivals, 0) < a.group_tiles && polls < kMaxPolls;
+           ++polls)
+        __nanosleep(64);
+      __threadfence();
+    }
+    __syncthreads();
+    accumulate_rows<kOneClass>(a, rowa, nra, smem);
+  }
+  if (threadIdx.x == 0) {
+    // the tile's last accumulation block to finish resets its counters
+    if (atomicAdd(finished, 1) == kAccBlocks - 1) {
+      atomicExch(arrivals, 0);
+      atomicExch(finished, 0);
+    }
+  }
+}
+
 // Let the kernel take up to the device's opt-in shared memory. No carveout
 // preference: the CUDA runtime sizes shared memory to the launch, so K3,
 // which asks for at most kRowSmemBytes, keeps the rest of the SM's 256 KB
@@ -430,10 +713,10 @@ cudaError_t raise_smem_limit(Kernel kernel, int max_smem) {
 
 }  // namespace
 
-// Raise the accumulation kernels' dynamic shared-memory limit to the
-// device's opt-in maximum (less their static shared memory; K3 stays under
-// the default 48 KB); once per device, before the first launch. Returns
-// that maximum (bytes), or minus the cudaError_t.
+// Raise the accumulation's and the fused kernels' dynamic shared-memory
+// limit to the device's opt-in maximum (less their static shared memory;
+// K3 stays under the default 48 KB); once per device, before the first
+// launch. Returns that maximum (bytes), or minus the cudaError_t.
 extern "C" int lg_traverse_setup(void) {
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -444,6 +727,14 @@ extern "C" int lg_traverse_setup(void) {
     err = raise_smem_limit(accumulate_kernel<true>, max_smem);
   if (err == cudaSuccess)
     err = raise_smem_limit(accumulate_kernel<false>, max_smem);
+  if (err == cudaSuccess)
+    err = raise_smem_limit(predict_kernel<true, true>, max_smem);
+  if (err == cudaSuccess)
+    err = raise_smem_limit(predict_kernel<true, false>, max_smem);
+  if (err == cudaSuccess)
+    err = raise_smem_limit(predict_kernel<false, true>, max_smem);
+  if (err == cudaSuccess)
+    err = raise_smem_limit(predict_kernel<false, false>, max_smem);
   return err == cudaSuccess ? max_smem : -(int)err;
 }
 
@@ -519,5 +810,76 @@ extern "C" int lg_accumulate_forest(
   else
     accumulate_kernel<false>
         <<<grid, kAccThreads, acc_smem_bytes(num_class), s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// One dispatch in one launch: K3's walk over every group, the leaf values
+// into ws [trees, ws_stride] (ws_stride: rows rounded up to 32), and the
+// forest-order accumulation into out [num_class, rows] by each row tile's
+// accumulation blocks. counters holds at least 1 + 2 ceil(rows / 256)
+// zeros and is left zeroed; no other launch may use it at the same time.
+// Returns 0 on success, otherwise the cudaError_t of the launch.
+extern "C" int lg_predict_forest(
+    const float* x, int64_t rows, int64_t x_stride, int width,
+    const void* recs, const int32_t* group_node_lo, const int32_t* group_root,
+    const int32_t* group_steps, int64_t groups, const uint32_t* cat_tab,
+    int cat_words, const int32_t* group_tree_lo, const int32_t* group_tree,
+    const float* leaf_value, int64_t leaves, const int32_t* tree_class,
+    int64_t trees, int num_class, int es_freq, float es_margin, float* ws,
+    int64_t ws_stride, int32_t* counters, float* out, void* stream) {
+  if (rows == 0) return 0;
+  if (groups == 0 || trees == 0 || num_class < 1 || ws_stride < rows ||
+      ws_stride % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t row_tiles = (rows + kBlockRows - 1) / kBlockRows;
+  const int64_t group_tiles = (groups + kBlockGroups - 1) / kBlockGroups;
+  if (row_tiles * (group_tiles + kAccBlocks) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  const int64_t row_bytes =
+      (int64_t)kBlockRows * row_stride(width) * (int64_t)sizeof(float);
+  const bool smem_rows = row_bytes <= kRowSmemBytes;
+  const size_t tail = tail_smem_bytes(num_class);
+  const size_t smem =
+      smem_rows && (size_t)row_bytes > tail ? (size_t)row_bytes : tail;
+  PredictArgs a;
+  a.t.x = x;
+  a.t.rows = rows;
+  a.t.x_stride = x_stride;
+  a.t.width = width;
+  a.t.recs = static_cast<const int4*>(recs);
+  a.t.group_node_lo = group_node_lo;
+  a.t.group_root = group_root;
+  a.t.group_steps = group_steps;
+  a.t.groups = (int)groups;
+  a.t.cat_tab = cat_tab;
+  a.t.cat_words = cat_words;
+  a.t.out = nullptr;
+  a.group_tree_lo = group_tree_lo;
+  a.group_tree = group_tree;
+  a.leaf_value = leaf_value;
+  a.leaves = leaves;
+  a.tree_class = tree_class;
+  a.trees = trees;
+  a.num_class = num_class;
+  a.es_freq = es_freq;
+  a.es_margin = es_margin;
+  a.group_tiles = (int)group_tiles;
+  a.ws = ws;
+  a.ws_stride = ws_stride;
+  a.counters = counters;
+  a.out = out;
+  const unsigned grid = (unsigned)(row_tiles * (group_tiles + kAccBlocks));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (smem_rows) {
+    if (num_class == 1)
+      predict_kernel<true, true><<<grid, kThreads, smem, s>>>(a);
+    else
+      predict_kernel<true, false><<<grid, kThreads, smem, s>>>(a);
+  } else {
+    if (num_class == 1)
+      predict_kernel<false, true><<<grid, kThreads, smem, s>>>(a);
+    else
+      predict_kernel<false, false><<<grid, kThreads, smem, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }

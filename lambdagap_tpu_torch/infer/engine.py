@@ -2,20 +2,28 @@
 
 The port of ``lambdagap_tpu/infer/engine.py``: runs the serving-shaped
 artifact :mod:`lambdagap_tpu_torch.infer.compile` emits. A dispatch on the
-card is two hand-written CUDA kernels (``csrc/traverse.cu``):
+card is ONE launch of a hand-written CUDA kernel (``csrc/traverse.cu``),
+wrapper :func:`predict_forest`, which fuses:
 
-- the traversal — the JAX package's Pallas ``_traverse_kernel`` — wrapper
-  :func:`traverse_forest`: the ``[rows, groups]`` node carry of every row
-  through every structure group. At upload (:func:`device_tables`) each
-  group's nodes are re-laid contiguously as 16-byte records (threshold
-  decoded from the palette, ``feature << 4 | flags``, left, right); the
+- the traversal — the JAX package's Pallas ``_traverse_kernel`` (K3): the
+  node carry of every row through every structure group. At upload
+  (:func:`device_tables`) each group's nodes are re-laid contiguously as
+  16-byte records (threshold decoded from the palette, ``feature << 4 |
+  flags``, left, right), and the trees of each group are listed in a CSR
+  (``group_tree_lo`` / ``group_tree``, forest order within a group); the
   artifact itself is not touched;
 - the forest-order accumulation — the JAX package's ``_leaf_values`` and
-  ``lax.scan`` ``_accumulate``, XLA work around the Pallas kernel — wrapper
-  :func:`accumulate_forest`: per-tree leaf values gathered through the
-  compile-time ``group_of_tree`` map, one f32 add per tree into
-  ``out[tree_class[t]]`` in forest order, with the identical early-stop
-  replay.
+  ``lax.scan`` ``_accumulate``, XLA work around the Pallas kernel (A):
+  each finished (row, group) writes its trees' leaf values into a
+  ``[trees, rows]`` workspace, and once a row tile's walk blocks have all
+  arrived, its accumulation blocks (32 rows each, started after every walk
+  block) add them in forest order into ``out[tree_class[t]]``, with the
+  identical early-stop replay.
+
+K3 alone (:func:`traverse_forest`, one launch) serves ``pred_leaf``; the
+accumulation alone (:func:`accumulate_forest`) remains the public function
+over a carry, and the pair is the two-launch dispatch of before, kept as a
+yardstick; neither is on the serve path.
 
 Bit-exactness contract (the JAX package's): traversal only computes leaf
 INDICES — any correct traversal yields the same ones — and the
@@ -25,10 +33,11 @@ and the JAX package's ``lax.scan``), so the scores are the oracle's bits.
 order and are not used.
 
 On a CUDA tensor each wrapper launches its kernel or raises; only a CPU
-tensor takes the plain version (:func:`_traverse_all_reference`, block by
-block like the JAX package's ``_traverse_all``; :func:`_leaf_values` +
-:func:`_accumulate`, ~T small torch ops). ``PackedForests`` and linear
-leaves wait for later slices.
+tensor takes the plain version (:func:`_predict_forest_reference`: the
+records walk, the workspace through the CSR, :func:`_accumulate`;
+:func:`_traverse_all_reference`, block by block like the JAX package's
+``_traverse_all``; :func:`_leaf_values` + :func:`_accumulate`, ~T small
+torch ops). ``PackedForests`` and linear leaves wait for later slices.
 """
 from __future__ import annotations
 
@@ -52,7 +61,11 @@ MAX_WIDTH = 1 << 28
 class LaunchCounter:
     """A plain count of kernel launches, thread-safe (serve workers launch
     concurrently). The wrapper adds one where it launches its kernel and
-    nowhere else, so a run can show the main path went through it."""
+    nowhere else, so a run can show the main path went through it:
+    ``PREDICT_LAUNCHES`` (the fused dispatch, :func:`predict_forest`),
+    ``TRAVERSE_LAUNCHES`` (K3 alone, :func:`traverse_forest`) and
+    ``ACCUMULATE_LAUNCHES`` (the accumulation alone,
+    :func:`accumulate_forest`)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -67,6 +80,7 @@ class LaunchCounter:
             self.launches = 0
 
 
+PREDICT_LAUNCHES = LaunchCounter()
 TRAVERSE_LAUNCHES = LaunchCounter()
 ACCUMULATE_LAUNCHES = LaunchCounter()
 
@@ -79,7 +93,9 @@ class ForestTables(NamedTuple):
     block directory. The kernel reads ``rec``: every node as one 16-byte
     record, each structure group's nodes contiguous in breadth-first order
     with group-local child ids (leaf entries ``~leaf`` unchanged), indexed
-    by ``group_node_lo``."""
+    by ``group_node_lo``; and the inverse of ``group_of_tree``: group g's
+    trees are ``group_tree[group_tree_lo[g]:group_tree_lo[g + 1]]``, in
+    forest order."""
     feat: torch.Tensor           # u16/u32 [n]
     thr: torch.Tensor            # u8/u16/u32 [n] palette code into thr_tab
     flags: torch.Tensor          # u8 [n]
@@ -94,6 +110,8 @@ class ForestTables(NamedTuple):
     group_node_lo: torch.Tensor  # i32 [G + 1] first record of each group
     group_root: torch.Tensor     # i32 [G] 0, or ~leaf for a stump
     group_steps: torch.Tensor    # i32 [G] levels of the group's own tree
+    group_tree_lo: torch.Tensor  # i32 [G + 1] CSR of each group's trees
+    group_tree: torch.Tensor     # i32 [T]
     block_node_lo: Tuple[int, ...]
     block_group_lo: Tuple[int, ...]
     depths: Tuple[int, ...]
@@ -166,11 +184,26 @@ def node_records(b: Dict[str, np.ndarray]) -> Tuple[np.ndarray, ...]:
             group_root.astype(np.int32), steps.astype(np.int32))
 
 
+def group_trees(group_of_tree: np.ndarray,
+                groups: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The inverse of ``group_of_tree`` as a CSR, ``(group_tree_lo [G + 1],
+    group_tree [T])`` int32: group g's trees in forest order. Every tree
+    appears once; a group of no tree is empty. Raises ValueError for a
+    tree mapped outside ``[0, groups)``."""
+    gof = np.asarray(group_of_tree, np.int64)
+    if gof.size and (gof.min() < 0 or gof.max() >= groups):
+        raise ValueError(f"group_of_tree holds groups {gof.min()}.."
+                         f"{gof.max()}; the forest has {groups}")
+    lo = np.concatenate([[0], np.cumsum(np.bincount(gof, minlength=groups))])
+    return (lo.astype(np.int32),
+            np.argsort(gof, kind="stable").astype(np.int32))
+
+
 def device_tables(artifact: ForestArtifact,
                   device: torch.device) -> ForestTables:
     """Upload an artifact's node tables once (the analog of the JAX
-    package's ``_device_blocks``), with the kernel's node records beside
-    them."""
+    package's ``_device_blocks``), with the kernel's node records and the
+    CSR of each group's trees beside them."""
     width = int(artifact.meta["width"])
     if width >= MAX_WIDTH:
         raise NotImplementedError(
@@ -178,6 +211,7 @@ def device_tables(artifact: ForestArtifact,
             f"forest reads {width} features")
     b = artifact.buffers
     rec, gnl, groot, gsteps = node_records(b)
+    gtl, gt = group_trees(b["group_of_tree"], groot.shape[0])
 
     def up(a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -190,6 +224,7 @@ def device_tables(artifact: ForestArtifact,
         cat_tab=up(np.asarray(b["cat_table"], np.uint32)),
         root=up(b["root"]), rec=up(rec), group_node_lo=up(gnl),
         group_root=up(groot), group_steps=up(gsteps),
+        group_tree_lo=up(gtl), group_tree=up(gt),
         block_node_lo=tuple(int(v) for v in np.asarray(b["block_node_lo"])),
         block_group_lo=tuple(int(v) for v in
                              np.asarray(b["block_group_lo"])),
@@ -320,6 +355,32 @@ def _accumulate(vals: torch.Tensor, tree_class: Sequence[int],
     return out
 
 
+def _predict_forest_reference(x: torch.Tensor, t: ForestTables,
+                              group_tree_lo: torch.Tensor,
+                              group_tree: torch.Tensor,
+                              leaf_value: torch.Tensor,
+                              tree_class: torch.Tensor, num_class: int,
+                              early_stop_freq: int,
+                              early_stop_margin: float) -> torch.Tensor:
+    """The fused kernel's phases in plain torch ops -> [num_class, R] f32:
+    the records walk (:func:`_traverse_records_reference`), each group's
+    trees' leaf values into the ``[T, R]`` workspace through the CSR (+0.0
+    for a carry that is not ``~leaf``), then :func:`_accumulate`."""
+    node = _traverse_records_reference(x, t).long()    # [R, G]
+    T, L = leaf_value.shape
+    lo = group_tree_lo.long()
+    owner = torch.repeat_interleave(
+        torch.arange(lo.shape[0] - 1, device=x.device), lo.diff())
+    trees = group_tree.long()
+    nodeT = node[:, owner].T                           # [T, R] by CSR slot
+    done = nodeT < 0
+    vals = leaf_value[trees[:, None], torch.where(done, ~nodeT, 0)]
+    ws = torch.empty((T, x.shape[0]), dtype=torch.float32, device=x.device)
+    ws[trees] = torch.where(done, vals, 0.0)
+    return _accumulate(ws.T, tree_class.tolist(), num_class,
+                       early_stop_freq, early_stop_margin)
+
+
 # ---------------------------------------------------------------------------
 # the kernel wrappers
 # ---------------------------------------------------------------------------
@@ -353,6 +414,17 @@ def _kernel_lib(dev: torch.device) -> ctypes.CDLL:
                 i32, ctypes.c_float,    # early-stop freq, margin
                 p, p]                   # out [K, R], stream
             lib.lg_accumulate_forest.restype = ctypes.c_int
+            lib.lg_predict_forest.argtypes = [
+                p, i64, i64, i32,       # x, rows, x_stride, width
+                p, p, p, p, i64,        # rec, group_node_lo, root, steps, G
+                p, i32,                 # cat_tab, cat_words
+                p, p, p, i64,           # group_tree_lo, group_tree,
+                #                         leaf_value, leaves
+                p, i64, i32,            # tree_class, trees, num_class
+                i32, ctypes.c_float,    # early-stop freq, margin
+                p, i64,                 # ws, its row stride
+                p, p, p]                # counters, out, stream
+            lib.lg_predict_forest.restype = ctypes.c_int
             _lib = lib
         if dev.index not in _ready_devices:
             with torch.cuda.device(dev):
@@ -364,16 +436,16 @@ def _kernel_lib(dev: torch.device) -> ctypes.CDLL:
         return _lib
 
 
-def _check_tables(x: torch.Tensor, t: ForestTables) -> None:
+def _check_tables(x: torch.Tensor, t: ForestTables,
+                  who: str = "traverse_forest") -> None:
     for name in ("rec", "group_node_lo", "group_root", "group_steps",
                  "cat_tab"):
         a = getattr(t, name)
         if a.device != x.device:
-            raise ValueError(f"traverse_forest: table {name} is on "
-                             f"{a.device}, rows on {x.device}")
+            raise ValueError(f"{who}: table {name} is on {a.device}, rows "
+                             f"on {x.device}")
         if not a.is_contiguous():
-            raise ValueError(f"traverse_forest: table {name} must be "
-                             "contiguous")
+            raise ValueError(f"{who}: table {name} must be contiguous")
         want = torch.uint32 if name == "cat_tab" else torch.int32
         if a.dtype != want:
             raise TypeError(f"table {name} must be {want}, got {a.dtype}")
@@ -381,8 +453,8 @@ def _check_tables(x: torch.Tensor, t: ForestTables) -> None:
         raise ValueError(f"node records must be [n, 4], got "
                          f"{tuple(t.rec.shape)}")
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
-        raise ValueError("traverse_forest expects contiguous f32 rows "
-                         f"[R, F], got {x.dtype} {tuple(x.shape)}")
+        raise ValueError(f"{who} expects contiguous f32 rows [R, F], got "
+                         f"{x.dtype} {tuple(x.shape)}")
     if x.shape[1] < t.width:
         raise ValueError(f"rows have {x.shape[1]} features but the forest "
                          f"reads feature {t.width - 1}")
@@ -520,6 +592,146 @@ def _accumulate_forest(carry: torch.Tensor, group_of_tree: torch.Tensor,
     return out
 
 
+# The fused kernel's counters (its block ticket, and per row tile the walk
+# blocks arrived and the accumulation blocks finished), one buffer per
+# (device, stream): zeroed once at allocation, left zeroed by every launch
+# that ran, grown only when a batch has more row tiles. Launches on one
+# stream run in order, so they share a buffer; launches that can overlap
+# never do.
+_counters_lock = threading.Lock()
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+ROW_TILE = 256          # rows of a block of the fused kernel (kBlockRows)
+
+
+def _fused_counters(dev: torch.device, stream: int,
+                    rows: int) -> torch.Tensor:
+    need = 1 + 2 * ((rows + ROW_TILE - 1) // ROW_TILE)
+    key = (dev.index, stream)
+    with _counters_lock:
+        buf = _counters.get(key)
+        if buf is None or buf.numel() < need:
+            n = max(need, 2 * buf.numel() if buf is not None else 64)
+            buf = torch.zeros(n, dtype=torch.int32, device=dev)
+            _counters[key] = buf
+        return buf
+
+
+def _check_csr(group_tree_lo: torch.Tensor, group_tree: torch.Tensor,
+               groups: int, trees: int) -> None:
+    """Refuse a CSR that is not every tree exactly once over ``groups``
+    groups: the kernel would write the workspace out of bounds or leave a
+    tree's row of it unwritten. One host read of the two maps."""
+    lo = group_tree_lo.cpu().long()
+    gt = group_tree.cpu().long()
+    if lo.shape != (groups + 1,) or gt.shape != (trees,) or \
+            int(lo[0]) != 0 or int(lo[-1]) != trees or \
+            bool((lo.diff() < 0).any()):
+        raise ValueError(f"group_tree_lo must rise from 0 to {trees} over "
+                         f"{groups} groups, got {lo.tolist()[:8]}...")
+    if not torch.equal(torch.sort(gt).values, torch.arange(trees)):
+        raise ValueError("group_tree must list every tree exactly once")
+
+
+def predict_forest(x: torch.Tensor, t: ForestTables,
+                   group_tree_lo: torch.Tensor, group_tree: torch.Tensor,
+                   leaf_value: torch.Tensor, tree_class: torch.Tensor,
+                   num_class: int, early_stop_freq: int,
+                   early_stop_margin: float) -> torch.Tensor:
+    """Raw scores [num_class, R] f32 of the rows ``x`` [R, >= width]: every
+    row through every structure group of ``t``, tree t's leaf value added
+    in forest order into ``out[tree_class[t]]`` with the early-stop replay
+    — bit for bit :func:`traverse_forest` + :func:`accumulate_forest`.
+
+    ``group_tree_lo`` [G + 1] / ``group_tree`` [T] list each group's trees
+    (:func:`group_trees`; ``t.group_tree_lo`` / ``t.group_tree``);
+    ``tree_class`` [T]; all int32 on the rows' device. A CSR that does not
+    list every tree once, or a class outside ``[0, num_class)``, raises
+    ValueError (one host read of the maps; ``CompiledForest`` checks its
+    maps once at upload instead). On a CUDA tensor this launches the fused
+    kernel once on the current stream and raises if the launch fails; on a
+    CPU tensor it runs the plain version."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"predict_forest runs on cuda or cpu, not "
+                         f"{x.device}")
+    for name, a, dt in (("group_tree_lo", group_tree_lo, torch.int32),
+                        ("group_tree", group_tree, torch.int32),
+                        ("leaf_value", leaf_value, torch.float32),
+                        ("tree_class", tree_class, torch.int32)):
+        if a.device != x.device:
+            raise ValueError(f"predict_forest: {name} is on {a.device}, "
+                             f"the rows on {x.device}")
+        if a.dtype != dt:
+            raise TypeError(f"predict_forest: {name} must be {dt}, got "
+                            f"{a.dtype}")
+        if not a.is_contiguous():
+            raise ValueError(f"predict_forest: {name} must be contiguous")
+    T = group_tree.shape[0]
+    if leaf_value.dim() != 2 or leaf_value.shape[0] != T or \
+            tree_class.shape != (T,):
+        raise ValueError("predict_forest expects [T, L] leaf values and a "
+                         f"[T] tree_class for {T} trees, got "
+                         f"{tuple(leaf_value.shape)}, "
+                         f"{tuple(tree_class.shape)}")
+    if num_class < 1:
+        raise ValueError(f"num_class must be >= 1, got {num_class}")
+    _check_csr(group_tree_lo, group_tree, int(t.group_root.shape[0]), T)
+    if T:
+        c_lo, c_hi = torch.aminmax(tree_class.cpu())
+        if int(c_lo) < 0 or int(c_hi) >= num_class:
+            raise ValueError(f"tree_class holds classes {int(c_lo)}.."
+                             f"{int(c_hi)}; the forest has {num_class}")
+    return _predict_forest(x, t, group_tree_lo, group_tree, leaf_value,
+                           tree_class, num_class, early_stop_freq,
+                           early_stop_margin)
+
+
+def _predict_forest(x: torch.Tensor, t: ForestTables,
+                    group_tree_lo: torch.Tensor, group_tree: torch.Tensor,
+                    leaf_value: torch.Tensor, tree_class: torch.Tensor,
+                    num_class: int, early_stop_freq: int,
+                    early_stop_margin: float) -> torch.Tensor:
+    """:func:`predict_forest` on maps already checked: the plain version on
+    a CPU tensor, else one launch of the fused kernel."""
+    if x.device.type == "cpu":
+        return _predict_forest_reference(
+            x, t, group_tree_lo, group_tree, leaf_value, tree_class,
+            num_class, early_stop_freq, early_stop_margin)
+    if x.device.type != "cuda":
+        raise ValueError(f"predict_forest runs on cuda or cpu, not "
+                         f"{x.device}")
+    _check_tables(x, t, "predict_forest")
+    R, F = x.shape
+    T = group_tree.shape[0]
+    if R == 0 or T == 0:
+        return torch.zeros((num_class, R), dtype=torch.float32,
+                           device=x.device)
+    out = torch.empty((num_class, R), dtype=torch.float32, device=x.device)
+    # rows rounded up to 32: an accumulation block's 32 rows of a tree
+    # are one aligned 128-byte line
+    ws = torch.empty((T, (R + 31) // 32 * 32), dtype=torch.float32,
+                     device=x.device)
+    lib = _kernel_lib(x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        counters = _fused_counters(x.device, stream, R)
+        rc = lib.lg_predict_forest(
+            x.data_ptr(), R, F, t.width, t.rec.data_ptr(),
+            t.group_node_lo.data_ptr(), t.group_root.data_ptr(),
+            t.group_steps.data_ptr(), int(t.group_root.shape[0]),
+            t.cat_tab.data_ptr(), int(t.cat_tab.shape[1]),
+            group_tree_lo.data_ptr(), group_tree.data_ptr(),
+            leaf_value.data_ptr(), leaf_value.shape[1], tree_class.data_ptr(),
+            T, num_class, max(int(early_stop_freq), 0),
+            float(np.float32(early_stop_margin)), ws.data_ptr(),
+            ws.shape[1], counters.data_ptr(), out.data_ptr(), stream)
+    if rc != 0:
+        with _counters_lock:         # the next launch starts from zeros
+            _counters.pop((x.device.index, stream), None)
+        raise RuntimeError(f"predict kernel launch failed (code {rc})")
+    PREDICT_LAUNCHES.add()
+    return out
+
+
 class CompiledForest:
     """A device-resident compiled forest: the artifact's packed buffers
     uploaded once to ``device``.
@@ -564,11 +776,11 @@ class CompiledForest:
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         """x: [N, >= width] f32 rows on this forest's device. On the card:
-        two launches, the traversal and the accumulation."""
+        one launch of the fused kernel (:func:`predict_forest`)."""
         x = x.to(device=self.device, dtype=torch.float32).contiguous()
-        node = traverse_forest(x, self.tables)
+        t = self.tables
         # the maps were checked at upload: no host read per dispatch
-        return _accumulate_forest(node, self._group_of_tree,
-                                  self._leaf_value, self._tree_class,
-                                  self.num_class, self.early_stop_freq,
-                                  self._es_margin)
+        return _predict_forest(x, t, t.group_tree_lo, t.group_tree,
+                               self._leaf_value, self._tree_class,
+                               self.num_class, self.early_stop_freq,
+                               self._es_margin)

@@ -4,6 +4,7 @@ types, default bins, categorical maps and binned matrices are equal
 (``array_equal``), and so are the EFB groups — both sides run the same
 numpy arithmetic, so nothing here needs a tolerance.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

@@ -11,6 +11,7 @@ value histogram, ``shuffle_models``, pickling and copying, and a scipy
 sparse input predicted window by window; a data-file input is refused by
 name.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import copy
 import functools
 import pickle

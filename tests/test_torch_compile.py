@@ -5,6 +5,7 @@ text and the same ``infer_*`` knobs the port must emit the same artifact:
 ``array_equal`` buffers of equal dtypes, equal ``meta``, an equal
 ``source_key`` and sha256 ``hash``, and identical ``to_bytes()``.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

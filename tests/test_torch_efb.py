@@ -6,6 +6,7 @@ the same histograms (exact gathers; the residual default bins within rtol
 rank decode against the JAX learner's formula; and bundled training runs
 against the JAX fused learner at the training-row bar (rtol 1e-4 / atol
 1e-5)."""
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -14,6 +14,7 @@ version sums 64-bit fixed-point integers, each value within 2^-(k+1) of
 its own, and rounds each sum to f32 once); the count channel is exact
 everywhere.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ the masked f32 plain version (``_hist_reference``) against a numpy
 float64 loop (rtol 1e-6 / atol 1e-6: it sums 64-bit fixed-point integers
 and rounds once; the count channel exactly), and an offset into the row
 list equal to slicing it."""
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ and bagged over EFB bundles (the threefry draws, the samplers, the int8
 histograms and the bundling included). Asking for the card where there is
 none raises instead of quietly running on the CPU.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import ast
 import os
 import subprocess

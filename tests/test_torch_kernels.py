@@ -10,8 +10,14 @@ for numeric and categorical forests and one of two 16,384-leaf trees, and
 counts one launch per call; the accumulation kernel equals the plain leaf
 gather + forest-order loop with ``torch.equal`` for 1, 3, 7 and 20 classes
 (one score in a register, more in shared memory), early stop off and on,
-and refuses maps out of range;
-a compiled dispatch on the card is one launch of each; the compiled engine
+and refuses maps out of range; the fused kernel (K3's walk, the leaf
+values and the accumulation in one launch) equals its plain version with
+``torch.equal`` on merged, categorical, 16,384-leaf, 3-class and 20-class
+forests at 1 to 4,096 rows, early stop off and on, reruns and a row alone
+bit-identically, leaves its counters at zero (also after three
+dispatches queued back to back) and gives two streams at once their own
+counters; a compiled dispatch on the card is one launch of the fused
+kernel and none of K3 or the accumulation alone; the compiled engine
 and the server on the card equal the scan oracle on the card; the f32
 histogram kernel (K1)
 is ``torch.equal`` to its plain version on every channel at chip_smoke's
@@ -47,6 +53,7 @@ the card serves the scan oracle's scores.
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import numpy as np
@@ -66,15 +73,27 @@ CPU = {"device_type": "cpu"}
 def _forest(kind):
     """(text, trees, features) of one synthetic forest, via the text
     round trip; "large": two 16,384-leaf trees, deep walks over groups of
-    16,383 records each."""
+    16,383 records each; "merged": 12 structures of 3 trees each;
+    "multiclass" / "multiclass20": 8 rounds of 3 / 20 classes."""
+    objective = "binary sigmoid:1"
     if kind == "numeric":
         trees, feats = synth.random_trees(3, 12, 31, 10, grid_size=40), 10
+    elif kind == "merged":
+        trees, feats = [], 10
+        for j in range(3):
+            for t in synth.random_trees(3, 12, 31, 10, grid_size=40):
+                t.leaf_value = t.leaf_value * (j + 1) - 0.01 * j
+                trees.append(t)
     elif kind == "large":
         trees, feats = synth.random_trees(2, 2, 16384, 28), 28
+    elif kind.startswith("multiclass"):
+        K = 20 if kind == "multiclass20" else 3
+        trees, feats = synth.random_trees(6, 8 * K, 15, 10, grid_size=3), 10
+        objective = f"multiclass num_class:{K}"
     else:
         feats = 6
         trees = synth.categorical_trees(4, num_features=feats)
-    text = booster_from_numpy(synth.header(feats), trees,
+    text = booster_from_numpy(synth.header(feats, objective), trees,
                               CPU).model_to_string()
     return text, lgt.Booster(model_str=text, params=CPU)._booster.models, \
         feats
@@ -205,6 +224,8 @@ def test_accumulate_kernel_refuses_maps_out_of_range(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["numeric", "categorical"])
 def test_compiled_dispatch_is_one_launch_of_each_kernel(kind, cuda_device):
+    """A compiled dispatch on the card is one launch of the fused kernel,
+    and neither K3 alone nor the accumulation alone."""
     text, _trees, feats = _forest(kind)
     gb = lgt.Booster(model_str=text, params=CPU)._booster
     art = compile_forest(gb)
@@ -212,13 +233,113 @@ def test_compiled_dispatch_is_one_launch_of_each_kernel(kind, cuda_device):
     X = _rows(kind, 601, feats, seed=3)
     want = eng.CompiledForest(art, torch.device("cpu")).predict(
         torch.from_numpy(X))
+    eng.PREDICT_LAUNCHES.reset()
     eng.TRAVERSE_LAUNCHES.reset()
     eng.ACCUMULATE_LAUNCHES.reset()
     got = cf.predict(torch.from_numpy(X).to(cuda_device))
     torch.cuda.synchronize()
-    assert eng.TRAVERSE_LAUNCHES.launches == 1
-    assert eng.ACCUMULATE_LAUNCHES.launches == 1
+    assert eng.PREDICT_LAUNCHES.launches == 1
+    assert eng.TRAVERSE_LAUNCHES.launches == 0
+    assert eng.ACCUMULATE_LAUNCHES.launches == 0
     assert torch.equal(got.cpu(), want)
+
+
+def _fused_case(kind, dev, early_stop):
+    """(CompiledForest on ``dev``, early-stop freq, margin): early stop
+    checks every round at half the median final margin of 4,096 rows."""
+    text, _trees, feats = _forest(kind)
+    art = compile_forest(lgt.Booster(model_str=text, params=CPU)._booster)
+    cf = eng.CompiledForest(art, dev)
+    if not early_stop:
+        return cf, 0, 0.0, feats
+    full = cf.predict(torch.from_numpy(_rows(kind, 4096, feats)).to(dev))
+    K = cf.num_class
+    if K == 1:
+        final = 2 * full[0].abs()
+    else:
+        top2 = full.topk(2, dim=0).values
+        final = top2[0] - top2[1]
+    freq, margin = K, 0.5 * float(final.median())
+    return (eng.CompiledForest(art, dev, early_stop_freq=freq,
+                               early_stop_margin=margin), freq, margin,
+            feats)
+
+
+def _plain(cf, x):
+    t = cf.tables
+    return eng._predict_forest_reference(
+        x, t, t.group_tree_lo, t.group_tree, cf._leaf_value, cf._tree_class,
+        cf.num_class, cf.early_stop_freq, cf._es_margin)
+
+
+def _counters_zero(dev):
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return int(eng._counters[(dev.index, stream)].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["merged", "categorical", "large",
+                                  "multiclass", "multiclass20"])
+@pytest.mark.parametrize("early_stop", [False, True])
+@pytest.mark.parametrize("rows", [1, 97, 256, 257, 601, 4096])
+def test_fused_kernel_equals_plain_version_on_card(kind, early_stop, rows,
+                                                   cuda_device):
+    cf, freq, margin, feats = _fused_case(kind, cuda_device, early_stop)
+    x = torch.from_numpy(_rows(kind, rows, feats, seed=1)).to(cuda_device)
+    ref = _plain(cf, x)
+    eng.PREDICT_LAUNCHES.reset()
+    got = cf.predict(x)
+    again = cf.predict(x)
+    assert _counters_zero(cuda_device)
+    assert eng.PREDICT_LAUNCHES.launches == 2
+    assert got.shape == ref.shape and torch.equal(got, ref)
+    assert torch.equal(again, got)                     # reruns bit-identical
+    assert torch.equal(cf.predict(x[:1]), got[:, :1])  # a row alone
+    if early_stop and rows == 4096:                    # the replay stops rows
+        assert not torch.equal(got, _plain(_fused_case(
+            kind, cuda_device, False)[0], x))
+    # the public wrapper checks the maps, then launches the same kernel
+    t = cf.tables
+    assert torch.equal(eng.predict_forest(
+        x, t, t.group_tree_lo, t.group_tree, cf._leaf_value, cf._tree_class,
+        cf.num_class, freq, margin), ref)
+
+
+@pytest.mark.cuda
+def test_fused_counters_zero_after_back_to_back_dispatches(cuda_device):
+    """Three dispatches of different row counts queued without a
+    synchronize in between: each equals the plain version, and every
+    counter is back at zero."""
+    cf, _, _, feats = _fused_case("merged", cuda_device, False)
+    xs = [torch.from_numpy(_rows("merged", n, feats, seed=n)).to(cuda_device)
+          for n in (4096, 1, 601)]
+    outs = [cf.predict(x) for x in xs]
+    assert _counters_zero(cuda_device)
+    for x, out in zip(xs, outs):
+        assert torch.equal(out, _plain(cf, x))
+
+
+@pytest.mark.cuda
+def test_fused_kernel_on_two_streams_at_once(cuda_device):
+    """Two dispatches that may overlap on two streams each get their own
+    counters and the plain version's scores."""
+    cf, _, _, feats = _fused_case("multiclass", cuda_device, False)
+    xs = [torch.from_numpy(_rows("multiclass", n, feats, seed=n)).to(
+        cuda_device) for n in (4096, 3000)]
+    streams = [torch.cuda.Stream(cuda_device) for _ in xs]
+    outs = []
+    for x, s in zip(xs, streams):
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+        with torch.cuda.stream(s):
+            outs.append(cf.predict(x))
+    torch.cuda.synchronize()
+    bufs = [eng._counters[(cuda_device.index, s.cuda_stream)]
+            for s in streams]
+    assert bufs[0].data_ptr() != bufs[1].data_ptr()
+    assert all(int(b.abs().sum()) == 0 for b in bufs)
+    for x, out in zip(xs, outs):
+        assert torch.equal(out, _plain(cf, x))
 
 
 @pytest.mark.cuda
@@ -815,9 +936,11 @@ def test_pred_leaf_on_card_is_one_traversal_launch(kind, cuda_device):
     bst.predict(X[:8], pred_leaf=True)            # compile and upload
     eng.TRAVERSE_LAUNCHES.reset()
     eng.ACCUMULATE_LAUNCHES.reset()
+    eng.PREDICT_LAUNCHES.reset()
     got = bst.predict(X, pred_leaf=True)
     assert eng.TRAVERSE_LAUNCHES.launches == 1
     assert eng.ACCUMULATE_LAUNCHES.launches == 0
+    assert eng.PREDICT_LAUNCHES.launches == 0
     tensor = lgt.Booster(model_str=text, params={"predict_engine": "tensor",
                                                  "predict_tree_tile": 5})
     assert np.array_equal(got, tensor.predict(X, pred_leaf=True))

@@ -8,6 +8,7 @@ hashes it); and ``convert.trees_from_numpy`` must build the same trees as
 the text route. A model the port trains, with any objective, must carry
 the header the JAX package writes for it and round-trip byte for byte.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import numpy as np

@@ -15,6 +15,7 @@ fast path counts the init score twice on validation scores; ROADMAP.md
 Queue 3). GOSS runs on ``_discrete_data``: under sampling, a bin holding
 only out-of-bag rows ties two thresholds (Queue 3).
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

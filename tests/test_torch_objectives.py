@@ -9,6 +9,7 @@ sigmoid != 1, which magnifies that last bit; init scores are equal (the same num
 arithmetic); metrics run the same float64 numpy code and are held at
 rtol 1e-12; the binned traversal's leaf values are ``array_equal``.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -11,6 +11,7 @@ package's on every engine (under ``compiled`` it reads the traversal
 kernel's carry), and a tensor-engine booster serves exactly what it
 predicts.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import jax.numpy as jnp

@@ -3,6 +3,7 @@
 quantization key's ``data_random_seed + 7919`` and the default
 ``bagging_seed`` — and shapes, with ``jax_threefry_partitionable`` as the
 installed jax sets it (on by default since jax 0.5)."""
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import jax
 import numpy as np
 import pytest

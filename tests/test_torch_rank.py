@@ -13,6 +13,7 @@ Bars:
   bagging mask exactly; xendcg's gradients at rtol 1e-5 / atol 1e-7;
 * ndcg / map / precision (the same float64 numpy code) at rtol 1e-12.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,6 +3,7 @@
 learns and ``lambdagap_weight`` matters, and a ranker the JAX package
 trained loads, saves and serves in the port (its text raised before the
 ranking objectives were ported)."""
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

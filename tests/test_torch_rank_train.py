@@ -8,6 +8,7 @@ bar of ``tests/test_torch_train.py``); the validation sets here are the
 training rows again, so their ``ndcg@k`` histories (with early stopping,
 greater is better) must match in length and within 1e-6.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

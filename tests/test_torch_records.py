@@ -12,6 +12,7 @@ accumulation wrapper on a CPU tensor must be the plain ``_leaf_values`` +
 ``_accumulate``, which equal the JAX package's ``lax.scan``, and must
 refuse maps out of range. The artifact itself is never changed.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import jax.numpy as jnp

@@ -16,6 +16,7 @@ are held on the training rows at rtol 1e-4 / atol 1e-5
 of gain ~1e-6 (float noise) possible deep in a tree; those runs set
 ``min_gain_to_split=1e-3`` so that noise does not pick a split.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,7 @@ every mask, every sampled and amplified gradient, iteration by iteration,
 including ``bagging_freq`` windows that reuse a mask, balanced bagging and
 GOSS's ``int(1/learning_rate)`` warm-up. Both packages get the same numpy
 gradients, so torch's and XLA's ``exp`` never enter."""
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

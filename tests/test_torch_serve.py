@@ -7,6 +7,7 @@ small-batch shortcut off, >512 rows), converted outputs within the
 ``array_equal`` to its own scan oracle, and its server must answer
 concurrent mixed-size requests exactly as its compiled cache does.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import functools
 import threading
 

@@ -12,6 +12,7 @@ atol 1e-6), and a feature no tree splits on gets exactly 0. The path tables merg
 change the values, and a path longer than the kernel's cap is refused by
 name.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import numpy as np

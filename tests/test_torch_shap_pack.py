@@ -15,6 +15,7 @@ byte budget, the shared memory in the card's, and the reduction's chunk
 count equal to the grid's, and what orders a row's sums (warps, chunks)
 does not depend on the batch.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

@@ -8,6 +8,7 @@ labels included; ``pred_leaf`` / ``pred_contrib`` pass through
 ``predict``, the contributions summing to the raw scores. A callable
 objective or eval metric is refused by name.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

@@ -16,6 +16,7 @@ after it are one split with the sides swapped: where the scan picked the
 mirror, the bitset is the complement over the feature's populated bins and
 the left sums are the parent's minus the other side's.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -15,6 +15,7 @@ equal up to the last bits — either may win. Such a pair routes no training
 row differently, but may route a validation row differently, which is why
 validation predictions are not held to this bar.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ hostile categorical values. On a CPU tensor the kernel wrapper takes the
 plain version and never counts a launch (the kernel itself is held to the
 plain version on the card by tests/test_torch_kernels.py).
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import functools
 
 import jax.numpy as jnp

@@ -18,6 +18,7 @@ for trial counts above 1 (ROADMAP.md Queue 3); the trained model is held
 to the JAX package's with trial counts in (0, 1], where that hessian stays
 positive. Above 1 the JAX package's own run meets non-finite values.
 """
+import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
