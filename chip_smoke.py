@@ -3,7 +3,7 @@
 CUDA card and check them.
 
     python3 chip_smoke.py [--seed N] [--rows N]
-                          [--only kernels|rank|objectives|predict|shap]
+                          [--only kernels|rank|objectives|predict|shap|options]
 
 Run from the root of a checkout. Phases, each fatal on failure:
 
@@ -162,6 +162,28 @@ T14. the predict API on phase 3's forest, phase 5's rows and T3's and
    and long paths (``--only shap`` runs phases 1-3 and these checks
    alone); refit of T3's model on its 500,000 validation rows:
    ``decay_rate=1.0`` leaves every leaf as it was, 0.9 every leaf finite;
+T15. the tree options on T3's Datasets at HIGGS width, 3 rounds each
+   (the counts zeroed just before each run and read just after): (a)
+   extra_trees, (b) ``feature_fraction_bynode=0.5``, (c) monotone +1/-1
+   on four features, basic, ``monotone_penalty=1``, (d) the same,
+   intermediate, (e) four interaction groups of seven features, (f)
+   ``feature_contri`` halving eight features, (g) a three-level forced
+   tree from a temporary JSON, (h) 16-level quantized gradients, bagging
+   0.7/1, (d) and (b) on K2: K1 (K2 for (h)) launches == the histograms
+   built, validation logloss falls, predictions monotone along a 64-point
+   sweep of each constrained feature on 1,000 rows, every root-to-leaf
+   path inside one group, the first four nodes the JSON's features and
+   bins, reruns of (a) and (h) bit-identical, the model served back ==
+   the scan oracle; the round walls, host syncs per tree and one tree's
+   device-stream phases (histogram, split scan, partition, the monotone
+   propagation and re-scans as ``constraints``);
+T15b. (a)-(h) at 16,000 x 20, 31 leaves, 10 rounds, on the card and on
+   the CPU: training-row predictions within rtol 1e-4 / atol 1e-5,
+   best_iteration equal; the non-finite guard on the card: a NaN label
+   raises ``NonFiniteError`` under ``raise``, ``skip_tree`` keeps the
+   finite round of a poisson run whose exp overflows (card == CPU),
+   ``clip`` trains NaN labels to a finite model (``--only options`` runs
+   phases 1-2, T3, T15 and T15b);
 6. the kernels line (one JSON object, eight entries; each entry's
    ``max_abs_err`` the largest of its kernel's comparisons, T13's K1 in
    ``hist_rows@covtype`` and T11c's K2 in ``hist_rows_q``; the fused
@@ -2467,21 +2489,260 @@ def t11a_only(args, dev, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# T15-T15b: the tree options at HIGGS width; card against CPU; the guard
+# ---------------------------------------------------------------------------
+# four constrained features (+1: rising in the label's score, -1: falling)
+T15_MONO = {0: 1, 5: 1, 9: -1, 13: -1}
+T15_GROUPS = [list(range(g, g + 7)) for g in (0, 7, 14, 21)]
+T15_HALVED = (1, 3, 5, 7, 9, 11, 13, 15)
+T15_FORCED = {"feature": 3, "threshold": 0.0,
+              "left": {"feature": 1, "threshold": 0.5,
+                       "left": {"feature": 2, "threshold": -0.5}},
+              "right": {"feature": 4, "threshold": 0.0}}
+T15_FORCED_BFS = [3, 1, 4, 2]     # the forced nodes' features, step order
+OPTION_ROUNDS = 3
+OPTION_CPU_ROUNDS = 10            # T15b: early_stopping(5) can fire
+
+
+def option_variants(f: int, forced_path: str, mono: dict, groups: list,
+                    halved) -> list:
+    """(tag, what, params) of T15's variants (a)-(h) at ``f`` features."""
+    mc = [mono.get(j, 0) for j in range(f)]
+    inter = {"monotone_constraints": mc,
+             "monotone_constraints_method": "intermediate"}
+    return [
+        ("a", "extra_trees", {"extra_trees": True}),
+        ("b", "feature_fraction_bynode=0.5",
+         {"feature_fraction_bynode": 0.5}),
+        ("c", "monotone basic, penalty 1",
+         {"monotone_constraints": mc, "monotone_penalty": 1.0}),
+        ("d", "monotone intermediate", inter),
+        ("e", f"interaction_constraints, {len(groups)} groups",
+         {"interaction_constraints": groups}),
+        ("f", f"feature_contri halving {len(halved)} features",
+         {"feature_contri": [0.5 if j in halved else 1.0
+                             for j in range(f)]}),
+        ("g", "three-level forced splits",
+         {"forcedsplits_filename": forced_path}),
+        ("h", "quantized 16 levels + bagging 0.7 + (d) + (b)",
+         {"use_quantized_grad": True, "num_grad_quant_bins": 16,
+          "bagging_fraction": 0.7, "bagging_freq": 1,
+          "feature_fraction_bynode": 0.5, **inter}),
+    ]
+
+
+def check_monotone(bst, X: np.ndarray, mono: dict, tag: str) -> None:
+    """Every one of ``X``'s rows predicts monotonically along a 64-point
+    sweep of each constrained feature (raw scores: sums of f32 leaf
+    values in forest order, and rounding is monotone, so exactly)."""
+    for j, sign in mono.items():
+        grid = np.quantile(X[:, j], np.linspace(0.0, 1.0, 64))
+        rows = np.repeat(X, len(grid), axis=0)
+        rows[:, j] = np.tile(grid, len(X))
+        d = np.diff(bst.predict(rows, raw_score=True).reshape(len(X), -1),
+                    axis=1)
+        check(bool((d * sign >= 0).all()),
+              f"{tag}: feature {j} not monotone ({sign:+d}): worst step "
+              f"{float((d * sign).min())}")
+
+
+def paths_features(tree) -> list:
+    """The set of split features on each root-to-leaf path of a tree."""
+    out, stack = [], [(0, frozenset())]
+    while stack:
+        node, seen = stack.pop()
+        seen = seen | {tree.split_feature[node]}
+        for child in (tree.left_child[node], tree.right_child[node]):
+            if child >= 0:
+                stack.append((child, seen))
+            else:
+                out.append(seen)
+    return out
+
+
+def tree_phases(bst, smi: str, tag: str) -> None:
+    """One more tree with CUDA events around its phases (after the counts
+    were read): histogram / split scan / partition / the monotone
+    propagation and re-scans."""
+    import torch
+    gb = bst._booster
+    lr = gb.learner
+    lr.time_phases = True
+    grad, hess = gb.boosting()
+    grad, hess, mask = gb.sample_strategy.sample(gb.iter_, grad, hess)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lr.train_device(grad[0], hess[0], mask)
+    torch.cuda.synchronize()
+    tree_ms = (time.perf_counter() - t1) * 1e3
+    lr.time_phases = False
+    ph = lr.phase_ms
+    print(f"{tag} one tree: {tree_ms:.1f} ms host wall; device-stream time "
+          f"between CUDA events: histogram {ph.get('histogram', 0):.1f} ms, "
+          f"split scan {ph.get('split_scan', 0):.1f} ms, partition "
+          f"{ph.get('partition', 0):.1f} ms, constraints "
+          f"{ph.get('constraints', 0):.1f} ms, quantize "
+          f"{ph.get('quantize', 0):.1f} ms; {lr.host_syncs} host syncs "
+          f"[{smi}]")
+
+
+def options_phase(t3: dict, dev, smi: str) -> dict:
+    """T15: each tree option on T3's Datasets at HIGGS width, 3 rounds
+    each, the counts zeroed just before each run and read just after."""
+    import tempfile
+    import lambdagap_tpu_torch as lgt
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_forced_")
+    forced_path = os.path.join(tmp, "forced.json")
+    with open(forced_path, "w") as fh:
+        json.dump(T15_FORCED, fh)
+    Xs = np.ascontiguousarray(t3["Xva"][:1000])
+    out = {}
+    for tag, what, extra in option_variants(F, forced_path, T15_MONO,
+                                            T15_GROUPS, T15_HALVED):
+        name = f"T15({tag})"
+        params = {**t3["params"], **extra}
+        t0 = time.perf_counter()
+        bst, hist, probe, used = probed_train(params, t3["train"],
+                                              t3["valid"], OPTION_ROUNDS,
+                                              f"{name} [{what}]", smi)
+        wall = time.perf_counter() - t0
+        ll = hist["binary_logloss"]
+        check(ll[-1] < ll[0], f"{name}: valid logloss did not fall: "
+              f"{ll[0]} -> {ll[-1]}")
+        trees = bst._booster.host_models
+        syncs = bst._booster.learner.host_syncs
+        if "monotone_constraints" in extra:
+            check_monotone(bst, Xs, T15_MONO, name)
+        if "interaction_constraints" in extra:
+            groups = [set(g) for g in T15_GROUPS]
+            for t in trees:
+                for seen in paths_features(t):
+                    check(any(seen <= g for g in groups),
+                          f"{name}: a path splits on {sorted(seen)}, in no "
+                          "one group")
+        if "forcedsplits_filename" in extra:
+            lr = bst._booster.learner
+            for t in trees:
+                check(t.split_feature[:4] == T15_FORCED_BFS,
+                      f"{name}: first nodes {t.split_feature[:4]} != the "
+                      f"JSON's {T15_FORCED_BFS}")
+            want = [lr._forced_bin(n)[1] for n in (
+                T15_FORCED, T15_FORCED["left"], T15_FORCED["right"],
+                T15_FORCED["left"]["left"])]
+            check(all(t.threshold_bin[:4] == want for t in trees),
+                  f"{name}: forced thresholds != the JSON's bins {want}")
+        if tag in ("a", "h"):
+            again = lgt.train(params, t3["train"], OPTION_ROUNDS,
+                              valid_sets=[t3["valid"]])
+            check(again.model_to_string() == bst.model_to_string(),
+                  f"{name}: a rerun grew different trees")
+        tree_phases(bst, smi, name)
+        serve_trained_phase(bst, t3["Xva"], dev, smi, tag=name)
+        print(f"{name} [{what}]: {len(trees)} trees of "
+              f"{[t.num_leaves for t in trees]} leaves; host syncs in the "
+              f"last tree {syncs}; {'K2' if 'use_quantized_grad' in extra else 'K1'}"
+              f" launches {used} == histograms built; valid logloss "
+              f"{ll[0]:.5f} -> {ll[-1]:.5f}"
+              f"{'; rerun bit-identical' if tag in ('a', 'h') else ''}; "
+              f"{wall:.1f} s [{smi}]")
+        out[tag] = {"walls": [r["wall"] for r in probe.rounds],
+                    "syncs": syncs}
+    return out
+
+
+def options_card_vs_cpu_phase(smi: str) -> None:
+    """T15b: (a)-(h) at 16,000 x 20 on the card and on the CPU, then the
+    non-finite guard on the card."""
+    import tempfile
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.guard.nonfinite import NonFiniteError
+    rng = np.random.RandomState(0)
+    X = rng.randn(20_000, 20)
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + 0.3 * rng.randn(20_000) > 0
+         ).astype(np.float64)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_forced_")
+    forced_path = os.path.join(tmp, "forced.json")
+    with open(forced_path, "w") as fh:
+        json.dump(T15_FORCED, fh)
+    base = {"objective": "binary", "metric": ["auc", "binary_logloss"],
+            "num_leaves": 31, "learning_rate": 0.1, "verbose": -1}
+    mono = {0: 1, 5: 1, 9: -1, 13: -1}
+    groups = [list(range(g, g + 5)) for g in (0, 5, 10, 15)]
+    for tag, what, extra in option_variants(20, forced_path, mono, groups,
+                                            T15_HALVED):
+        out = card_vs_cpu({**base, **extra}, X[:16_000], y[:16_000],
+                          X[16_000:], y[16_000:], OPTION_CPU_ROUNDS)
+        (pc, bc, ac, sc, _), (pp, _, _, sp, _) = out["cuda"], out["cpu"]
+        print(f"T15b card == CPU [({tag}) {what}]: predictions max |diff| "
+              f"{np.abs(pc - pp).max():.3g}, best_iteration {bc}, valid AUC "
+              f"{ac:.5f}; train {sc:.1f} s on the card, {sp:.1f} s on the "
+              f"CPU [{smi}]")
+    # the non-finite guard on the card (regression: a NaN label is a NaN
+    # gradient; the binary objective refuses it at construction)
+    reg = {"objective": "regression", "num_leaves": 31, "verbose": -1}
+    yn = X[:16_000, 0] + 0.5 * X[:16_000, 1] * X[:16_000, 2]
+    yn[[7, 700, 7000]] = np.nan
+    try:
+        lgt.train(reg, lgt.Dataset(X[:16_000], label=yn), 3)
+        fail("T15b: a NaN label trained on under guard_nonfinite=raise")
+    except NonFiniteError as e:
+        print(f"T15b guard raise: NonFiniteError ({e})")
+    prng_ = np.random.RandomState(3)
+    Xp = prng_.randn(1000, 6)
+    yp = np.exp(Xp[:, 0] * 2 + Xp[:, 1]) * prng_.poisson(1.0, 1000)
+    pp_ = {"objective": "poisson", "num_leaves": 7, "learning_rate": 2.9,
+           "min_data_in_leaf": 5, "verbose": -1,
+           "guard_nonfinite": "skip_tree"}
+    kept = {}
+    for device in ("cuda", "cpu"):
+        b = lgt.train({**pp_, "device_type": device},
+                      lgt.Dataset(Xp, label=yp), 5)
+        kept[device] = (len(b._booster.models), b.predict(Xp, raw_score=True))
+    check(kept["cuda"][0] == kept["cpu"][0] == 1,
+          f"T15b skip_tree kept {kept['cuda'][0]} trees on the card, "
+          f"{kept['cpu'][0]} on the CPU (want round 0's one)")
+    check(np.isfinite(kept["cuda"][1]).all()
+          and np.allclose(kept["cuda"][1], kept["cpu"][1], rtol=1e-4,
+                          atol=1e-5), "T15b skip_tree: card != CPU")
+    b = lgt.train({**reg, "guard_nonfinite": "clip"},
+                  lgt.Dataset(X[:16_000], label=yn), 3)
+    pc = b.predict(X[16_000:])
+    check(np.isfinite(pc).all() and len(b._booster.models) == 3,
+          "T15b clip: not a finite 3-tree model")
+    print(f"T15b guard skip_tree: the poisson run kept round 0's tree of 5 "
+          f"rounds on the card and on the CPU (its exp overflows from round "
+          f"1), card == CPU; clip: NaN labels trained to a finite 3-tree "
+          f"model [{smi}]")
+
+
+def options_phases(t3: dict, dev, smi: str) -> dict:
+    t0 = time.perf_counter()
+    t15 = options_phase(t3, dev, smi)
+    print(f"T15: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    options_card_vs_cpu_phase(smi)
+    print(f"T15b: {time.perf_counter() - t0:.1f} s")
+    return t15
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=HIGGS_ROWS,
                     help="training rows of phase T3 (HIGGS's count)")
     ap.add_argument("--only", choices=("all", "kernels", "rank",
-                                       "objectives", "predict", "shap"),
+                                       "objectives", "predict", "shap",
+                                       "options"),
                     default="all",
                     help="kernels: phases 1-4 (with the SASS check), T2 and "
                     "T2q; rank: phases 1-2, T8, T2 at 136 features, T9 and "
                     "T10; objectives: phases 1-2, T11a-c, T2 at T11's "
                     "width, T11-serve, T12 and T13; predict: phases 1-3, "
                     "phase 5's scan oracle, T3, T11a and T14; shap: phases "
-                    "1-3 and T14's kernel S checks; each then stops without "
-                    "a result line")
+                    "1-3 and T14's kernel S checks; options: phases 1-2, "
+                    "T3, T15 and T15b; each then stops without a result "
+                    "line")
     args = ap.parse_args()
 
     import torch
@@ -2533,6 +2794,13 @@ def main() -> int:
         rank_phases(args, dev, smi)
         print(f"chip_smoke: rank phases passed in "
               f"{time.perf_counter() - t_start:.1f} s (--only rank: no "
+              "result)")
+        return 0
+    if args.only == "options":
+        t3 = train_phase(args, smi)
+        options_phases(t3, dev, smi)
+        print(f"chip_smoke: option phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--only options: no "
               "result)")
         return 0
     if args.only == "objectives":
@@ -2672,6 +2940,9 @@ def main() -> int:
     t0 = time.perf_counter()
     efb_phase(smi)
     print(f"T7: {time.perf_counter() - t0:.1f} s")
+
+    # -- T15. the tree options on T3's Datasets; T15b card vs CPU, guard -----
+    options_phases(t3, dev, smi)
 
     # -- T8. ranking at MSLR width; T2 at 136 features; T9; T10 -------------
     t8, k1m = rank_phases(args, dev, smi)

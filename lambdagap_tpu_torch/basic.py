@@ -424,8 +424,21 @@ class Booster:
         (``lambdagap_tpu_torch.serve.ForestServer``): the forest is lowered
         and uploaded to the device once, and concurrent
         ``predict``/``submit`` calls are coalesced into padded device
-        batches."""
+        batches. A non-default value of a serve knob of a layer the port
+        does not carry (request tracing, the HBM budget of a registry, the
+        serve-side profiler, the autonomics) is refused by name."""
         from .serve import ForestServer
+        cfg = self.config
+        for knob, unset in (("serve_trace_sample", 0.0),
+                            ("serve_trace_out", ""),
+                            ("serve_hbm_budget_mb", 0.0),
+                            ("profile_serve_start_req", -1),
+                            ("serve_autonomics", False),
+                            ("serve_autonomics_placement", True)):
+            if getattr(cfg, knob) != unset:
+                raise NotImplementedError(
+                    f"{knob}={getattr(cfg, knob)!r} is not ported to "
+                    "lambdagap_tpu_torch yet (ROADMAP.md, Queue 1 item 2)")
         return ForestServer(self, **kwargs)
 
     # pickling and copying through the model string (reference: Booster

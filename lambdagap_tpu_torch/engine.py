@@ -87,6 +87,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
             break
         if stop:
             break
+    # the non-finite guard's read of the last round's scores
+    gb.guard_finish()
     if booster.best_iteration < 0:
         for d, m, v, _ in evals:
             booster.best_score.setdefault(d, {})[m] = v

@@ -28,8 +28,11 @@ the first tree. (The JAX package's fast path adds that init score a second
 time through the first tree's bias when a validation set is attached;
 ROADMAP.md, Queue 3.)
 
-Options the port does not train yet raise NotImplementedError naming the
-knob (:func:`_refuse_unported`). Every predict goes to the device engine:
+The non-finite guard (``guard/nonfinite.py``, ``guard_nonfinite``) checks
+every round with no sync of its own: its device flag rides the round's
+first record read in the learner. Options the port does not train yet,
+and knobs of layers it does not carry, raise NotImplementedError naming
+the knob (:func:`_refuse_unported`). Every predict goes to the device engine:
 the JAX package's <=512-row native ``fastpred`` shortcut is not ported.
 ``predict_engine=compiled`` runs the compiled artifact through the CUDA
 traversal kernel; ``tensor`` runs the batched [rows x trees] traversal in
@@ -68,6 +71,8 @@ from .tree import Tree
 
 K_EPSILON = 1e-15
 _ROADMAP = "(ROADMAP.md, Queue 1)"
+_NEXT_SLICE = ("(it runs on the host-driven SerialTreeLearner, the next "
+               "slice; ROADMAP.md, Queue 1)")
 
 
 def dispatch_forest_predict(cfg: Config, x: torch.Tensor, forest,
@@ -148,10 +153,13 @@ class _LazyTree:
 
 def _refuse_unported(cfg: Config) -> None:
     """Raise NotImplementedError, naming the knob, for every training option
-    the port does not carry yet: none is ignored silently."""
-    def no(knob: str) -> None:
+    the port does not carry yet and for a non-default value of every knob
+    of a layer it does not carry (telemetry, profiling, fault injection,
+    spilled streams, meshes): none is ignored silently. The serve knobs
+    refuse in ``Booster.as_server``."""
+    def no(knob: str, where: str = _ROADMAP) -> None:
         raise NotImplementedError(
-            f"{knob} is not ported to lambdagap_tpu_torch yet {_ROADMAP}")
+            f"{knob} is not ported to lambdagap_tpu_torch yet {where}")
 
     if cfg.boosting != "gbdt":
         no(f"boosting={cfg.boosting}")
@@ -161,29 +169,32 @@ def _refuse_unported(cfg: Config) -> None:
         no("tpu_fused_learner=0 (the host-driven SerialTreeLearner)")
     if cfg.data_residency == "stream":
         no("data_residency=stream")
-    if cfg.extra_trees:
-        no("extra_trees")
-    if cfg.feature_fraction_bynode < 1.0:
-        no("feature_fraction_bynode<1")
-    if cfg.forcedsplits_filename:
-        no("forcedsplits_filename (forced splits)")
-    if cfg.monotone_constraints and any(int(m) != 0
-                                        for m in cfg.monotone_constraints):
-        no("monotone_constraints")
-    if cfg.interaction_constraints:
-        no("interaction_constraints")
+    if (cfg.monotone_constraints_method == "advanced"
+            and any(int(m) != 0 for m in cfg.monotone_constraints)):
+        no("monotone_constraints_method=advanced", _NEXT_SLICE)
     if cfg.cegb_tradeoff > 0 and (cfg.cegb_penalty_split > 0
                                   or cfg.cegb_penalty_feature_coupled
                                   or cfg.cegb_penalty_feature_lazy):
-        no("cegb (cegb_penalty_*)")
+        no("cegb (cegb_penalty_*)", _NEXT_SLICE)
     if cfg.linear_tree:
         no("linear_tree")
-    if cfg.feature_contri:
-        no("feature_contri")
     if cfg.snapshot_freq > 0:
         no("snapshot_freq (crash-safe snapshots)")
     if cfg.objective == "none":
         no("training without an objective (custom gradients, fobj)")
+    # knobs of layers the port does not carry (ROADMAP.md, Queue 1 item 5)
+    if cfg.guard_faults:
+        no("guard_faults (fault injection)")
+    if cfg.telemetry:
+        no("telemetry (timetag, enable_telemetry)")
+    if cfg.telemetry_out:
+        no("telemetry_out (the JSONL run log)")
+    if cfg.profile_start_iter >= 0:
+        no("profile_start_iter (the profiler window)")
+    if cfg.stream_spill_dir:
+        no("stream_spill_dir")
+    if cfg.mesh_shape:
+        no("mesh_shape")
 
 
 class GBDT:
@@ -219,6 +230,7 @@ class GBDT:
         # the last iteration
         self.tree_ms: List[float] = []
         self.renew_ms: List[float] = []
+        self.last_iteration_skipped = False
         if train_set is not None:
             self._setup_training(train_set)
 
@@ -228,8 +240,10 @@ class GBDT:
     def _setup_training(self, ds) -> None:
         cfg = self.config
         _refuse_unported(cfg)
+        from ..guard.nonfinite import TrainGuard
         from .fused_learner import FusedTreeLearner
         from .sample_strategy import create_sample_strategy
+        self.guard = TrainGuard.from_config(cfg)
         self.num_data = ds.num_data
         self.max_feature_idx = ds.num_total_features - 1
         self.objective.init(ds.metadata, ds.num_data, self.device)
@@ -273,9 +287,14 @@ class GBDT:
     def train_one_iter(self) -> bool:
         """One boosting iteration. Returns True when training should stop.
         The fast path never does: like the JAX package's, a converged run
-        appends constant trees instead of paying a sync to stop."""
+        appends constant trees instead of paying a sync to stop. The
+        non-finite guard hooks in where the JAX package's does
+        (lambdagap_tpu/models/gbdt.py:537,572,610)."""
         cfg = self.config
         K = self.num_tree_per_iteration
+        guard = self.guard
+        guard.begin_iteration(self)
+        self.last_iteration_skipped = False
         init_scores = [0.0] * K
         if not self.models and not self.has_init_score \
                 and cfg.boost_from_average:
@@ -288,6 +307,7 @@ class GBDT:
                         vs[k] += init
                     log.info("Start training from score %f", init)
         grad, hess = self.boosting()
+        grad, hess = guard.admit_gradients(self, grad, hess)
         grad, hess, mask = self.sample_strategy.sample(self.iter_, grad,
                                                        hess)
         self.tree_ms, self.renew_ms = [], []
@@ -295,6 +315,8 @@ class GBDT:
             return self._train_renewed(grad, hess, mask, init_scores)
         for k in range(K):
             rec = self._grow(grad[k], hess[k], mask)
+            if k == 0 and guard.after_first_tree(self):
+                return self.train_one_iter()
             lv = rec.leaf_value * self.shrinkage_rate
             self.scores[k] += lv[rec.row_leaf]
             self._add_valid_tree_score(rec, lv, k)
@@ -304,7 +326,50 @@ class GBDT:
                                          self.shrinkage_rate,
                                          init_scores[k]))
         self.iter_ += 1
+        self.last_iteration_skipped = guard.end_iteration(self)
         return False
+
+    def _guard_state_capture(self) -> dict:
+        """Restore point for guard_nonfinite=skip_tree: the scores are
+        updated in place, so they are copied (on the device, no sync); the
+        random streams go with it."""
+        return {"scores": self.scores.clone(),
+                "valid_scores": [v.clone() for v in self.valid_scores],
+                "n_models": len(self.models), "iter": self.iter_,
+                "shrinkage": self.shrinkage_rate, "rng": self._rng_state()}
+
+    def _guard_state_restore(self, st: dict, rng=None) -> None:
+        """Back to a restore point; the random streams to ``rng`` (the
+        point's own when None)."""
+        self.scores = st["scores"].clone()
+        self.valid_scores[:] = [v.clone() for v in st["valid_scores"]]
+        del self.models[st["n_models"]:]
+        self.iter_ = st["iter"]
+        self.shrinkage_rate = st["shrinkage"]
+        if rng is not None:
+            self._set_rng_state(rng)
+
+    def _rng_state(self) -> tuple:
+        """The learner's, the sampler's and the objective's random
+        streams."""
+        s, o = self.sample_strategy, self.objective
+        return (self.learner.rng_state(), getattr(s, "key", None),
+                getattr(s, "cur_mask", None), getattr(o, "key", None))
+
+    def _set_rng_state(self, st: tuple) -> None:
+        lr_state, skey, smask, okey = st
+        self.learner.set_rng_state(lr_state)
+        if skey is not None:
+            self.sample_strategy.key = skey
+            if hasattr(self.sample_strategy, "cur_mask"):
+                self.sample_strategy.cur_mask = smask
+        if okey is not None:
+            self.objective.key = okey
+
+    def guard_finish(self) -> bool:
+        """The non-finite guard's read of the last round's scores, once
+        when training ends; True when that round was dropped."""
+        return self.guard.finish(self)
 
     def _train_renewed(self, grad, hess, mask, init_scores) -> bool:
         """The JAX package's host-tree path for objectives that refit their
@@ -319,6 +384,8 @@ class GBDT:
         should_continue = False
         for k in range(K):
             rec = self._grow(grad[k], hess[k], mask)
+            if k == 0 and self.guard.after_first_tree(self):
+                return self.train_one_iter()
             tree = self.learner.materialize(rec)
             if tree.num_leaves > 1:
                 should_continue = True
@@ -340,12 +407,18 @@ class GBDT:
                 tree.leaf_value[0] = init_scores[k]
             self.models.append(tree)
         if not should_continue:
+            if self.guard.end_iteration(self):
+                # non-finite gradients made every leaf unsplittable: a
+                # skipped round, not convergence (gbdt.py:647)
+                self.last_iteration_skipped = True
+                return False
             log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
             if len(self.models) > K:
                 del self.models[-K:]
             return True
         self.iter_ += 1
+        self.last_iteration_skipped = self.guard.end_iteration(self)
         return False
 
     def _grow(self, grad, hess, mask):

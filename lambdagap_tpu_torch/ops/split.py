@@ -10,6 +10,13 @@ learner scans both children of a split in one call (the JAX package's
 ``vmap``). The f32 operations follow the JAX package's, in the same order;
 bitsets are int64 words holding u32 values (torch has no u32 shift on the
 CPU).
+
+The tree options enter here as they do in the JAX package's scan:
+monotone ``constraints`` clamp every candidate's child outputs to the
+leaf's bounds and veto the wrong direction, ``rand_thresholds``
+(extra_trees) keep one candidate threshold per feature, and ``gain_mult``
+(``feature_contri`` and the monotone split penalty) scales each
+feature's post-shift gain.
 """
 from __future__ import annotations
 
@@ -116,6 +123,31 @@ def split_gains(lg, lh, rg, rh, p: SplitParams, l_cnt=None, r_cnt=None,
             + leaf_gain(rg, rh, p, r_cnt, parent_output, l2_extra))
 
 
+def _clip(x, lo, hi):
+    """``jnp.clip``: the lower bound first, then the upper."""
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def monotone_split_penalty(depth, penalization: float) -> torch.Tensor:
+    """Gain multiplier of a split on a monotone-constrained feature at a
+    leaf depth (reference: monotone_constraints.hpp:357
+    ComputeMonotoneSplitGainPenalty), in float32 as the JAX package
+    computes it: ~0 for the first floor(penalization) levels, then a
+    decaying penalty. ``depth``: an int or an integer tensor."""
+    d = torch.as_tensor(depth).to(torch.float32)
+
+    def f32(v: float) -> torch.Tensor:
+        return torch.full((), v, dtype=torch.float32, device=d.device)
+
+    p = f32(penalization)
+    # XLA lowers exp2 as exp(x ln 2); so does the second branch, whose
+    # exponent is not an integer (it can part from XLA's by an ulp)
+    pen = (1.0 - p / torch.exp2(d) + K_EPSILON if penalization <= 1.0
+           else 1.0 - torch.exp((f32(penalization - 1.0) - d)
+                                * f32(0.6931471805599453)) + K_EPSILON)
+    return torch.where(p >= d + 1.0, f32(K_EPSILON), pen)
+
+
 def _take(a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """a[..., f, t[..., f]]"""
     return torch.gather(a, -1, t.unsqueeze(-1)).squeeze(-1)
@@ -135,10 +167,14 @@ def _cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def _numerical_best(hist, parent_g, parent_h, parent_c, parent_output,
                     num_bins, default_bins, missing_types, feature_mask,
-                    p: SplitParams):
+                    p: SplitParams, constraints=None, rand_thresholds=None):
     """Both-direction scan for all features at once. Aggregates arrive
-    shaped [..., 1, 1]. Returns per-feature best (gain, threshold,
-    default_left, left_g, left_h, left_c), each [..., F]."""
+    shaped [..., 1, 1]. ``constraints``: (monotone [F] in {-1, 0, +1},
+    min, max), the bounds shaped like the aggregates; ``rand_thresholds``:
+    [..., F], each feature's one candidate under extra_trees (reference:
+    feature_histogram.hpp:192-205 USE_RAND). Returns per-feature best
+    (gain, threshold, default_left, left_g, left_h, left_c), each
+    [..., F]."""
     B = hist.shape[-2]
     g, h, c = hist[..., 0], hist[..., 1], hist[..., 2]
     bin_idx = torch.arange(B, device=hist.device)[None, :]    # [1, B]
@@ -175,9 +211,23 @@ def _numerical_best(hist, parent_g, parent_h, parent_c, parent_output,
               & (right_c >= p.min_data_in_leaf)
               & (left_h >= p.min_sum_hessian_in_leaf)
               & (right_h >= p.min_sum_hessian_in_leaf))
-        gain = split_gains(left_g, left_h, right_g, right_h, p, left_c,
-                           right_c, parent_output)
-        return torch.where(ok, gain, K_MIN_SCORE)
+        if constraints is None:
+            gain = split_gains(left_g, left_h, right_g, right_h, p, left_c,
+                               right_c, parent_output)
+            return torch.where(ok, gain, K_MIN_SCORE)
+        # child outputs clamped to the leaf's bounds, the wrong direction
+        # vetoed on a constrained feature (reference:
+        # monotone_constraints.hpp:329 BasicLeafConstraints)
+        monotone, lo, hi = constraints
+        lout = _clip(calculate_leaf_output(left_g, left_h, p, left_c,
+                                           parent_output), lo, hi)
+        rout = _clip(calculate_leaf_output(right_g, right_h, p, right_c,
+                                           parent_output), lo, hi)
+        m = monotone[:, None]
+        veto = ((m > 0) & (lout > rout)) | ((m < 0) & (lout < rout))
+        gain = (leaf_gain_given_output(left_g, left_h, lout, p)
+                + leaf_gain_given_output(right_g, right_h, rout, p))
+        return torch.where(ok & ~veto, gain, K_MIN_SCORE)
 
     gain_f = eval_dir(lg_f, lh_f, lc_f)
     lg_r = parent_g - rg_r
@@ -189,6 +239,8 @@ def _numerical_best(hist, parent_g, parent_h, parent_c, parent_output,
     # the reverse scan with NaN-missing cannot put the NaN bin alone on the
     # right (reference: the reverse loop starts at num_bin-2-NA_AS_MISSING)
     cand = (bin_idx < nb - 1) & feature_mask[..., :, None]
+    if rand_thresholds is not None:
+        cand = cand & (bin_idx == rand_thresholds[..., :, None])
     cand_f = cand & ~(is_zero_missing & is_default)
     cand_r = cand_f & ~(is_nan_missing & (bin_idx == nb - 2))
     gain_f = torch.where(cand_f, gain_f, K_MIN_SCORE)
@@ -228,7 +280,8 @@ def _onehot_bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def _categorical_best(hist, parent_g, parent_h, parent_c, parent_output,
-                      num_bins, feature_mask, p: SplitParams):
+                      num_bins, feature_mask, p: SplitParams,
+                      constraints=None, rand_thresholds=None):
     """Categorical split search (reference: feature_histogram.hpp
     FindBestThresholdCategoricalInner): one-vs-rest for small cardinality,
     otherwise prefixes and suffixes of the bins sorted by
@@ -249,11 +302,33 @@ def _categorical_best(hist, parent_g, parent_h, parent_c, parent_output,
               & (right_c >= p.min_data_in_leaf)
               & (left_h >= p.min_sum_hessian_in_leaf)
               & (right_h >= p.min_sum_hessian_in_leaf))
-        gain = split_gains(left_g, left_h, right_g, right_h, p, left_c,
-                           right_c, parent_output, l2_extra=p.cat_l2)
+        if constraints is None:
+            gain = split_gains(left_g, left_h, right_g, right_h, p, left_c,
+                               right_c, parent_output, l2_extra=p.cat_l2)
+            return torch.where(ok, gain, K_MIN_SCORE)
+        # no direction veto on a categorical split; its child outputs
+        # still clamp to the leaf's bounds
+        _, lo, hi = constraints
+        lout = _clip(calculate_leaf_output(left_g, left_h, p, left_c,
+                                           parent_output, l2_extra=p.cat_l2),
+                     lo, hi)
+        rout = _clip(calculate_leaf_output(right_g, right_h, p, right_c,
+                                           parent_output, l2_extra=p.cat_l2),
+                     lo, hi)
+        gain = (leaf_gain_given_output(left_g, left_h, lout, p,
+                                       l2_extra=p.cat_l2)
+                + leaf_gain_given_output(right_g, right_h, rout, p,
+                                         l2_extra=p.cat_l2))
         return torch.where(ok, gain, K_MIN_SCORE)
 
-    onehot_gain = torch.where(valid_bin & fm, gains_for(g, h, c),
+    # extra_trees: one random candidate position per feature, the same
+    # draw indexing the one-hot bin and the sorted-order position
+    # (reference: feature_histogram.hpp:1152,1269 USE_RAND)
+    rand = fm
+    if rand_thresholds is not None:
+        rand = fm & (bin_idx == rand_thresholds[..., :, None]
+                     % torch.clamp(nb - 1, min=1))
+    onehot_gain = torch.where(valid_bin & rand, gains_for(g, h, c),
                               K_MIN_SCORE)
 
     score = torch.where(valid_bin, g / (h + p.cat_smooth), float("inf"))
@@ -269,7 +344,7 @@ def _categorical_best(hist, parent_g, parent_h, parent_c, parent_output,
     csum_h = _cumsum(h_s, -1)
     csum_c = _cumsum(c_s, -1)
     prefix_len = torch.cumsum(v_s.to(torch.int32), dim=-1)
-    sorted_cand = (prefix_len <= p.max_cat_threshold) & v_s & fm
+    sorted_cand = (prefix_len <= p.max_cat_threshold) & v_s & rand
     sorted_gain = torch.where(sorted_cand, gains_for(csum_g, csum_h, csum_c),
                               K_MIN_SCORE)
     # suffix direction: left set = bins AFTER position t in the order
@@ -277,7 +352,7 @@ def _categorical_best(hist, parent_g, parent_h, parent_c, parent_output,
     sfx_h = csum_h[..., -1:] - csum_h
     sfx_c = csum_c[..., -1:] - csum_c
     sfx_len = prefix_len[..., -1:] - prefix_len
-    sfx_cand = (sfx_len <= p.max_cat_threshold) & (sfx_len > 0) & v_s & fm
+    sfx_cand = (sfx_len <= p.max_cat_threshold) & (sfx_len > 0) & v_s & rand
     suffix_gain = torch.where(sfx_cand, gains_for(sfx_g, sfx_h, sfx_c),
                               K_MIN_SCORE)
 
@@ -321,17 +396,28 @@ def _categorical_best(hist, parent_g, parent_h, parent_c, parent_output,
 def per_feature_best(hist, parent_g, parent_h, parent_c, parent_output,
                      num_bins, default_bins, missing_types, is_categorical,
                      feature_mask, params: SplitParams,
-                     has_categorical: bool = False):
+                     has_categorical: bool = False, constraints=None,
+                     rand_thresholds=None):
     """Per-feature best split candidates for leaves ``[..., F, B, 3]``
-    (the per-feature stage of ``FindBestSplitsFromHistograms``). Returns
-    (gain, threshold, default_left, left_g, left_h, left_c) each [..., F]
-    and the bin-space bitsets [..., F, 8]."""
+    (the per-feature stage of ``FindBestSplitsFromHistograms``).
+    ``constraints``: (monotone [F], min, max) with the bounds shaped like
+    the leaf batch; ``rand_thresholds``: [..., F]. Returns (gain,
+    threshold, default_left, left_g, left_h, left_c) each [..., F] and the
+    bin-space bitsets [..., F, 8]."""
     p = params
-    pg, ph, pc, po = (torch.as_tensor(v, dtype=torch.float32,
-                                      device=hist.device)[..., None, None]
-                      for v in (parent_g, parent_h, parent_c, parent_output))
+
+    def agg(v):
+        return torch.as_tensor(v, dtype=torch.float32,
+                               device=hist.device)[..., None, None]
+
+    pg, ph, pc, po = (agg(v) for v in (parent_g, parent_h, parent_c,
+                                       parent_output))
+    if constraints is not None:
+        constraints = (constraints[0], agg(constraints[1]),
+                       agg(constraints[2]))
     num = _numerical_best(hist, pg, ph, pc, po, num_bins, default_bins,
-                          missing_types, feature_mask & ~is_categorical, p)
+                          missing_types, feature_mask & ~is_categorical, p,
+                          constraints, rand_thresholds)
     lead = hist.shape[:-2]
     if has_categorical:
         if hist.shape[-2] > CAT_WORDS * 32:
@@ -339,7 +425,8 @@ def per_feature_best(hist, parent_g, parent_h, parent_c, parent_output,
                 "categorical splits with more than 256 bins per feature "
                 "(ROADMAP.md, port queue)")
         cat = _categorical_best(hist, pg, ph, pc, po, num_bins,
-                                feature_mask & is_categorical, p)
+                                feature_mask & is_categorical, p,
+                                constraints, rand_thresholds)
     else:
         zf = torch.zeros(lead, dtype=torch.float32, device=hist.device)
         cat = (torch.full(lead, K_MIN_SCORE, device=hist.device),
@@ -376,19 +463,29 @@ class BestSplit(NamedTuple):
 def best_split(hist, parent_g, parent_h, parent_c, parent_output, depth,
                num_bins, default_bins, missing_types, is_categorical,
                feature_mask, params: SplitParams, has_categorical: bool,
-               max_depth: int) -> BestSplit:
+               max_depth: int, constraints=None, rand_thresholds=None,
+               gain_mult=None) -> BestSplit:
     """Best split of each leaf of a batch, with the parent-gain shift and
     the max_depth guard — the fused learner's ``best_of``
-    (lambdagap_tpu/models/fused_learner.py:813-920, no monotone/CEGB/
-    feature_contri terms). ``depth`` is the leaves' depth (an int or a
-    tensor shaped like the batch)."""
+    (lambdagap_tpu/models/fused_learner.py:813-920, without CEGB).
+    ``depth`` is the leaves' depth (an int or a tensor shaped like the
+    batch); ``constraints`` (monotone [F], min, max) clamp and veto as in
+    the scan and clamp the winner's outputs; ``rand_thresholds`` [..., F]
+    are extra_trees' candidates; ``gain_mult`` [..., F] scales each
+    feature's post-shift gain (``feature_contri`` times the monotone split
+    penalty, fused_learner.py:891-909)."""
     p = params
     gain, thr, dl, lg, lh, lc, bits = per_feature_best(
         hist, parent_g, parent_h, parent_c, parent_output, num_bins,
         default_bins, missing_types, is_categorical, feature_mask, p,
-        has_categorical)
+        has_categorical, constraints, rand_thresholds)
     shift = leaf_gain(parent_g, parent_h, p, parent_c, parent_output) \
         + p.min_gain_to_split
+    if gain_mult is not None:
+        sh = torch.as_tensor(shift, dtype=torch.float32,
+                             device=hist.device)[..., None]
+        gain = torch.where(torch.isfinite(gain),
+                           (gain - sh) * gain_mult + sh, gain)
     f = torch.argmax(gain, dim=-1)
     gf = _take(gain, f)
     g = gf - shift
@@ -399,6 +496,9 @@ def best_split(hist, parent_g, parent_h, parent_c, parent_output, depth,
     lout = calculate_leaf_output(lg_f, lh_f, p, lc_f, parent_output)
     rout = calculate_leaf_output(parent_g - lg_f, parent_h - lh_f, p,
                                  parent_c - lc_f, parent_output)
+    if constraints is not None:
+        lout = _clip(lout, constraints[1], constraints[2])
+        rout = _clip(rout, constraints[1], constraints[2])
     bits_f = torch.gather(bits, -2, f[..., None, None].expand(
         *f.shape, 1, CAT_WORDS)).squeeze(-2)
     return BestSplit(torch.where(ok, g, K_MIN_SCORE), f, _take(thr, f),
@@ -409,30 +509,36 @@ def best_split(hist, parent_g, parent_h, parent_c, parent_output, depth,
 def gather_threshold_split(hist_f, parent_g, parent_h, parent_c,
                            parent_output, feature: int, threshold: int,
                            num_bin: int, default_bin: int, missing_type: int,
-                           is_cat: bool, params: SplitParams) -> SplitResult:
+                           is_cat: bool, params: SplitParams,
+                           bounds=None) -> SplitResult:
     """Split info at a FIXED (feature, threshold) — the forced-splits scan
     (reference: feature_histogram.hpp:474-609
     GatherInfoForThresholdNumerical/Categorical). Numerical: right = bins in
     (threshold, num_bin) without the missing bin, so missing values ride
     left and ``default_left`` is True; categorical: bin == threshold goes
     left. The gain is shifted by the parent gain + min_gain_to_split and is
-    K_MIN_SCORE when the split is no better than not splitting."""
+    K_MIN_SCORE when the split is no better than not splitting. ``bounds``
+    (min, max): the leaf's monotone bounds, which clamp the child outputs
+    (not the gain). The bins are summed in float64 and rounded once, so the
+    card and the CPU agree to the bit."""
     p = params
     g, h, c = hist_f[:, 0], hist_f[:, 1], hist_f[:, 2]
     bin_idx = torch.arange(hist_f.shape[0], device=hist_f.device)
     in_range = bin_idx < num_bin
     excl = (((missing_type == MT_ZERO) & (bin_idx == default_bin))
             | ((missing_type == MT_NAN) & (bin_idx == num_bin - 1)))
+
+    def total(sel, x):
+        return torch.where(sel, x, 0.0).double().sum().float()
+
     if is_cat:
         sel = (bin_idx == threshold) & in_range
-        lg = torch.where(sel, g, 0.0).sum()
-        lh = torch.where(sel, h, 0.0).sum()
-        lc = torch.where(sel, c, 0.0).sum()
+        lg, lh, lc = total(sel, g), total(sel, h), total(sel, c)
     else:
         right = (bin_idx > threshold) & in_range & ~excl
-        lg = parent_g - torch.where(right, g, 0.0).sum()
-        lh = parent_h - torch.where(right, h, 0.0).sum()
-        lc = parent_c - torch.where(right, c, 0.0).sum()
+        lg = parent_g - total(right, g)
+        lh = parent_h - total(right, h)
+        lc = parent_c - total(right, c)
     rg, rh, rc = parent_g - lg, parent_h - lh, parent_c - lc
     l2x = p.cat_l2 if is_cat else 0.0
     gain_raw = split_gains(lg, lh, rg, rh, p, lc, rc, parent_output,
@@ -441,7 +547,13 @@ def gather_threshold_split(hist_f, parent_g, parent_h, parent_c,
         + p.min_gain_to_split
     usable = (lh > 0) & (rh > 0) & (lc > 0) & (rc > 0)
     splittable = usable & torch.isfinite(gain_raw) & (gain_raw > shift)
-    bits = (_onehot_bits(torch.tensor(threshold, device=hist_f.device))
+    lout = calculate_leaf_output(lg, lh, p, lc, parent_output, l2_extra=l2x)
+    rout = calculate_leaf_output(rg, rh, p, rc, parent_output, l2_extra=l2x)
+    if bounds is not None:
+        lout = _clip(lout, bounds[0], bounds[1])
+        rout = _clip(rout, bounds[0], bounds[1])
+    bits = (_onehot_bits(torch.full((), threshold, dtype=torch.int64,
+                                    device=hist_f.device))
             if is_cat else torch.zeros(CAT_WORDS, dtype=torch.int64,
                                        device=hist_f.device))
     return SplitResult(
@@ -450,8 +562,5 @@ def gather_threshold_split(hist_f, parent_g, parent_h, parent_c,
         default_left=torch.tensor(not is_cat),
         left_sum_g=lg, left_sum_h=lh, left_count=lc,
         right_sum_g=rg, right_sum_h=rh, right_count=rc,
-        left_output=calculate_leaf_output(lg, lh, p, lc, parent_output,
-                                          l2_extra=l2x),
-        right_output=calculate_leaf_output(rg, rh, p, rc, parent_output,
-                                           l2_extra=l2x),
+        left_output=lout, right_output=rout,
         is_categorical=torch.tensor(is_cat), cat_bitset=bits)

@@ -15,7 +15,12 @@ rounds the same gradients:
   the two hash words XORed, the top 23 bits as the mantissa of a float in
   [1, 2), minus 1);
 * :func:`fold_in` is ``jax.random.fold_in`` (``_threefry_fold_in``: the
-  key's hash of the counter pair (0, data)).
+  key's hash of the counter pair (0, data));
+* :func:`randint` is ``jax.random.randint`` for 32-bit integers
+  (``random.py _randint``: the key split in two, 32 random bits drawn from
+  each, folded together modulo the span with the multiplier
+  ``(2^16 mod span)^2 mod span``, all in uint32 arithmetic, plus
+  ``minval``), computed on the host in numpy.
 
 ``split``, ``uniform`` and ``fold_in`` also take a batch of keys ``[n, 2]``
 and give each key's result along a leading axis: ``jax.vmap`` of the same
@@ -31,14 +36,21 @@ there, so a draw of N numbers is some 100 elementwise torch ops over N
 int64 values and no host read.
 
 This is the XLA side of the JAX package, not one of its Pallas kernels:
-plain torch ops on the device are the port. ``randint`` comes with
-extra_trees and by-node sampling, in a later slice.
+plain torch ops on the device are the port.
+
+The tree learner draws a few numbers per leaf (extra_trees thresholds and
+by-node feature masks over the F features). Those draws run on the host
+in numpy (:func:`randint`, :func:`uniform_host`, the same hash over the
+same counters), and :func:`split` and :func:`fold_in` of a single key
+hash Python integers, so a split step pays microseconds for its keys and
+no device launch.
 """
 from __future__ import annotations
 
 import math
 from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -106,6 +118,10 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split(key, num)`` -> int64 ``[num, 2]`` on the key's
     device (``[n, num, 2]`` for a batch of keys ``[n, 2]``)."""
     k1, k2 = _words(key)
+    if isinstance(k1, int) and num <= 16:
+        # a single key: hash the counters as Python integers
+        return torch.tensor([_hash(k1, k2, 0, i) for i in range(num)],
+                            dtype=torch.int64, device=key.device)
     hi, lo = _counters(num, key.device)
     b0, b1 = _hash(k1, k2, hi, lo)
     return torch.stack(torch.broadcast_tensors(b0, b1), dim=-1)
@@ -116,6 +132,9 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     device (``[n, 2]`` for a batch of keys): the hash of the counter pair
     (0, data), ``data`` wrapped to 32 bits."""
     k1, k2 = _words(key)
+    if isinstance(k1, int):
+        return torch.tensor(_hash(k1, k2, 0, int(data) & _MASK),
+                            dtype=torch.int64, device=key.device)
     zero = torch.zeros(1, dtype=torch.int64, device=key.device)
     b0, b1 = _hash(k1, k2, zero, zero + (int(data) & _MASK))
     out = torch.stack(torch.broadcast_tensors(b0, b1), dim=-1)
@@ -130,9 +149,60 @@ def uniform(key: torch.Tensor, shape: Shape, device=None) -> torch.Tensor:
     dev = key.device if device is None else device
     k1, k2 = _words(key, dev)
     hi, lo = _counters(math.prod(shape), dev)
-    b0, b1 = _hash(k1, k2, hi, lo)
     # 32 random bits per element (the two words XORed); the top 23 under
     # the exponent of 1.0 make a float in [1, 2)
-    fbits = ((b0 ^ b1) >> 9) | 0x3F800000
+    fbits = (_bits(k1, k2, hi, lo) >> 9) | 0x3F800000
     out = fbits.to(torch.int32).view(torch.float32) - 1.0
     return out.reshape((-1,) + shape if key.dim() == 2 else shape)
+
+
+def _bits(k1, k2, hi, lo):
+    """32 random bits per counter (``_threefry_random_bits_partitionable``:
+    the two hash words XORed), in the arrays' own type."""
+    b0, b1 = _hash(k1, k2, hi, lo)
+    return b0 ^ b1
+
+
+def _span_mod(higher, lower, minval: int, maxval: int):
+    """``_randint``'s fold of two 32-bit draws into [minval, maxval), in
+    uint32 arithmetic on int64 arrays (torch or numpy): the low 32 bits of
+    an int64 product are those of the unsigned one even when it wraps."""
+    lo_ = max(min(int(minval), 2**31 - 1), -2**31)
+    hi_ = max(min(int(maxval), 2**31 - 1), -2**31)
+    span = (hi_ - lo_) & _MASK if hi_ > lo_ else 1
+    mult = ((2**16 % span) ** 2 & _MASK) % span
+    off = ((((higher % span) * mult) & _MASK) + (lower % span)) & _MASK
+    return lo_ + off % span
+
+
+def _host_words(keys: np.ndarray):
+    k = np.asarray(keys, dtype=np.int64).reshape(-1, 2) & _MASK
+    return k[:, :1], k[:, 1:]
+
+
+def uniform_host(keys: np.ndarray, n: int) -> np.ndarray:
+    """:func:`uniform` of each key of ``keys`` (int64 ``[k, 2]``) over
+    ``n`` counters, computed on the host in numpy: float32 ``[k, n]``."""
+    k1, k2 = _host_words(keys)
+    idx = np.arange(n, dtype=np.int64)[None, :]
+    fbits = (_bits(k1, k2, idx >> 32, idx & _MASK) >> 9) | 0x3F800000
+    return fbits.astype(np.uint32).view(np.float32) - np.float32(1.0)
+
+
+def randint(keys, shape: Shape, minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32, scalar
+    bounds) of one key ``[2]``, or of each key of a batch ``[k, 2]`` (int64,
+    a CPU tensor or a numpy array), computed on the host in numpy: int64
+    ``shape``, or ``[k, *shape]`` for a batch."""
+    shape = _shape(shape)
+    keys = np.asarray(keys, dtype=np.int64)
+    k1, k2 = _host_words(keys)
+    sub = [[_hash(int(a), int(b), 0, i) for i in (0, 1)]
+           for a, b in zip(k1[:, 0], k2[:, 0])]
+    sub = np.asarray(sub, dtype=np.int64)           # [k, 2 subkeys, 2]
+    idx = np.arange(math.prod(shape), dtype=np.int64)[None, :]
+    hi, lo = idx >> 32, idx & _MASK
+    out = _span_mod(_bits(sub[:, 0, :1], sub[:, 0, 1:], hi, lo),
+                    _bits(sub[:, 1, :1], sub[:, 1, 1:], hi, lo), minval,
+                    maxval)
+    return out.reshape(((-1,) if keys.ndim == 2 else ()) + shape)

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone and never falls back to the CPU.
 
-``lambdagap_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
+``lambdagap_tpu_torch``, ``chip_smoke.py`` and the A/B scripts
+(``dispatch_ab.py``, ``train_ab.py``) import neither ``jax`` nor
 ``lambdagap_tpu``: a subprocess with both blocked in ``sys.modules`` loads
 a JAX-saved model, predicts and serves on the CPU, then trains quantized
 and bagged over EFB bundles (the threefry draws, the samplers, the int8
@@ -97,7 +98,7 @@ def _imports(path: Path):
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(REPO).as_posix()
      for p in (REPO / "lambdagap_tpu_torch").rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "dispatch_ab.py", "train_ab.py"]))
 def test_no_source_imports_jax_or_the_jax_package(path):
     for name in _imports(REPO / path):
         top = name.split(".")[0]

@@ -63,3 +63,40 @@ def test_uniform_on_a_large_draw_equals_jax():
 def test_a_key_has_two_words():
     with pytest.raises(ValueError, match="two words"):
         prng.split(torch.zeros(3, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("seed", [0, 6, 42, 2**31 - 1])
+@pytest.mark.parametrize("shape", [1, 28, 1001, (3, 5)])
+@pytest.mark.parametrize("minval, maxval", [
+    (0, 1 << 30), (0, 7), (-5, 100), (3, 3), (0, 65536), (0, 196611),
+    (-2**31, 2**31 - 1)])
+def test_randint_equals_jax(seed, shape, minval, maxval):
+    """``jax.random.randint`` (int32): the two-draw fold with its uint32
+    multiplier, spans of a power of two and not, an empty span, the full
+    int32 range; extra_trees draws ``(0, 1 << 30)``."""
+    kj = jax.random.fold_in(jax.random.PRNGKey(seed), 17)
+    kt = prng.fold_in(prng.PRNGKey(seed), 17)
+    shp = (shape,) if isinstance(shape, int) else shape
+    want = np.asarray(jax.random.randint(kj, shp, minval, maxval))
+    got = prng.randint(kt, shape, minval, maxval)
+    assert got.shape == want.shape
+    assert torch.equal(torch.from_numpy(got),
+                       torch.from_numpy(want.astype(np.int64)))
+
+
+def test_host_draws_equal_jax_for_a_batch_of_keys():
+    """The learner's host draws over a batch of keys are jax's draws of
+    each key: ``randint`` and ``uniform_host`` over the features."""
+    keys_j = [jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(6),
+                                                    k), s)
+              for k in (0, 5, 254) for s in (0, 1)]
+    keys_t = torch.stack([prng.fold_in(prng.fold_in(prng.PRNGKey(6), k), s)
+                          for k in (0, 5, 254) for s in (0, 1)])
+    assert torch.equal(
+        torch.from_numpy(prng.randint(keys_t, 28, 0, 1 << 30)),
+        torch.from_numpy(np.stack([
+            np.asarray(jax.random.randint(k, (28,), 0, 1 << 30))
+            for k in keys_j]).astype(np.int64)))
+    np.testing.assert_array_equal(
+        prng.uniform_host(keys_t.numpy(), 28),
+        np.stack([np.asarray(jax.random.uniform(k, (28,))) for k in keys_j]))

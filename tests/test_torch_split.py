@@ -123,6 +123,40 @@ def test_per_feature_best_equals_jax(seed, params):
     np.testing.assert_allclose(gain[live], gain_r[live], rtol=1e-5)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("bounds", [(-np.inf, np.inf), (-0.05, 0.08)])
+def test_per_feature_best_with_tree_options_equals_jax(seed, bounds):
+    """Monotone constraints (clamped outputs, the direction veto on the
+    numerical features, the clamp alone on the categorical ones) and
+    extra_trees' one random candidate per feature, in both scans: the
+    same gains and thresholds as the JAX package's."""
+    case = _case(seed)
+    nb, cat = case[2], case[5]
+    rng = np.random.RandomState(seed + 50)
+    rand = (rng.randint(0, 1 << 30, len(nb)) % np.maximum(nb - 1, 1)
+            ).astype(np.int32)
+    mono = np.where(cat, 0, rng.randint(-1, 2, len(nb))).astype(np.int32)
+    lo, hi = (np.float32(v) for v in bounds)
+    jp, pp = jsplit.SplitParams(max_cat_to_onehot=8), \
+        psplit.SplitParams(max_cat_to_onehot=8)
+    ref = [np.asarray(a) for a in jsplit.per_feature_best(
+        *_jax_args(*case), jp, has_categorical=True,
+        constraints=(jnp.asarray(mono), jnp.float32(lo), jnp.float32(hi)),
+        rand_thresholds=jnp.asarray(rand))]
+    got = [a.numpy() for a in psplit.per_feature_best(
+        *_port_args(*case), pp, has_categorical=True,
+        constraints=(torch.from_numpy(mono).long(), torch.tensor(lo),
+                     torch.tensor(hi)),
+        rand_thresholds=torch.from_numpy(rand).long())]
+    live = np.isfinite(ref[0])
+    np.testing.assert_array_equal(np.isfinite(got[0]), live)
+    assert live.any()
+    num = live & ~cat
+    np.testing.assert_array_equal(got[1][num], ref[1][num])
+    np.testing.assert_allclose(got[0][live], ref[0][live], rtol=1e-5,
+                               atol=1e-6)
+
+
 @pytest.mark.parametrize("seed", [3, 4])
 @pytest.mark.parametrize("params", PARAMS)
 def test_best_split_equals_find_best_split(seed, params):

@@ -266,11 +266,16 @@ def test_saturated_max_delta_step_differs_from_jax_only_at_a_tie():
 
 
 @pytest.mark.parametrize("params", [
-    {"extra_trees": True},
-    {"feature_fraction_bynode": 0.5},
-    {"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0]},
-    {"interaction_constraints": [[0, 1], [2, 3]]},
+    {"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
+     "monotone_constraints_method": "advanced"},
     {"cegb_tradeoff": 1.0, "cegb_penalty_split": 0.1},
+    {"guard_faults": "nan_grad@2"},
+    {"telemetry": True},
+    {"timetag": True},
+    {"telemetry_out": "run.jsonl"},
+    {"profile_start_iter": 1},
+    {"stream_spill_dir": "spill"},
+    {"mesh_shape": "2x1"},
     {"linear_tree": True},
     {"data_residency": "stream"},
     {"tree_learner": "data"},
@@ -280,23 +285,37 @@ def test_saturated_max_delta_step_differs_from_jax_only_at_a_tie():
     {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
     {"tree_learner": "feature"},
     {"tree_learner": "voting"},
-    {"feature_contri": [1.0] * 8},
     {"snapshot_freq": 1},
 ])
 def test_unported_options_refuse_loudly(params, tmp_path):
+    """Every option the port does not train, and a non-default value of
+    every knob of a layer it does not carry, refuses by name; the
+    host-learner options name the next slice."""
     X, y = _fused_data(seed=15)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    knob = next(iter(params))
+    with pytest.raises(NotImplementedError, match="not ported") as err:
         lgt.train({"verbose": -1, **CPU, **params},
                   lgt.Dataset(X, label=y), 2)
+    name = {"timetag": "telemetry", "cegb_tradeoff": "cegb"}.get(knob, knob)
+    assert name in str(err.value)
+    if knob in ("monotone_constraints", "cegb_tradeoff"):
+        assert "next slice" in str(err.value)
 
 
-def test_forced_splits_refuse_loudly(tmp_path):
-    path = tmp_path / "forced.json"
-    path.write_text('{"feature": 0, "threshold": 0.0}')
+@pytest.mark.parametrize("knob, value", [
+    ("serve_trace_sample", 0.5), ("serve_trace_out", "spans.jsonl"),
+    ("serve_hbm_budget_mb", 64.0), ("profile_serve_start_req", 3),
+    ("serve_autonomics", True), ("serve_autonomics_placement", False)])
+def test_unported_serve_knobs_refuse_loudly(knob, value):
+    """A serve knob of a layer the port does not carry refuses by name in
+    as_server; its default does not."""
     X, y = _fused_data(seed=16)
-    with pytest.raises(NotImplementedError, match="forcedsplits_filename"):
-        lgt.train({"verbose": -1, "forcedsplits_filename": str(path), **CPU},
-                  lgt.Dataset(X, label=y), 2)
+    bst = lgt.train({"verbose": -1, **CPU}, lgt.Dataset(X, label=y), 1)
+    with bst.as_server() as server:
+        server.predict(X[:3])
+    bst.config = lgt.Config.from_params({**bst.params, knob: value})
+    with pytest.raises(NotImplementedError, match=knob):
+        bst.as_server()
 
 
 def _node_rows(tree, binned):
