@@ -3,7 +3,7 @@
 CUDA card and check them.
 
     python3 chip_smoke.py [--seed N] [--rows N]
-                          [--only kernels|rank|objectives|predict|shap|options]
+                          [--only kernels|rank|objectives|predict|shap|options|serial]
 
 Run from the root of a checkout. Phases, each fatal on failure:
 
@@ -184,6 +184,27 @@ T15b. (a)-(h) at 16,000 x 20, 31 leaves, 10 rounds, on the card and on
    finite round of a poisson run whose exp overflows (card == CPU),
    ``clip`` trains NaN labels to a finite model (``--only options`` runs
    phases 1-2, T3, T15 and T15b);
+T16. the host-driven serial learner (``tpu_fused_learner=0``) on T3's
+   Datasets at HIGGS width, 3 rounds of each of (s) no option, (c) CEGB
+   (split penalty 0.1, a coupled cost on 8 features; its trees are
+   stumps), (r) the same with a split penalty of 0.001, (l) lazy CEGB
+   with bagging 0.8/1 and (v) advanced monotone on T15's four features,
+   the counts zeroed just before each run and read just after: K1
+   launches == the histograms built (the root's and each split's smaller
+   child's, none after a tree's last split), validation logloss falls,
+   (s)'s validation predictions within rtol 1e-4 / atol 1e-5 of T3's
+   fused model at 3 rounds, (c) and (r) on fewer distinct features than
+   (s) and none of the coupled 8, (r)'s trees more than 2 leaves and
+   fewer than 255 while (s) splits on a coupled feature, (v) monotone
+   along every sweep, reruns of (l) and (v) bit-identical,
+   the served model == the scan oracle; per variant the round walls, the
+   host syncs of a tree and one more tree's phases (its advanced bounds and
+   re-scans as ``constraints``);
+T16b. (s), (c), (r), (l), (v), 3-class softmax and regression_l1 on the
+   serial learner at 16,000 x 20, 31 leaves, 10 rounds, on the card and
+   on the CPU: training-row predictions within rtol 1e-4 / atol 1e-5,
+   best_iteration equal, the card's leaves a tree (``--only serial`` runs phases 1-2, T3, T16 and
+   T16b);
 6. the kernels line (one JSON object, eight entries; each entry's
    ``max_abs_err`` the largest of its kernel's comparisons, T13's K1 in
    ``hist_rows@covtype`` and T11c's K2 in ``hist_rows_q``; the fused
@@ -1177,10 +1198,11 @@ def quant_phase(t3: dict, smi: str):
     return bst, k2
 
 
-def card_vs_cpu(params: dict, Xt, yt, Xv, yv, rounds: int):
+def card_vs_cpu(params: dict, Xt, yt, Xv, yv, rounds: int,
+                metric: str = "auc"):
     """Train the same run on the card and on the CPU. Returns
-    {device: (training-row predictions, best_iteration, validation AUC,
-    seconds, booster)}."""
+    {device: (training-row predictions, best_iteration, validation
+    ``metric`` (AUC), seconds, booster)}."""
     import lambdagap_tpu_torch as lgt
     out = {}
     for device in ("cuda", "cpu"):
@@ -1191,7 +1213,7 @@ def card_vs_cpu(params: dict, Xt, yt, Xv, yv, rounds: int):
                         valid_sets=[va],
                         callbacks=[lgt.early_stopping(5, verbose=False)])
         out[device] = (bst.predict(Xt), bst.best_iteration,
-                       bst.best_score["valid_0"]["auc"],
+                       bst.best_score["valid_0"][metric],
                        time.perf_counter() - t0, bst)
     (pc, bc, _, _, _), (pp, bp, _, _, _) = out["cuda"], out["cpu"]
     # training rows: the card's histograms equal the CPU's (exact sums),
@@ -1779,13 +1801,23 @@ def leaves_built(bst) -> int:
                if ln.startswith("num_leaves="))
 
 
+def serial_built(bst) -> int:
+    """The leaf histograms the serial learner built: the root's and the
+    smaller child's at each split but a tree's last when that split filled
+    the tree (``num_leaves`` leaves: no child is scanned after it)."""
+    L = bst._booster.config.num_leaves
+    return sum(t.num_leaves - (t.num_leaves == L)
+               for t in bst._booster.host_models)
+
+
 def probed_train(params: dict, tr, va, rounds: int, tag: str, smi: str,
                  keep_scores: bool = False):
     """Train with the launch counts zeroed just before and read just
     after, under a :class:`_RoundProbe`; checks K1 (or, quantized, K2)
-    launches == the leaf histograms built, the other kernel unlaunched,
-    and prints each round's numbers. Returns (booster, evaluation history,
-    probe, launches)."""
+    launches == the leaf histograms built (by the fused learner's rule, or
+    the serial learner's: :func:`serial_built`), the other kernel
+    unlaunched, and prints each round's numbers. Returns (booster,
+    evaluation history, probe, launches)."""
     import torch
     import lambdagap_tpu_torch as lgt
     from lambdagap_tpu_torch.ops import hist_cuda as hc
@@ -1804,8 +1836,8 @@ def probed_train(params: dict, tr, va, rounds: int, tag: str, smi: str,
     train_s = time.perf_counter() - t0
     k1, k2 = hc.HIST_LAUNCHES.launches, hc.HIST_Q_LAUNCHES.launches
     gb = bst._booster
-    quant = bool(params.get("use_quantized_grad"))
-    built = leaves_built(bst)
+    quant = bool(params.get("use_quantized_grad")) and not gb.serial
+    built = serial_built(bst) if gb.serial else leaves_built(bst)
     used, other = (k2, k1) if quant else (k1, k2)
     check(gb.scores.device.type == "cuda" and gb.learner.x_rows.is_cuda,
           f"{tag}: did not train on the card")
@@ -2572,7 +2604,7 @@ def tree_phases(bst, smi: str, tag: str) -> None:
     grad, hess, mask = gb.sample_strategy.sample(gb.iter_, grad, hess)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    lr.train_device(grad[0], hess[0], mask)
+    (lr.train if gb.serial else lr.train_device)(grad[0], hess[0], mask)
     torch.cuda.synchronize()
     tree_ms = (time.perf_counter() - t1) * 1e3
     lr.time_phases = False
@@ -2726,6 +2758,159 @@ def options_phases(t3: dict, dev, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# T16-T16b: the host-driven serial learner at HIGGS width; card against CPU
+# ---------------------------------------------------------------------------
+SERIAL_ROUNDS = 3
+SERIAL_CPU_ROUNDS = 10          # T16b: early_stopping(5) can fire
+# eight features with a coupled cost, six of them ones the label depends on
+T16_COUPLED = (1, 2, 3, 4, 5, 9, 13, 17)
+# (r)'s split penalty, paid a row of the split leaf: (c)'s 0.1 a row
+# outweighs every split below the root at 10.5M rows (2-leaf trees); at
+# 0.001 the CPU grew 20-23 leaves a tree at 1M rows of T3's data
+T16_SPLIT_PER_ROW = 0.001
+
+
+def serial_variants(f: int, mono: dict) -> list:
+    """(tag, what, params) of T16's variants (s), (c), (r), (l), (v) at
+    ``f`` features, all on ``tpu_fused_learner=0``."""
+    lazy = [0.01 * (1 + j % 5) for j in range(f)]
+    coupled = [1e6 if j in T16_COUPLED else 0.0 for j in range(f)]
+    return [
+        ("s", "tpu_fused_learner=0", {}),
+        ("c", "CEGB: split 0.1, coupled on 8 features",
+         {"cegb_tradeoff": 1.0, "cegb_penalty_split": 0.1,
+          "cegb_penalty_feature_coupled": coupled}),
+        ("r", "CEGB: split 0.001, coupled on 8 features",
+         {"cegb_tradeoff": 1.0, "cegb_penalty_split": T16_SPLIT_PER_ROW,
+          "cegb_penalty_feature_coupled": coupled}),
+        ("l", "lazy CEGB + bagging 0.8/1",
+         {"cegb_penalty_feature_lazy": lazy, "bagging_fraction": 0.8,
+          "bagging_freq": 1}),
+        ("v", "monotone advanced",
+         {"monotone_constraints": [mono.get(j, 0) for j in range(f)],
+          "monotone_constraints_method": "advanced"}),
+    ]
+
+
+def serial_phase(t3: dict, dev, smi: str) -> dict:
+    """T16: the serial learner on T3's Datasets at HIGGS width, 3 rounds
+    of each variant, the counts zeroed just before each run and read just
+    after."""
+    import lambdagap_tpu_torch as lgt
+    Xva = t3["Xva"]
+    Xs = np.ascontiguousarray(Xva[:1000])
+    out, feats = {}, {}
+    for tag, what, extra in serial_variants(F, T15_MONO):
+        name = f"T16({tag})"
+        params = {**t3["params"], "tpu_fused_learner": "0", **extra}
+        t0 = time.perf_counter()
+        bst, hist, probe, used = probed_train(params, t3["train"],
+                                              t3["valid"], SERIAL_ROUNDS,
+                                              f"{name} [{what}]", smi)
+        wall = time.perf_counter() - t0
+        gb = bst._booster
+        check(gb.serial, f"{name}: did not train on the serial learner")
+        ll = hist["binary_logloss"]
+        check(ll[-1] < ll[0], f"{name}: valid logloss did not fall: "
+              f"{ll[0]} -> {ll[-1]}")
+        trees = gb.host_models
+        syncs = gb.learner.host_syncs
+        feats[tag] = {f for t in trees for f in t.split_feature}
+        notes = []
+        if tag == "s":
+            # the same trees as the fused learner's: T3's model at 3 rounds
+            got = bst.predict(Xva)
+            want = t3["bst"].predict(Xva, num_iteration=SERIAL_ROUNDS)
+            d = float(np.abs(got - want).max())
+            check(np.allclose(got, want, rtol=1e-4, atol=1e-5),
+                  f"{name}: validation predictions part from the fused "
+                  f"learner's T3 model (max |diff| {d})")
+            notes.append(f"validation predictions == T3's fused model at "
+                         f"{SERIAL_ROUNDS} rounds (max |diff| {d:.3g})")
+        if tag in ("c", "r"):
+            check(len(feats[tag]) < len(feats["s"]),
+                  f"{name}: {len(feats[tag])} distinct features, not fewer "
+                  f"than (s)'s {len(feats['s'])}")
+            check(not feats[tag] & set(T16_COUPLED),
+                  f"{name}: split on a coupled feature "
+                  f"{sorted(feats[tag] & set(T16_COUPLED))}")
+            notes.append(f"{len(feats[tag])} distinct features, (s) "
+                         f"{len(feats['s'])}, none of the coupled 8")
+        if tag == "r":
+            # the coupled cost keeps out features (s) splits on, and the
+            # split penalty stops trees short of num_leaves but past stumps
+            check(bool(feats["s"] & set(T16_COUPLED)),
+                  f"{name}: (s) used none of the coupled 8")
+            sizes = [t.num_leaves for t in trees]
+            check(all(2 < n < LEAVES for n in sizes),
+                  f"{name}: trees of {sizes} leaves, not between 3 and "
+                  f"{LEAVES - 1}")
+        if tag == "l":
+            check(bool(gb.learner._paid.any()), f"{name}: no row paid")
+        if tag == "v":
+            check_monotone(bst, Xs, T15_MONO, name)
+            notes.append("monotone along every sweep")
+        if tag in ("l", "v"):
+            again = lgt.train(params, t3["train"], SERIAL_ROUNDS,
+                              valid_sets=[t3["valid"]])
+            check(again.model_to_string() == bst.model_to_string(),
+                  f"{name}: a rerun grew different trees")
+            notes.append("rerun bit-identical")
+        tree_phases(bst, smi, name)
+        serve_trained_phase(bst, Xva, dev, smi, tag=name)
+        print(f"{name} [{what}]: {len(trees)} trees of "
+              f"{[t.num_leaves for t in trees]} leaves; host syncs in the "
+              f"last tree {syncs}; K1 launches {used} == histograms built; "
+              f"valid logloss {ll[0]:.5f} -> {ll[-1]:.5f}; "
+              + "; ".join(notes) + f"; {wall:.1f} s [{smi}]")
+        out[tag] = {"walls": [r["wall"] for r in probe.rounds],
+                    "syncs": syncs, "launches": used}
+    return out
+
+
+def serial_card_vs_cpu_phase(smi: str) -> None:
+    """T16b: (s), (c), (r), (l), (v), softmax and regression_l1 on the
+    serial learner at 16,000 x 20, 31 leaves, 10 rounds, on the card and
+    on the CPU."""
+    rng = np.random.RandomState(0)
+    X = rng.randn(20_000, 20)
+    z = X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + 0.3 * rng.randn(20_000)
+    y = (z > 0).astype(np.float64)
+    base = {"objective": "binary", "metric": ["auc", "binary_logloss"],
+            "num_leaves": 31, "learning_rate": 0.1, "verbose": -1,
+            "tpu_fused_learner": "0"}
+    runs = [(f"({tag}) {what}", {**base, **extra}, y, "auc")
+            for tag, what, extra in serial_variants(20, T15_MONO)]
+    runs += [
+        ("softmax (3 classes)", {**base, "objective": "multiclass",
+                                 "num_class": 3, "metric": "multi_logloss"},
+         np.digitize(z, np.quantile(z, [1 / 3, 2 / 3])).astype(float),
+         "multi_logloss"),
+        ("regression_l1", {**base, "objective": "regression_l1",
+                           "metric": "l1"}, 10 * z + 50, "l1")]
+    for what, params, label, metric in runs:
+        out = card_vs_cpu(params, X[:16_000], label[:16_000], X[16_000:],
+                          label[16_000:], SERIAL_CPU_ROUNDS, metric)
+        (pc, bc, mc, sc, b), (pp, _, _, sp, _) = out["cuda"], out["cpu"]
+        check(b._booster.serial, f"T16b {what}: not the serial learner")
+        print(f"T16b card == CPU [{what}]: predictions max |diff| "
+              f"{np.abs(pc - pp).max():.3g}, best_iteration {bc}, valid "
+              f"{metric} {mc:.5f}; trees of "
+              f"{[t.num_leaves for t in b._booster.host_models]} leaves; "
+              f"train {sc:.1f} s on the card, {sp:.1f} s on the CPU [{smi}]")
+
+
+def serial_phases(t3: dict, dev, smi: str) -> dict:
+    t0 = time.perf_counter()
+    t16 = serial_phase(t3, dev, smi)
+    print(f"T16: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serial_card_vs_cpu_phase(smi)
+    print(f"T16b: {time.perf_counter() - t0:.1f} s")
+    return t16
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2733,7 +2918,7 @@ def main() -> int:
                     help="training rows of phase T3 (HIGGS's count)")
     ap.add_argument("--only", choices=("all", "kernels", "rank",
                                        "objectives", "predict", "shap",
-                                       "options"),
+                                       "options", "serial"),
                     default="all",
                     help="kernels: phases 1-4 (with the SASS check), T2 and "
                     "T2q; rank: phases 1-2, T8, T2 at 136 features, T9 and "
@@ -2741,8 +2926,8 @@ def main() -> int:
                     "width, T11-serve, T12 and T13; predict: phases 1-3, "
                     "phase 5's scan oracle, T3, T11a and T14; shap: phases "
                     "1-3 and T14's kernel S checks; options: phases 1-2, "
-                    "T3, T15 and T15b; each then stops without a result "
-                    "line")
+                    "T3, T15 and T15b; serial: phases 1-2, T3, T16 and "
+                    "T16b; each then stops without a result line")
     args = ap.parse_args()
 
     import torch
@@ -2801,6 +2986,13 @@ def main() -> int:
         options_phases(t3, dev, smi)
         print(f"chip_smoke: option phases passed in "
               f"{time.perf_counter() - t_start:.1f} s (--only options: no "
+              "result)")
+        return 0
+    if args.only == "serial":
+        t3 = train_phase(args, smi)
+        serial_phases(t3, dev, smi)
+        print(f"chip_smoke: serial phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--only serial: no "
               "result)")
         return 0
     if args.only == "objectives":
@@ -2943,6 +3135,9 @@ def main() -> int:
 
     # -- T15. the tree options on T3's Datasets; T15b card vs CPU, guard -----
     options_phases(t3, dev, smi)
+
+    # -- T16. the serial learner on T3's Datasets; T16b card vs CPU ----------
+    serial_phases(t3, dev, smi)
 
     # -- T8. ranking at MSLR width; T2 at 136 features; T9; T10 -------------
     t8, k1m = rank_phases(args, dev, smi)

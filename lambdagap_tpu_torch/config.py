@@ -507,7 +507,7 @@ class Config:
     tree_layout: str = "auto"                 # auto / gather / sorted
     tpu_num_devices: int = 0                  # 0 = all visible devices
     mesh_shape: str = ""                      # device mesh extents "DATAxFEATURE" over parallel/sharding.py axes ("8", "8x1", "1x8", "4x2", wildcard "0x4"/"2x0" = all remaining devices on that axis); an explicit AxB grid routes distributed training through the fused 2-D data x feature learner; "" = 1-D on the learner's natural axis with tpu_num_devices devices
-    tpu_fused_learner: str = "auto"           # auto / 1 / 0: auto and 1 train with the device-resident FusedTreeLearner on the card and on the CPU alike; 0 (the host-driven SerialTreeLearner) raises NotImplementedError until it is ported
+    tpu_fused_learner: str = "auto"           # auto / 1 / 0: auto and 1 train with the device-resident FusedTreeLearner on the card and on the CPU alike (CEGB and monotone_constraints_method=advanced still go to the serial learner, with a warning); 0 trains with the host-driven SerialTreeLearner
     tpu_fast_predict_rows: int = 10000        # route predict batches up to this many rows through the threaded native traverser
     # -- out-of-core streaming training (docs/performance.md) -------------
     # where the packed binned matrix lives during training:

@@ -18,8 +18,9 @@ admitted, ``[isfinite(grad).all() & isfinite(hess).all(),
 isfinite(scores).all()]``, with the scores as they enter the round. Its
 host read rides the round's first record read in the tree learner
 (``FusedTreeLearner.train_device``, the root step of the round's first
-tree), so the guard adds no sync point to a round. A round whose tree
-never reads (``num_leaves=1``) reads the flag alone.
+tree; ``SerialTreeLearner.train``, the root's read), so the guard adds no
+sync point to a round. A fused round whose tree never reads
+(``num_leaves=1``) reads the flag alone.
 
 The JAX package checks the scores after the round's update; the port
 checks them as the next round enters. The finiteness of the scores a round

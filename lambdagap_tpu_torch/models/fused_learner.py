@@ -59,14 +59,14 @@ port keeps the algorithm and the device residency, not the loop form:
   back once (a second host read of that step) and re-scanned in one
   batched scan before the next step's argmax.
 
-The sorted layout, streaming, CEGB and ``monotone_constraints_method=
-advanced`` (the JAX package's host-driven learner) are refused where the
-booster is built (``models/gbdt.py``).
+CEGB and ``monotone_constraints_method=advanced`` train on the host-driven
+``SerialTreeLearner`` (``models/learner.py``), where the booster routes
+them; the sorted layout and streaming are refused where the booster is
+built (``models/gbdt.py``).
 """
 from __future__ import annotations
 
-import contextlib
-from typing import Dict, List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -80,9 +80,9 @@ from ..ops.histogram import subtract_histogram, unbundle_hist
 from ..ops.partition import decision_go_left, decode_bundled, \
     split_partition
 from ..ops.split import CAT_WORDS, K_MIN_SCORE, BestSplit, best_split, \
-    calculate_leaf_output, gather_threshold_split, monotone_split_penalty
+    calculate_leaf_output, gather_threshold_split
 from ..utils import prng
-from .learner import SerialTreeLearner, _next_pow2
+from .learner import SerialTreeLearner, _next_pow2, _PhaseTimer
 from .tree import Tree
 
 # leaf_f columns (the last two: the leaf's monotone bounds)
@@ -116,62 +116,12 @@ class DeviceTree(NamedTuple):
     row_leaf: Optional[torch.Tensor]  # int64 [N] leaf of each training row
 
 
-class _PhaseTimer:
-    """Device-stream time of named phases within one tree, from CUDA events
-    around each phase (launch gaps inside a phase count). Off unless
-    ``FusedTreeLearner.time_phases`` is set; the CPU has no events."""
-
-    def __init__(self, enabled: bool) -> None:
-        self.enabled = enabled
-        self.events: Dict[str, List] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        if not self.enabled:
-            yield
-            return
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        yield
-        b.record()
-        self.events.setdefault(name, []).append((a, b))
-
-    def totals_ms(self) -> Dict[str, float]:
-        if not self.enabled:
-            return {}
-        torch.cuda.synchronize()
-        return {k: sum(a.elapsed_time(b) for a, b in v)
-                for k, v in self.events.items()}
-
-
 class FusedTreeLearner(SerialTreeLearner):
     """Leaf-wise learner whose state stays on the device."""
 
     def __init__(self, dataset: BinnedDataset, config: Config,
                  device: torch.device) -> None:
         super().__init__(dataset, config, device)
-        meta = self.meta_host
-        # EFB (the JAX learner, fused_learner.py:91-114): histograms and
-        # partitions run over the bundled matrix when the dataset forms one
-        bun = dataset.ensure_bundle(config)
-        self.bundle = bun
-        if bun is not None:
-            hx = bun.cols
-            self.Bb = _next_pow2(max(bun.num_bins))
-            src, kind = unbundle_map(bun, meta["num_bins"],
-                                     meta["default_bins"], self.B, self.Bb)
-            self.ub_src = torch.from_numpy(src.astype(np.int64)).to(device)
-            self.ub_kind = torch.from_numpy(kind).to(device)
-        else:
-            hx = dataset.binned
-            self.Bb = self.B
-        self.x_rows = torch.from_numpy(np.ascontiguousarray(hx)).to(device)
-        # column-major copy for the partition's feature-column reads (the
-        # JAX package's x_cols); u16 widens to int32 (torch indexes no u16
-        # everywhere)
-        cols = self.x_rows.T.contiguous()
-        self.x_cols = cols if cols.dtype == torch.uint8 else cols.int()
         # quantized gradients (the JAX learner, fused_learner.py:116-155):
         # K2 sums int8 levels in int32, exact while rows x levels stays
         # below int32 max
@@ -186,7 +136,8 @@ class FusedTreeLearner(SerialTreeLearner):
                     "(ROADMAP.md) — lower num_grad_quant_bins")
             self._qkey = prng.PRNGKey(config.data_random_seed + 7919)
         # the tree options' step state (fused_learner.py:156-172); the
-        # booster refuses monotone_constraints_method=advanced
+        # booster routes monotone_constraints_method=advanced to the
+        # serial learner
         self.inter = self.mono_on and self.mono_method == "intermediate"
         self.bynode = config.feature_fraction_bynode < 1.0
         self.forced_seq = (self._build_forced_seq(max(config.num_leaves - 1,
@@ -198,25 +149,33 @@ class FusedTreeLearner(SerialTreeLearner):
             # thresholds, feature_fraction_seed the by-node sampling
             self._ekey = prng.PRNGKey(config.extra_seed)
             self._bkey = prng.PRNGKey(config.feature_fraction_seed + 7)
-        self._mult_cache: Dict[int, Optional[torch.Tensor]] = {}
         self._rec_cols = torch.tensor([LI_BEGIN, LI_COUNT, LI_FEAT, LI_DEPTH,
                                        LI_PARENT, LI_IS_LEFT, LI_THR,
                                        LI_CAT], device=device)
-        # the non-finite guard's device flag, read with the next tree's
-        # first record (models/gbdt.py sets it), and what that read found
-        self.guard_flag: Optional[torch.Tensor] = None
-        self.guard_read: Optional[List[bool]] = None
-        self.host_syncs = 0
-        self.hist_builds = 0
-        self.time_phases = False
-        self.phase_ms: Dict[str, float] = {}
 
-    def resident_bytes(self) -> int:
-        """Device bytes this learner keeps for the run (the binned matrix,
-        bundled when EFB formed a bundle, in both layouts; per-tree state is
-        counted by the caller)."""
-        return (self.x_rows.numel() * self.x_rows.element_size()
-                + self.x_cols.numel() * self.x_cols.element_size())
+    def _upload_matrix(self) -> None:
+        """The binned matrix on the device, bundled when EFB forms a bundle
+        (the JAX learner, fused_learner.py:91-114: histograms and
+        partitions run over the bundled columns), row-major for the
+        histogram kernel and column-major for the partition's feature-column
+        reads (the JAX package's x_cols); u16 widens to int32 (torch indexes
+        no u16 everywhere)."""
+        meta, device = self.meta_host, self.device
+        bun = self.dataset.ensure_bundle(self.config)
+        self.bundle = bun
+        if bun is not None:
+            hx = bun.cols
+            self.Bb = _next_pow2(max(bun.num_bins))
+            src, kind = unbundle_map(bun, meta["num_bins"],
+                                     meta["default_bins"], self.B, self.Bb)
+            self.ub_src = torch.from_numpy(src.astype(np.int64)).to(device)
+            self.ub_kind = torch.from_numpy(kind).to(device)
+        else:
+            hx = self.dataset.binned
+            self.Bb = self.B
+        self.x_rows = torch.from_numpy(np.ascontiguousarray(hx)).to(device)
+        cols = self.x_rows.T.contiguous()
+        self.x_cols = cols if cols.dtype == torch.uint8 else cols.int()
 
     def _build_forced_seq(self, nodes: int):
         """The forced-split JSON as a BFS schedule of (leaf, inner feature,
@@ -239,14 +198,6 @@ class FusedTreeLearner(SerialTreeLearner):
                         and "threshold" in ch):
                     q.append((ch, child))
         return seq or None
-
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A small host array on the device without a sync: staged in
-        pinned memory and copied asynchronously on the card."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
 
     def _node_fmask(self, fmask: np.ndarray, path: frozenset,
                     key: Optional[torch.Tensor]) -> np.ndarray:
@@ -338,21 +289,6 @@ class FusedTreeLearner(SerialTreeLearner):
                 return h
             return unbundle_hist(h, self.ub_src, self.ub_kind, sums)
 
-        def mult_row(depth: int):
-            """feature_contri times the monotone split penalty at a depth
-            (fused_learner.py:891-909), float32 [F]."""
-            if depth not in self._mult_cache:
-                mult = self.contri_arr
-                if mono_on and self.mono_penalty > 0:
-                    mp = torch.where(self.mono_arr != 0,
-                                     monotone_split_penalty(
-                                         torch.full((), depth, device=dev),
-                                         self.mono_penalty),
-                                     torch.ones((), device=dev))
-                    mult = mp if mult is None else mult * mp
-                self._mult_cache[depth] = mult
-            return self._mult_cache[depth]
-
         def scan(h, sums, depths, xkeys, bkeys, paths, lo, hi) -> BestSplit:
             """Best splits of a batch of n leaves: histograms [n, C, Bb,
             3], sums [n, 4] (g, h, count, output), host depths, each
@@ -375,8 +311,8 @@ class FusedTreeLearner(SerialTreeLearner):
                     rand = up[:, :F]
                 if ic_on or self.bynode:
                     fm = up[:, -F:] != 0
-            mult = (torch.stack([mult_row(d) for d in depths]) if use_mult
-                    else None)
+            mult = (torch.stack([self._mult_row(d) for d in depths])
+                    if use_mult else None)
             depth = (depths[0] if len(set(depths)) == 1
                      else self._upload(np.asarray(depths)))
             return best_split(

@@ -14,13 +14,19 @@ its binned matrix. Trees stay on the device until a host view is needed
 (save, predict), then materialize in one batched transfer with the
 f32-rounded shrinkage of ``_finalize_tree``.
 
-Objectives that refit their leaves (the L1 family: ``regression_l1``,
+The host-driven :class:`~lambdagap_tpu_torch.models.learner.SerialTreeLearner`
+(``tpu_fused_learner=0``, and the learner of CEGB and of
+``monotone_constraints_method=advanced``, which the JAX package routes to
+it from the fused learner with a warning, ``gbdt.py:349-376``) and the
+objectives that refit their leaves (the L1 family: ``regression_l1``,
 ``quantile``, ``mape``) take the JAX package's host-tree path instead
-(``_train_renewed``): the tree is grown on the device and materialized,
-each leaf refit on the host by the weighted percentile of its in-bag
-residuals, the shrinkage applied to the host tree in float64, and the
-scores updated with ``f32(leaf_value)[row_leaf]``. That path stops when no
-class's tree splits, as the JAX package's does.
+(``_train_host_trees``): each tree is a host Tree (the fused learner's
+materialized), an L1-family tree's leaves refit on the host by the weighted
+percentile of its in-bag residuals, the shrinkage applied to the host tree
+in float64, and the scores updated with ``f32(leaf_value)[row_leaf]``
+(``row_leaf``: the fused learner's, or the serial learner's from its final
+permutation, the JAX package's ``_add_tree_score``). That path stops when
+no class's tree splits, as the JAX package's does.
 
 Validation scores take each tree's leaf values as the training scores
 take them; the boost-from-average init score is added to them once, before
@@ -67,12 +73,37 @@ from ..ops.predict_tensor import (build_tree_tiles, predict_forest_leaf_tensor,
                                   predict_forest_tensor)
 from ..utils import log
 from ..utils.device import resolve_device
+from .learner import cegb_requested
 from .tree import Tree
 
 K_EPSILON = 1e-15
 _ROADMAP = "(ROADMAP.md, Queue 1)"
-_NEXT_SLICE = ("(it runs on the host-driven SerialTreeLearner, the next "
-               "slice; ROADMAP.md, Queue 1)")
+
+
+def use_fused_learner(cfg: Config) -> bool:
+    """The JAX package's serial-learner routing (``gbdt.py:343-376``): with
+    ``tpu_fused_learner`` on (``auto`` is on, on the card and on the CPU),
+    CEGB and ``monotone_constraints_method=advanced`` still go to the
+    host-driven serial learner with a warning; quantized gradients on the
+    serial learner warn and train in f32."""
+    mode = cfg.tpu_fused_learner
+    fused = mode == "auto" or str(mode).lower() in ("1", "true", "on", "yes")
+    host_only = []
+    if cfg.monotone_constraints and \
+            cfg.monotone_constraints_method == "advanced":
+        host_only.append("monotone_constraints_method=advanced")
+    if cegb_requested(cfg):
+        host_only.append("cegb")
+    if fused and host_only:
+        log.warning("Using the host-driven serial learner for: %s — it "
+                    "reads the device once a split for the children's best "
+                    "splits, and once more for re-scanned leaves",
+                    ", ".join(host_only))
+        fused = False
+    if cfg.use_quantized_grad and not fused:
+        log.warning("use_quantized_grad is only implemented by the fused "
+                    "device learner; training runs in full precision")
+    return fused
 
 
 def dispatch_forest_predict(cfg: Config, x: torch.Tensor, forest,
@@ -165,17 +196,8 @@ def _refuse_unported(cfg: Config) -> None:
         no(f"boosting={cfg.boosting}")
     if cfg.tree_learner != "serial":
         no(f"tree_learner={cfg.tree_learner}")
-    if str(cfg.tpu_fused_learner).lower() in ("0", "false", "off", "no"):
-        no("tpu_fused_learner=0 (the host-driven SerialTreeLearner)")
     if cfg.data_residency == "stream":
         no("data_residency=stream")
-    if (cfg.monotone_constraints_method == "advanced"
-            and any(int(m) != 0 for m in cfg.monotone_constraints)):
-        no("monotone_constraints_method=advanced", _NEXT_SLICE)
-    if cfg.cegb_tradeoff > 0 and (cfg.cegb_penalty_split > 0
-                                  or cfg.cegb_penalty_feature_coupled
-                                  or cfg.cegb_penalty_feature_lazy):
-        no("cegb (cegb_penalty_*)", _NEXT_SLICE)
     if cfg.linear_tree:
         no("linear_tree")
     if cfg.snapshot_freq > 0:
@@ -231,6 +253,7 @@ class GBDT:
         self.tree_ms: List[float] = []
         self.renew_ms: List[float] = []
         self.last_iteration_skipped = False
+        self.serial = False      # trees from the host-driven SerialTreeLearner
         if train_set is not None:
             self._setup_training(train_set)
 
@@ -242,12 +265,15 @@ class GBDT:
         _refuse_unported(cfg)
         from ..guard.nonfinite import TrainGuard
         from .fused_learner import FusedTreeLearner
+        from .learner import SerialTreeLearner
         from .sample_strategy import create_sample_strategy
         self.guard = TrainGuard.from_config(cfg)
         self.num_data = ds.num_data
         self.max_feature_idx = ds.num_total_features - 1
         self.objective.init(ds.metadata, ds.num_data, self.device)
-        self.learner = FusedTreeLearner(ds, cfg, self.device)
+        self.serial = not use_fused_learner(cfg)
+        self.learner = (SerialTreeLearner if self.serial
+                        else FusedTreeLearner)(ds, cfg, self.device)
         self.sample_strategy = create_sample_strategy(
             cfg, ds.num_data, label=ds.metadata.label,
             query_boundaries=ds.metadata.query_boundaries)
@@ -311,8 +337,8 @@ class GBDT:
         grad, hess, mask = self.sample_strategy.sample(self.iter_, grad,
                                                        hess)
         self.tree_ms, self.renew_ms = [], []
-        if self.objective.is_renew_tree_output:
-            return self._train_renewed(grad, hess, mask, init_scores)
+        if self.serial or self.objective.is_renew_tree_output:
+            return self._train_host_trees(grad, hess, mask, init_scores)
         for k in range(K):
             rec = self._grow(grad[k], hess[k], mask)
             if k == 0 and guard.after_first_tree(self):
@@ -371,10 +397,10 @@ class GBDT:
         when training ends; True when that round was dropped."""
         return self.guard.finish(self)
 
-    def _train_renewed(self, grad, hess, mask, init_scores) -> bool:
-        """The JAX package's host-tree path for objectives that refit their
-        leaves (gbdt.py:612-660): each class's tree grown on the device and
-        materialized; a split tree's leaves refit, shrunk in float64, its
+    def _train_host_trees(self, grad, hess, mask, init_scores) -> bool:
+        """The JAX package's host-tree path (gbdt.py:612-660) for the
+        serial learner and the L1 family: each class's tree a host Tree; a
+        split tree's leaves refit (L1 family), shrunk in float64, its
         ``f32(leaf_value)`` added to the scores, the init score folded in;
         an unsplit first tree holds the init score. Stops when no class's
         tree split, dropping that round's trees unless they are the
@@ -383,20 +409,30 @@ class GBDT:
         K = self.num_tree_per_iteration
         should_continue = False
         for k in range(K):
-            rec = self._grow(grad[k], hess[k], mask)
+            grown = self._grow(grad[k], hess[k], mask)
+            if self.serial:
+                tree, rec = grown, None
+                row_leaf = self.learner.last_row_leaf
+            else:
+                rec, row_leaf = grown, grown.row_leaf
             if k == 0 and self.guard.after_first_tree(self):
                 return self.train_one_iter()
-            tree = self.learner.materialize(rec)
+            if rec is not None:
+                tree = self.learner.materialize(rec)
             if tree.num_leaves > 1:
                 should_continue = True
-                t0 = time.perf_counter()
-                self._renew_tree_output(tree, k, rec.row_leaf, mask)
-                self.renew_ms.append((time.perf_counter() - t0) * 1e3)
+                if self.objective.is_renew_tree_output:
+                    t0 = time.perf_counter()
+                    self._renew_tree_output(tree, k, row_leaf, mask)
+                    self.renew_ms.append((time.perf_counter() - t0) * 1e3)
                 _apply_shrinkage(tree, self.shrinkage_rate)
                 lv = torch.from_numpy(
                     tree.leaf_value.astype(np.float32)).to(self.device)
-                self.scores[k] += lv[rec.row_leaf]
-                self._add_valid_tree_score(rec, lv, k)
+                self.scores[k] += lv[row_leaf]
+                if rec is not None:
+                    self._add_valid_tree_score(rec, lv, k)
+                else:
+                    self._add_valid_host_tree_score(tree, lv, k)
                 _add_bias(tree, init_scores[k])
             elif len(self.models) < K:
                 if not cfg.boost_from_average and not self.has_init_score:
@@ -422,32 +458,60 @@ class GBDT:
         return False
 
     def _grow(self, grad, hess, mask):
-        """One tree grown on the device; its host wall into ``tree_ms``."""
+        """One tree: the serial learner's host Tree, or the fused learner's
+        device record; its host wall into ``tree_ms``."""
         t0 = time.perf_counter()
-        rec = self.learner.train_device(grad, hess, mask)
+        grown = (self.learner.train(grad, hess, mask) if self.serial
+                 else self.learner.train_device(grad, hess, mask))
         self.tree_ms.append((time.perf_counter() - t0) * 1e3)
-        return rec
+        return grown
 
     def _renew_tree_output(self, tree: Tree, k: int, row_leaf: torch.Tensor,
                            mask: Optional[torch.Tensor]) -> None:
         """The L1-family leaf refit (reference: RenewTreeOutput,
         gbdt.cpp:412): each leaf's value becomes the objective's weighted
-        percentile of ``label - score`` over the leaf's in-bag rows, in
-        ascending row order as ``np.nonzero`` gives them — one stable
-        argsort of ``row_leaf`` orders every leaf's rows at once. The
-        scores, ``row_leaf`` and the mask are read to the host once."""
+        percentile of ``label - score`` over the leaf's in-bag rows. Under
+        the fused learner the rows come in ascending order as ``np.nonzero``
+        gives them (one stable argsort of ``row_leaf`` orders every leaf's
+        rows at once); under the serial learner in the order of its final
+        permutation's slices, as the JAX package reads them
+        (``gbdt.py:855-875``). The scores, the rows and the mask are read
+        to the host once."""
         score = self.scores[k].cpu().numpy()
-        leaf_of = row_leaf.cpu().numpy()
         mask_np = None if mask is None else mask.cpu().numpy()
-        order = np.argsort(leaf_of, kind="stable")
-        ends = np.cumsum(np.bincount(leaf_of, minlength=tree.num_leaves))
-        for leaf in range(tree.num_leaves):
-            rows = order[ends[leaf - 1] if leaf else 0:ends[leaf]]
+        if self.serial:
+            lr = self.learner
+            perm = lr.last_perm.cpu().numpy()
+            spans = zip(lr.last_leaf_begin, lr.last_leaf_count)
+            leaf_rows = [perm[b:b + c] for b, c in spans]
+        else:
+            leaf_of = row_leaf.cpu().numpy()
+            order = np.argsort(leaf_of, kind="stable")
+            ends = np.cumsum(np.bincount(leaf_of, minlength=tree.num_leaves))
+            leaf_rows = [order[ends[leaf - 1] if leaf else 0:ends[leaf]]
+                         for leaf in range(tree.num_leaves)]
+        for leaf, rows in enumerate(leaf_rows):
             if mask_np is not None:
                 rows = rows[mask_np[rows]]
             if len(rows):
                 tree.leaf_value[leaf] = self.objective.renew_tree_output(
                     rows, score)
+
+    def _add_valid_host_tree_score(self, tree: Tree, leaf_values,
+                                   k: int) -> None:
+        """Add a host tree's leaf values to every validation set's class-k
+        scores through the binned traversal (the JAX package's
+        ``_add_valid_tree_score``, gbdt.py:807-831)."""
+        if not self.valid_sets:
+            return
+        arrs = tree_to_arrays(tree, feature_meta=self.learner.meta_host,
+                              use_inner_feature=True)
+        t = to_device_arrays(arrs, self.device)._replace(
+            leaf_value=leaf_values)
+        depth = _round_depth(tree.max_depth + 1)
+        for vi in range(len(self.valid_sets)):
+            self.valid_scores[vi][k] += predict_tree_binned(
+                self.valid_binned[vi], t, depth)
 
     def _add_valid_tree_score(self, rec, leaf_values: torch.Tensor,
                               k: int) -> None:

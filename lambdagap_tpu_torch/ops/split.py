@@ -14,9 +14,14 @@ CPU).
 The tree options enter here as they do in the JAX package's scan:
 monotone ``constraints`` clamp every candidate's child outputs to the
 leaf's bounds and veto the wrong direction, ``rand_thresholds``
-(extra_trees) keep one candidate threshold per feature, and ``gain_mult``
+(extra_trees) keep one candidate threshold per feature, ``gain_penalty``
+(CEGB) is subtracted from each feature's finite gain, and ``gain_mult``
 (``feature_contri`` and the monotone split penalty) scales each
-feature's post-shift gain.
+feature's post-shift gain. The constraints are either one (min, max) per
+leaf (the basic and intermediate methods) or, under the advanced method,
+dense per-threshold bounds ``(min_l, max_l, min_r, max_r)`` ``[..., F,
+B]`` for the left and the right child of a split at each bin
+(``lambdagap_tpu/ops/split.py:112-126``).
 """
 from __future__ import annotations
 
@@ -148,6 +153,16 @@ def monotone_split_penalty(depth, penalization: float) -> torch.Tensor:
     return torch.where(p >= d + 1.0, f32(K_EPSILON), pen)
 
 
+def _norm_constraints(constraints):
+    """``(monotone, min_l, max_l, min_r, max_r)``: the left child's bounds
+    and the right child's, the same pair for the one-bound-per-leaf form
+    (``lambdagap_tpu/ops/split.py:112-126``)."""
+    if len(constraints) == 3:
+        monotone, lo, hi = constraints
+        return monotone, lo, hi, lo, hi
+    return constraints
+
+
 def _take(a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """a[..., f, t[..., f]]"""
     return torch.gather(a, -1, t.unsqueeze(-1)).squeeze(-1)
@@ -170,7 +185,9 @@ def _numerical_best(hist, parent_g, parent_h, parent_c, parent_output,
                     p: SplitParams, constraints=None, rand_thresholds=None):
     """Both-direction scan for all features at once. Aggregates arrive
     shaped [..., 1, 1]. ``constraints``: (monotone [F] in {-1, 0, +1},
-    min, max), the bounds shaped like the aggregates; ``rand_thresholds``:
+    min, max), the bounds shaped like the aggregates, or (monotone, min_l,
+    max_l, min_r, max_r), dense ``[..., F, B]`` (the advanced method);
+    ``rand_thresholds``:
     [..., F], each feature's one candidate under extra_trees (reference:
     feature_histogram.hpp:192-205 USE_RAND). Returns per-feature best
     (gain, threshold, default_left, left_g, left_h, left_c), each
@@ -215,14 +232,15 @@ def _numerical_best(hist, parent_g, parent_h, parent_c, parent_output,
             gain = split_gains(left_g, left_h, right_g, right_h, p, left_c,
                                right_c, parent_output)
             return torch.where(ok, gain, K_MIN_SCORE)
-        # child outputs clamped to the leaf's bounds, the wrong direction
-        # vetoed on a constrained feature (reference:
-        # monotone_constraints.hpp:329 BasicLeafConstraints)
-        monotone, lo, hi = constraints
+        # child outputs clamped to the leaf's bounds (per threshold under
+        # the advanced method), the wrong direction vetoed on a constrained
+        # feature (reference: monotone_constraints.hpp:329
+        # BasicLeafConstraints, CumulativeFeatureConstraint)
+        monotone, min_l, max_l, min_r, max_r = _norm_constraints(constraints)
         lout = _clip(calculate_leaf_output(left_g, left_h, p, left_c,
-                                           parent_output), lo, hi)
+                                           parent_output), min_l, max_l)
         rout = _clip(calculate_leaf_output(right_g, right_h, p, right_c,
-                                           parent_output), lo, hi)
+                                           parent_output), min_r, max_r)
         m = monotone[:, None]
         veto = ((m > 0) & (lout > rout)) | ((m < 0) & (lout < rout))
         gain = (leaf_gain_given_output(left_g, left_h, lout, p)
@@ -307,8 +325,13 @@ def _categorical_best(hist, parent_g, parent_h, parent_c, parent_output,
                                right_c, parent_output, l2_extra=p.cat_l2)
             return torch.where(ok, gain, K_MIN_SCORE)
         # no direction veto on a categorical split; its child outputs
-        # still clamp to the leaf's bounds
-        _, lo, hi = constraints
+        # still clamp to the leaf's bounds. Under the advanced method a
+        # categorical split sends bins to both sides, so both children take
+        # the full-range bound: the last prefix column of the left bounds
+        if len(constraints) == 3:
+            _, lo, hi = constraints
+        else:
+            lo, hi = constraints[1][..., -1:], constraints[2][..., -1:]
         lout = _clip(calculate_leaf_output(left_g, left_h, p, left_c,
                                            parent_output, l2_extra=p.cat_l2),
                      lo, hi)
@@ -397,13 +420,16 @@ def per_feature_best(hist, parent_g, parent_h, parent_c, parent_output,
                      num_bins, default_bins, missing_types, is_categorical,
                      feature_mask, params: SplitParams,
                      has_categorical: bool = False, constraints=None,
-                     rand_thresholds=None):
+                     rand_thresholds=None, gain_penalty=None):
     """Per-feature best split candidates for leaves ``[..., F, B, 3]``
     (the per-feature stage of ``FindBestSplitsFromHistograms``).
     ``constraints``: (monotone [F], min, max) with the bounds shaped like
-    the leaf batch; ``rand_thresholds``: [..., F]. Returns (gain,
-    threshold, default_left, left_g, left_h, left_c) each [..., F] and the
-    bin-space bitsets [..., F, 8]."""
+    the leaf batch, or the advanced method's (monotone [F], min_l, max_l,
+    min_r, max_r), each ``[..., F, B]``; ``rand_thresholds``: [..., F];
+    ``gain_penalty``: CEGB's [..., F], subtracted from each finite gain
+    (reference: cost_effective_gradient_boosting.hpp:23 DeltaGain).
+    Returns (gain, threshold, default_left, left_g, left_h, left_c) each
+    [..., F] and the bin-space bitsets [..., F, 8]."""
     p = params
 
     def agg(v):
@@ -412,7 +438,7 @@ def per_feature_best(hist, parent_g, parent_h, parent_c, parent_output,
 
     pg, ph, pc, po = (agg(v) for v in (parent_g, parent_h, parent_c,
                                        parent_output))
-    if constraints is not None:
+    if constraints is not None and len(constraints) == 3:
         constraints = (constraints[0], agg(constraints[1]),
                        agg(constraints[2]))
     num = _numerical_best(hist, pg, ph, pc, po, num_bins, default_bins,
@@ -436,6 +462,8 @@ def per_feature_best(hist, parent_g, parent_h, parent_c, parent_output,
                            device=hist.device))
     use_cat = is_categorical
     gain = torch.where(use_cat, cat[0], num[0])
+    if gain_penalty is not None:
+        gain = torch.where(torch.isfinite(gain), gain - gain_penalty, gain)
     thr = torch.where(use_cat, cat[1], num[1])
     dl = torch.where(use_cat, False, num[2])
     lg = torch.where(use_cat, cat[2], num[3])
@@ -464,21 +492,27 @@ def best_split(hist, parent_g, parent_h, parent_c, parent_output, depth,
                num_bins, default_bins, missing_types, is_categorical,
                feature_mask, params: SplitParams, has_categorical: bool,
                max_depth: int, constraints=None, rand_thresholds=None,
-               gain_mult=None) -> BestSplit:
+               gain_mult=None, gain_penalty=None) -> BestSplit:
     """Best split of each leaf of a batch, with the parent-gain shift and
     the max_depth guard — the fused learner's ``best_of``
-    (lambdagap_tpu/models/fused_learner.py:813-920, without CEGB).
-    ``depth`` is the leaves' depth (an int or a tensor shaped like the
-    batch); ``constraints`` (monotone [F], min, max) clamp and veto as in
-    the scan and clamp the winner's outputs; ``rand_thresholds`` [..., F]
-    are extra_trees' candidates; ``gain_mult`` [..., F] scales each
-    feature's post-shift gain (``feature_contri`` times the monotone split
-    penalty, fused_learner.py:891-909)."""
+    (lambdagap_tpu/models/fused_learner.py:813-920) and, with
+    ``max_depth=0`` (no guard: the host loop skips leaves at the depth
+    cap), the serial learner's ``find_best_split``
+    (lambdagap_tpu/ops/split.py:545-616). ``depth`` is the leaves' depth
+    (an int or a tensor shaped like the batch); ``constraints`` (monotone
+    [F], min, max) clamp and veto as in the scan and clamp the winner's
+    outputs, the advanced method's dense (monotone, min_l, max_l, min_r,
+    max_r) at the chosen (feature, threshold) (a categorical winner: the
+    last prefix column of the left bounds); ``rand_thresholds`` [..., F]
+    are extra_trees' candidates; ``gain_penalty`` [..., F] is CEGB's,
+    taken before the shift; ``gain_mult`` [..., F] scales each feature's
+    post-shift gain (``feature_contri`` times the monotone split penalty,
+    fused_learner.py:891-909)."""
     p = params
     gain, thr, dl, lg, lh, lc, bits = per_feature_best(
         hist, parent_g, parent_h, parent_c, parent_output, num_bins,
         default_bins, missing_types, is_categorical, feature_mask, p,
-        has_categorical, constraints, rand_thresholds)
+        has_categorical, constraints, rand_thresholds, gain_penalty)
     shift = leaf_gain(parent_g, parent_h, p, parent_c, parent_output) \
         + p.min_gain_to_split
     if gain_mult is not None:
@@ -496,9 +530,26 @@ def best_split(hist, parent_g, parent_h, parent_c, parent_output, depth,
     lout = calculate_leaf_output(lg_f, lh_f, p, lc_f, parent_output)
     rout = calculate_leaf_output(parent_g - lg_f, parent_h - lh_f, p,
                                  parent_c - lc_f, parent_output)
-    if constraints is not None:
+    if constraints is not None and len(constraints) == 3:
         lout = _clip(lout, constraints[1], constraints[2])
         rout = _clip(rout, constraints[1], constraints[2])
+    elif constraints is not None:
+        _, min_l, max_l, min_r, max_r = constraints
+        t_f = _take(thr, f)
+        cat_w = is_categorical[f]
+
+        def at(a, last):
+            a_f = torch.gather(a, -2, f[..., None, None].expand(
+                *f.shape, 1, a.shape[-1])).squeeze(-2)      # [..., B]
+            return _take(a_f, torch.full_like(t_f, a.shape[-1] - 1)
+                         if last else t_f)
+
+        lout = _clip(lout, torch.where(cat_w, at(min_l, True),
+                                       at(min_l, False)),
+                     torch.where(cat_w, at(max_l, True), at(max_l, False)))
+        rout = _clip(rout, torch.where(cat_w, at(min_l, True),
+                                       at(min_r, False)),
+                     torch.where(cat_w, at(max_l, True), at(max_r, False)))
     bits_f = torch.gather(bits, -2, f[..., None, None].expand(
         *f.shape, 1, CAT_WORDS)).squeeze(-2)
     return BestSplit(torch.where(ok, g, K_MIN_SCORE), f, _take(thr, f),

@@ -35,7 +35,9 @@ quantized + bagging, GOSS, EFB, rankers: lambdarank targets,
 rank_xendcg, positions with by-query bagging; and the objectives of the
 multiclass slice: 7-class softmax with a categorical column, one-vs-all,
 multiclass GOSS, the renewed L1 family, the log-link losses and weighted
-cross_entropy_lambda) equal the same on the CPU, and a 7-class model
+cross_entropy_lambda; the host-driven serial learner with lazy CEGB,
+bagging and advanced monotone constraints, whose unpaid-row counts on the
+card equal a numpy count) equal the same on the CPU, and a 7-class model
 served on the card with early stop equals the scan oracle. TreeSHAP's
 kernel S equals its plain version at rtol 1e-9 / atol 1e-12 on numeric
 (NaN and zero rows), 3-class and categorical forests, on one row, on
@@ -494,6 +496,55 @@ def test_training_on_card_equals_cpu(cuda_device):
     cpu = lgt.train({**params, **CPU}, lgt.Dataset(X, label=y), 10)
     np.testing.assert_allclose(card.predict(X), cpu.predict(X), rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_serial_learner_on_card_equals_cpu(cuda_device):
+    """The host-driven SerialTreeLearner (``tpu_fused_learner=0``) with
+    lazy CEGB, bagging and advanced monotone constraints on the card (K1
+    histograms, one launch a histogram built) against the same on the
+    CPU: the same trees and predictions within rtol 1e-4 / atol 1e-5; and
+    the lazy penalty's unpaid-row counts of a leaf slice on the card equal
+    a numpy count over the paid-row mask."""
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    rng = np.random.RandomState(4)
+    X = rng.randint(0, 8, (6000, 8)).astype(np.float64)
+    y = X[:, 0] - 0.5 * X[:, 1] + np.sin(X[:, 2]) + 0.3 * rng.randn(6000)
+    params = {"objective": "regression", "num_leaves": 31, "verbose": -1,
+              "tpu_fused_learner": "0", "bagging_fraction": 0.8,
+              "bagging_freq": 1, "cegb_penalty_split": 0.001,
+              "cegb_penalty_feature_lazy": [0.01, 0.02, 0.05, 0, 0.01,
+                                            0.03, 0.02, 0.01],
+              "monotone_constraints": [1, -1, 0, 0, 0, 0, 0, 0],
+              "monotone_constraints_method": "advanced"}
+    built = []      # each tree's histograms (one tree a round)
+
+    def count_builds(env):
+        built.append(env.model._booster.learner.hist_builds)
+
+    before = hc.HIST_LAUNCHES.launches
+    card = lgt.train(params, lgt.Dataset(X, label=y), 3,
+                     callbacks=[count_builds])
+    lr = card._booster.learner
+    assert lr.x_rows.device.type == "cuda"
+    assert len(built) == 3 and min(built) > 0
+    assert hc.HIST_LAUNCHES.launches - before == sum(built)
+    cpu = lgt.train({**params, **CPU}, lgt.Dataset(X, label=y), 3)
+    np.testing.assert_allclose(card.predict(X), cpu.predict(X), rtol=1e-4,
+                               atol=1e-5)
+    for a, b in zip(card._booster.host_models, cpu._booster.host_models):
+        assert a.split_feature == b.split_feature
+    b, c = int(lr.last_leaf_begin[1]), int(lr.last_leaf_count[1])
+    rows = lr.last_perm[b:b + c]
+    mask = torch.from_numpy(rng.rand(6000) < 0.8).to(cuda_device)
+    split = torch.tensor(c // 3, device=cuda_device)
+    got = lr._lazy_unpaid(rows, mask, split).cpu().numpy()
+    paid = lr._paid.cpu().numpy()
+    r = rows.cpu().numpy().astype(np.int64)
+    unpaid = ~paid[:, r] & mask.cpu().numpy()[r]
+    want = np.stack([unpaid[:, :c // 3].sum(1), unpaid[:, c // 3:].sum(1)])
+    np.testing.assert_array_equal(got, want)
+    assert paid.any() and want.sum() > 0
 
 
 @pytest.mark.cuda

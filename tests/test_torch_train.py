@@ -266,9 +266,6 @@ def test_saturated_max_delta_step_differs_from_jax_only_at_a_tie():
 
 
 @pytest.mark.parametrize("params", [
-    {"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
-     "monotone_constraints_method": "advanced"},
-    {"cegb_tradeoff": 1.0, "cegb_penalty_split": 0.1},
     {"guard_faults": "nan_grad@2"},
     {"telemetry": True},
     {"timetag": True},
@@ -279,7 +276,6 @@ def test_saturated_max_delta_step_differs_from_jax_only_at_a_tie():
     {"linear_tree": True},
     {"data_residency": "stream"},
     {"tree_learner": "data"},
-    {"tpu_fused_learner": "0"},
     {"tree_layout": "sorted"},
     {"boosting": "dart"},
     {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
@@ -289,17 +285,14 @@ def test_saturated_max_delta_step_differs_from_jax_only_at_a_tie():
 ])
 def test_unported_options_refuse_loudly(params, tmp_path):
     """Every option the port does not train, and a non-default value of
-    every knob of a layer it does not carry, refuses by name; the
-    host-learner options name the next slice."""
+    every knob of a layer it does not carry, refuses by name."""
     X, y = _fused_data(seed=15)
     knob = next(iter(params))
     with pytest.raises(NotImplementedError, match="not ported") as err:
         lgt.train({"verbose": -1, **CPU, **params},
                   lgt.Dataset(X, label=y), 2)
-    name = {"timetag": "telemetry", "cegb_tradeoff": "cegb"}.get(knob, knob)
+    name = {"timetag": "telemetry"}.get(knob, knob)
     assert name in str(err.value)
-    if knob in ("monotone_constraints", "cegb_tradeoff"):
-        assert "next slice" in str(err.value)
 
 
 @pytest.mark.parametrize("knob, value", [
