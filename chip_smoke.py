@@ -3,7 +3,7 @@
 CUDA card and check them.
 
     python3 chip_smoke.py [--seed N] [--rows N]
-                          [--only kernels|rank|objectives|predict|shap|options|serial]
+                          [--only kernels|rank|objectives|predict|shap|options|serial|layout]
 
 Run from the root of a checkout. Phases, each fatal on failure:
 
@@ -67,7 +67,7 @@ T3. the training path: ``lgt.train`` on the card, binary, HIGGS width (28
    kernel-only device time summed over its launches;
 T6. T3's configuration and Datasets with ``use_quantized_grad`` (4
    levels, stochastic rounding, ``quant_train_renew_leaf``) and bagging
-   0.8/1, 10 rounds: the K2 launches equal the leaf histograms built, no K1 launch,
+   0.8/1, 6 rounds: the K2 launches equal the leaf histograms built, no K1 launch,
    the validation logloss falls; one tree's phases and K2's kernel-only
    time, the threefry draw's time, peak memory; the model served back
    against the scan oracle;
@@ -81,14 +81,14 @@ T5. the T3 model through ``model_to_string`` -> ``Booster(model_str=)`` ->
    the scan oracle on the card, one fused launch per dispatch;
 T7. EFB: 200,000 rows of 8 dense features and 4 groups of 6 mutually
    exclusive sparse columns (bundles form, fewer columns than features),
-   f32 and quantized, on the card and on the CPU at T4's bar, K1 and K2
-   launched;
+   f32 and quantized, 6 rounds, on the card and on the CPU at T4's bar, K1
+   and K2 launched;
 T8. ranking at MSLR-WEB30K width: seeded synthetic query sets of Fold 1's
    shape (18,919 queries, ~2.27M documents x 136 features, query lengths
    1..1,251 with one of exactly 1,251, relevance 0-4 skewed toward 0) plus
    2,000 validation queries; ``lgt.train`` with ``lambdarank`` (target
    ndcg, ``eval_at=[10]``, 255 leaves, 255 bins, ``min_data_in_leaf=50``),
-   10 rounds with ``early_stopping(5)``, then 3 rounds of
+   6 rounds with ``early_stopping(5)``, then 3 rounds of
    lambdagap-x-plus-plus and 3 of ``rank_xendcg`` with by-query bagging on
    the same Dataset; the counts zeroed just before each run and read just
    after (K1 launches == leaf histograms), every gradient finite, the
@@ -99,7 +99,7 @@ T2 at 136 features: K1 against its plain version (``torch.equal``) on the
    T8 matrix with T8's lambdas at the root, at a T8 leaf read at an offset,
    and at the 1,251-document query with lambdas taken without
    ``lambdarank_norm``; times and bound at the root and the leaf;
-T9. 200 queries x 25 documents x 20 features, 63 leaves, 20 rounds on the
+T9. 200 queries x 25 documents x 20 features, 63 leaves, 12 rounds on the
    card and on the CPU: ndcg, lambdagap-s, lambdagap-x-plus-plus,
    rank_xendcg, positions with by-query bagging, predictions on the
    training rows within rtol 1e-4 / atol 1e-5;
@@ -108,7 +108,7 @@ T11. multiclass at UCI Covertype's width: seeded synthetic rows of its
    shape (``covtype_like``: 464,809 training and 116,203 validation rows,
    10 integer-valued continuous features in its ranges, 4 wilderness and 40
    soil one-hot columns that EFB bundles, 7 classes at its shares), 255
-   leaves, 255 bins: T11a softmax (``num_class=7``) 6 rounds with
+   leaves, 255 bins: T11a softmax (``num_class=7``) 4 rounds with
    ``early_stopping(5)`` and multi_logloss / multi_error / auc_mu on the
    validation set, T11b one-vs-all 2 rounds, T11c softmax on 4-level
    quantized gradients with bagging 0.8/1, 2 rounds, all on one pair of
@@ -162,7 +162,7 @@ T14. the predict API on phase 3's forest, phase 5's rows and T3's and
    and long paths (``--only shap`` runs phases 1-3 and these checks
    alone); refit of T3's model on its 500,000 validation rows:
    ``decay_rate=1.0`` leaves every leaf as it was, 0.9 every leaf finite;
-T15. the tree options on T3's Datasets at HIGGS width, 3 rounds each
+T15. the tree options on T3's Datasets at HIGGS width, 2 rounds each
    (the counts zeroed just before each run and read just after): (a)
    extra_trees, (b) ``feature_fraction_bynode=0.5``, (c) monotone +1/-1
    on four features, basic, ``monotone_penalty=1``, (d) the same,
@@ -185,7 +185,7 @@ T15b. (a)-(h) at 16,000 x 20, 31 leaves, 10 rounds, on the card and on
    ``clip`` trains NaN labels to a finite model (``--only options`` runs
    phases 1-2, T3, T15 and T15b);
 T16. the host-driven serial learner (``tpu_fused_learner=0``) on T3's
-   Datasets at HIGGS width, 3 rounds of each of (s) no option, (c) CEGB
+   Datasets at HIGGS width, 2 rounds of each of (s) no option, (c) CEGB
    (split penalty 0.1, a coupled cost on 8 features; its trees are
    stumps), (r) the same with a split penalty of 0.001, (l) lazy CEGB
    with bagging 0.8/1 and (v) advanced monotone on T15's four features,
@@ -193,7 +193,7 @@ T16. the host-driven serial learner (``tpu_fused_learner=0``) on T3's
    launches == the histograms built (the root's and each split's smaller
    child's, none after a tree's last split), validation logloss falls,
    (s)'s validation predictions within rtol 1e-4 / atol 1e-5 of T3's
-   fused model at 3 rounds, (c) and (r) on fewer distinct features than
+   fused model at 2 rounds, (c) and (r) on fewer distinct features than
    (s) and none of the coupled 8, (r)'s trees more than 2 leaves and
    fewer than 255 while (s) splits on a coupled feature, (v) monotone
    along every sweep, reruns of (l) and (v) bit-identical,
@@ -205,11 +205,33 @@ T16b. (s), (c), (r), (l), (v), 3-class softmax and regression_l1 on the
    on the CPU: training-row predictions within rtol 1e-4 / atol 1e-5,
    best_iteration equal, the card's leaves a tree (``--only serial`` runs phases 1-2, T3, T16 and
    T16b);
-6. the kernels line (one JSON object, eight entries; each entry's
+T17. tree_layout=sorted against gather (T3, T6 and T8 already train
+   sorted: ``auto`` resolves to it at 2^20 rows and more, which those
+   phases check): on T3's Datasets (a) f32 fused, (b) quantized 4 levels +
+   bagging 0.7/1 (K2), (c) ``tpu_fused_learner=0``, 3 rounds each, and on
+   T8's Dataset (d) lambdarank ndcg, 2 rounds, each under explicit gather
+   and sorted: the model text byte-equal but for the ``[tree_layout: ...]``
+   line, the histogram kernel's launches == the histograms built and,
+   under sorted, every one a window launch (no row list); per variant and
+   layout the median round wall and one more tree's ``layout_apply``,
+   ``partition`` and ``histogram`` device-stream ms. K1 and K2 in window
+   mode at T3's 41,176-row leaf (a right child at its offset in its
+   parent's window of leaf-ordered copies, the next leaf's rows past it):
+   ``torch.equal`` to their plain versions, to a rerun and to the same
+   leaf gathered through the permutation; timed beside the gathered leaf,
+   the plain version and ``index_add_`` over the contiguous window
+   (``--only layout`` runs phases 1-2, T3, T8's data and T17);
+6. the kernels line (one JSON object, ten entries; each entry's
    ``max_abs_err`` the largest of its kernel's comparisons, T13's K1 in
    ``hist_rows@covtype`` and T11c's K2 in ``hist_rows_q``; the fused
    kernel's launches phase 5's, K3's phase 5's and T14's pred_leaf, the
-   accumulation's phase 5's, none) and, last, the device line.
+   accumulation's phase 5's, none; ``hist_rows@sorted`` and
+   ``hist_rows_q@sorted`` the window launches of T17's sorted runs) and,
+   last, the device line.
+
+The card-vs-CPU phases (T4, T7, T9, T12, T15b, T16b) train their CPU
+sides in ``CPU_WORKERS`` spawned worker processes beside the card's runs;
+each phase stops its processes when it ends.
 
 Needs one card; exits non-zero, printing no result, when there is none.
 Imports nothing of JAX nor of the JAX package.
@@ -225,6 +247,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -249,18 +272,22 @@ HIGGS_ROWS = 10_500_000         # HIGGS's training rows (bench.py)
 VALID_ROWS = 500_000
 MAX_BIN = 255
 ROUNDS = 5                      # T3 (cut from 10: the script's time)
-QUANT_ROUNDS = 10               # T6
+QUANT_ROUNDS = 6                # T6 (cut from 10: the script's time)
+EFB_ROUNDS = 6                  # T7 (cut from 10: the script's time)
 MSLR_F = 136                    # MSLR-WEB30K features
 MSLR_QUERIES = 18_919           # MSLR-WEB30K Fold 1's training queries
 MSLR_VALID_QUERIES = 2_000
 MSLR_MAX_DOCS = 1_251           # its longest query
-RANK_ROUNDS = 10
+RANK_ROUNDS = 6                 # T8 (cut from 10: the script's time)
+RANK_CPU_ROUNDS = 12            # T9 (cut from 20: the script's time)
 RANK_SHORT_ROUNDS = 3
+LAYOUT_ROUNDS = 3               # T17 (a)-(c)
+LAYOUT_RANK_ROUNDS = 2          # T17 (d)
 # UCI Covertype: 581,012 rows split 80/20, 54 features (10 continuous, 4
 # wilderness and 40 soil one-hot columns), 7 cover types with these shares
 COV_TRAIN, COV_VALID = 464_809, 116_203
 COV_SHARES = (0.3646, 0.4876, 0.0615, 0.0047, 0.0163, 0.0299, 0.0353)
-COV_ROUNDS = 6
+COV_ROUNDS = 4                  # T11a (cut from 6: the script's time)
 COV_SHORT_ROUNDS = 2
 # YearPredictionMSD: 463,715 training and 51,630 test rows, 90 features
 MSD_TRAIN, MSD_VALID, MSD_F = 463_715, 51_630, 90
@@ -1065,6 +1092,9 @@ def train_phase(args, smi: str):
     check(HIST_Q_LAUNCHES.launches == 0, "the f32 path launched K2")
     check(launches == built, f"K1 launches {launches} != leaf histograms "
           f"built {built}")
+    want = "sorted" if args.rows >= 1 << 20 else "gather"
+    check(gb.learner.layout == want, f"T3: tree_layout=auto resolved to "
+          f"{gb.learner.layout} at {args.rows} rows, not {want}")
     ll = ev["valid_0"]["binary_logloss"]
     auc = ev["valid_0"]["auc"]
     check(ll[-1] < ll[0], f"valid logloss did not fall: {ll[0]} -> {ll[-1]}")
@@ -1094,9 +1124,11 @@ def train_phase(args, smi: str):
     tree_ms = (time.perf_counter() - t1) * 1e3
     lr.time_phases = False
     ph = lr.phase_ms
-    print(f"T3 one tree: {tree_ms:.1f} ms host wall; device-stream time "
-          f"between CUDA events: histogram {ph.get('histogram', 0):.1f} ms, "
-          f"split scan {ph.get('split_scan', 0):.1f} ms, partition "
+    print(f"T3 one tree (tree_layout={lr.layout}): {tree_ms:.1f} ms host "
+          f"wall; device-stream time between CUDA events: layout_apply "
+          f"{ph.get('layout_apply', 0):.1f} ms, histogram "
+          f"{ph.get('histogram', 0):.1f} ms, split scan "
+          f"{ph.get('split_scan', 0):.1f} ms, partition "
           f"{ph.get('partition', 0):.1f} ms; {lr.host_syncs} host syncs "
           f"[{smi}]")
     k_ms, k_calls = profiled_kernel_ms(
@@ -1148,6 +1180,9 @@ def quant_phase(t3: dict, smi: str):
     check(k2 > 0 and k2 == built, f"K2 launches {k2} != leaf histograms "
           f"built {built}")
     check(k1 == 0, f"the quantized path launched K1 {k1} times")
+    check(gb.learner.layout == t3["bst"]._booster.learner.layout,
+          f"T6: tree_layout=auto resolved to {gb.learner.layout}, T3 to "
+          f"{t3['bst']._booster.learner.layout} on the same Datasets")
     ll = ev["valid_0"]["binary_logloss"]
     auc = ev["valid_0"]["auc"]
     check(ll[-1] < ll[0], f"T6 valid logloss did not fall: {ll[0]} -> "
@@ -1181,8 +1216,10 @@ def quant_phase(t3: dict, smi: str):
     key = prng.PRNGKey(7)
     draw_ms = cuda_ms(lambda: prng.uniform(key, lr.num_data, grad.device),
                       reps=10, warm=1)
-    print(f"T6 one tree: {tree_ms:.1f} ms host wall; device-stream time "
-          f"between CUDA events: quantize {ph.get('quantize', 0):.1f} ms, "
+    print(f"T6 one tree (tree_layout={lr.layout}): {tree_ms:.1f} ms host "
+          f"wall; device-stream time between CUDA events: quantize "
+          f"{ph.get('quantize', 0):.1f} ms, layout_apply "
+          f"{ph.get('layout_apply', 0):.1f} ms, "
           f"histogram {ph.get('histogram', 0):.1f} ms, split scan "
           f"{ph.get('split_scan', 0):.1f} ms, partition "
           f"{ph.get('partition', 0):.1f} ms, renew {ph.get('renew', 0):.1f} "
@@ -1198,32 +1235,94 @@ def quant_phase(t3: dict, smi: str):
     return bst, k2
 
 
-def card_vs_cpu(params: dict, Xt, yt, Xv, yv, rounds: int,
-                metric: str = "auc"):
-    """Train the same run on the card and on the CPU. Returns
-    {device: (training-row predictions, best_iteration, validation
-    ``metric`` (AUC), seconds, booster)}."""
+CPU_WORKERS = 4     # the CPU sides' worker processes (8 cores: the card's
+                    # runs keep the main process's core)
+
+
+def _cpu_worker_init() -> None:
+    import torch
+    torch.set_num_threads(1)
+
+
+def _cpu_train(params: dict, rounds: int, train_kw: dict,
+               valid_kw: Optional[dict], metric: Optional[str]) -> dict:
+    """One CPU training, in a worker process: ``lgt.Dataset(**train_kw)``
+    (with a validation set ``valid_kw`` and early stopping when given)
+    trained with ``device_type=cpu``. Returns its predictions on the
+    training rows (converted and raw), best_iteration, the validation
+    ``metric`` and its seconds."""
     import lambdagap_tpu_torch as lgt
-    out = {}
-    for device in ("cuda", "cpu"):
+    tr = lgt.Dataset(**train_kw)
+    kw = {}
+    if valid_kw is not None:
+        kw = {"valid_sets": [lgt.Dataset(reference=tr, **valid_kw)],
+              "callbacks": [lgt.early_stopping(5, verbose=False)]}
+    t0 = time.perf_counter()
+    bst = lgt.train({**params, "device_type": "cpu"}, tr, rounds, **kw)
+    secs = time.perf_counter() - t0
+    X = train_kw["data"]
+    return {"pred": bst.predict(X), "raw": bst.predict(X, raw_score=True),
+            "best": bst.best_iteration, "secs": secs,
+            "score": (bst.best_score["valid_0"][metric] if valid_kw
+                      and metric else None)}
+
+
+class CpuSide:
+    """The CPU side of a card-vs-CPU phase: ``CPU_WORKERS`` spawned worker
+    processes (one torch thread each) train the phase's CPU runs while the
+    main process trains the card's, one after another. Leaving the block
+    shuts the pool down and stops its processes."""
+
+    def __enter__(self) -> "CpuSide":
+        import concurrent.futures
+        import multiprocessing
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init)
+        return self
+
+    def submit(self, params: dict, rounds: int, train_kw: dict,
+               valid_kw: Optional[dict] = None, metric: Optional[str] = None):
+        return self.pool.submit(_cpu_train, params, rounds, train_kw,
+                                valid_kw, metric)
+
+    def __exit__(self, *exc) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def card_vs_cpu(cpu: CpuSide, params: dict, Xt, yt, Xv, yv, rounds: int,
+                metric: str = "auc"):
+    """The same run on the card and on the CPU: the CPU side is submitted
+    to ``cpu`` now; the returned function trains the card's side, waits
+    for the CPU's and compares them. It returns {device: (training-row
+    predictions, best_iteration, validation ``metric`` (AUC), seconds,
+    booster (the card's; None for the CPU))}."""
+    import lambdagap_tpu_torch as lgt
+    fut = cpu.submit(params, rounds, {"data": Xt, "label": yt},
+                     {"data": Xv, "label": yv}, metric)
+
+    def finish() -> dict:
         tr = lgt.Dataset(Xt, label=yt)
         va = lgt.Dataset(Xv, label=yv, reference=tr)
         t0 = time.perf_counter()
-        bst = lgt.train({**params, "device_type": device}, tr, rounds,
-                        valid_sets=[va],
+        bst = lgt.train(params, tr, rounds, valid_sets=[va],
                         callbacks=[lgt.early_stopping(5, verbose=False)])
-        out[device] = (bst.predict(Xt), bst.best_iteration,
-                       bst.best_score["valid_0"][metric],
-                       time.perf_counter() - t0, bst)
-    (pc, bc, _, _, _), (pp, bp, _, _, _) = out["cuda"], out["cpu"]
-    # training rows: the card's histograms equal the CPU's (exact sums),
-    # and a tie that one breaks across bins holding no training row routes
-    # no training row differently
-    check(np.allclose(pc, pp, rtol=1e-4, atol=1e-5),
-          f"card != CPU predictions (max |diff| {np.abs(pc - pp).max()}; "
-          f"{params})")
-    check(bc == bp, f"best_iteration card {bc} != CPU {bp} ({params})")
-    return out
+        out = {"cuda": (bst.predict(Xt), bst.best_iteration,
+                        bst.best_score["valid_0"][metric],
+                        time.perf_counter() - t0, bst)}
+        r = fut.result()
+        out["cpu"] = (r["pred"], r["best"], r["score"], r["secs"], None)
+        (pc, bc, _, _, _), (pp, bp, _, _, _) = out["cuda"], out["cpu"]
+        # training rows: the card's histograms equal the CPU's (exact
+        # sums), and a tie that one breaks across bins holding no training
+        # row routes no training row differently
+        check(np.allclose(pc, pp, rtol=1e-4, atol=1e-5),
+              f"card != CPU predictions (max |diff| "
+              f"{np.abs(pc - pp).max()}; {params})")
+        check(bc == bp, f"best_iteration card {bc} != CPU {bp} ({params})")
+        return out
+
+    return finish
 
 
 def card_vs_cpu_phase() -> None:
@@ -1244,9 +1343,12 @@ def card_vs_cpu_phase() -> None:
         ("bagging 0.7/1", {"bagging_fraction": 0.7, "bagging_freq": 1}),
     ]
     aucs = {}
-    for name, extra in variants:
-        out = card_vs_cpu({**base, **extra}, X[:16_000], y[:16_000],
-                          X[16_000:], y[16_000:], 30)
+    with CpuSide() as cpu:
+        runs = [(name, card_vs_cpu(cpu, {**base, **extra}, X[:16_000],
+                                   y[:16_000], X[16_000:], y[16_000:], 30))
+                for name, extra in variants]
+        outs = [(name, finish()) for name, finish in runs]
+    for name, out in outs:
         (pc, bc, ac, sc, _), (pp, _, _, sp, _) = out["cuda"], out["cpu"]
         aucs[name] = ac
         print(f"T4 card == CPU [{name}]: predictions max |diff| "
@@ -1280,24 +1382,29 @@ def efb_phase(smi: str) -> None:
     y = (score > 0).astype(np.float64)
     base = {"objective": "binary", "metric": ["auc"], "num_leaves": 15,
             "learning_rate": 0.1, "verbose": -1}
-    for name, extra in (("f32", {}), ("quantized", {
-            "use_quantized_grad": True, "num_grad_quant_bins": 16})):
-        k1, k2 = hc.HIST_LAUNCHES.launches, hc.HIST_Q_LAUNCHES.launches
-        out = card_vs_cpu({**base, **extra}, X[:180_000], y[:180_000],
-                          X[180_000:], y[180_000:], 10)
-        lr = out["cuda"][4]._booster.learner
-        check(lr.bundle is not None, "T7: no EFB bundle formed")
-        C, F_ = lr.x_rows.shape[1], lr.num_features
-        check(C < F_, f"T7: {C} bundled columns for {F_} features")
-        used = (hc.HIST_LAUNCHES.launches - k1 if name == "f32"
-                else hc.HIST_Q_LAUNCHES.launches - k2)
-        check(used > 0, f"T7 [{name}] launched no histogram kernel")
-        (pc, bc, ac, sc, _), (pp, _, _, sp, _) = out["cuda"], out["cpu"]
-        print(f"T7 EFB [{name}]: {F_} features in {C} bundled columns; "
-              f"{'K1' if name == 'f32' else 'K2'} launches {used}; card == "
-              f"CPU predictions max |diff| {np.abs(pc - pp).max():.3g}, "
-              f"best_iteration {bc}, valid AUC {ac:.5f}; train {sc:.1f} s "
-              f"on the card, {sp:.1f} s on the CPU [{smi}]")
+    with CpuSide() as cpu:
+        runs = [(name, card_vs_cpu(cpu, {**base, **extra}, X[:180_000],
+                                   y[:180_000], X[180_000:], y[180_000:],
+                                   EFB_ROUNDS))
+                for name, extra in (("f32", {}), ("quantized", {
+                    "use_quantized_grad": True, "num_grad_quant_bins": 16}))]
+        for name, finish in runs:
+            k1, k2 = hc.HIST_LAUNCHES.launches, hc.HIST_Q_LAUNCHES.launches
+            out = finish()
+            lr = out["cuda"][4]._booster.learner
+            check(lr.bundle is not None, "T7: no EFB bundle formed")
+            C, F_ = lr.x_rows.shape[1], lr.num_features
+            check(C < F_, f"T7: {C} bundled columns for {F_} features")
+            used = (hc.HIST_LAUNCHES.launches - k1 if name == "f32"
+                    else hc.HIST_Q_LAUNCHES.launches - k2)
+            check(used > 0, f"T7 [{name}] launched no histogram kernel")
+            (pc, bc, ac, sc, _), (pp, _, _, sp, _) = out["cuda"], out["cpu"]
+            print(f"T7 EFB [{name}]: {F_} features in {C} bundled columns; "
+                  f"{'K1' if name == 'f32' else 'K2'} launches {used}; card "
+                  f"== CPU predictions max |diff| "
+                  f"{np.abs(pc - pp).max():.3g}, best_iteration {bc}, valid "
+                  f"AUC {ac:.5f}; train {sc:.1f} s on the card, {sp:.1f} s "
+                  f"on the CPU [{smi}]")
 
 
 def serve_trained_phase(bst, Xva, dev, smi: str, tag: str = "T5") -> None:
@@ -1351,15 +1458,10 @@ def mslr_like(seed: int, n_train: int, n_valid: int):
             (X[cut:], y[cut:], sizes[n_train:]))
 
 
-def rank_train_phase(args, smi: str) -> dict:
-    """T8: lambdarank (target ndcg) at MSLR-WEB30K width, then 3 rounds of
-    lambdagap-x-plus-plus and 3 of rank_xendcg with by-query bagging on the
-    same constructed Dataset; counts zeroed just before each run."""
-    import torch
+def mslr_data(args) -> dict:
+    """T8's constructed MSLR-width Datasets (training and validation) and
+    its parameters; the data lines printed."""
     import lambdagap_tpu_torch as lgt
-    from lambdagap_tpu_torch.objectives import rank as prank
-    from lambdagap_tpu_torch.ops.hist_cuda import (HIST_LAUNCHES,
-                                                   HIST_Q_LAUNCHES)
     t0 = time.perf_counter()
     (Xtr, ytr, str_), (Xva, yva, sva) = mslr_like(
         args.seed + 200, MSLR_QUERIES, MSLR_VALID_QUERIES)
@@ -1387,6 +1489,22 @@ def rank_train_phase(args, smi: str) -> dict:
           f"data); {RANK_ROUNDS} / {RANK_SHORT_ROUNDS} / {RANK_SHORT_ROUNDS} "
           f"rounds (the reference trains 500); {MSLR_VALID_QUERIES} "
           "validation queries")
+    return {"train": tr, "valid": va, "params": params, "cfg": cfg,
+            "Xva": Xva}
+
+
+def rank_train_phase(args, smi: str, data: dict) -> dict:
+    """T8: lambdarank (target ndcg) at MSLR-WEB30K width, then 3 rounds of
+    lambdagap-x-plus-plus and 3 of rank_xendcg with by-query bagging on the
+    same constructed Dataset (``data``, :func:`mslr_data`); counts zeroed
+    just before each run."""
+    import torch
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.objectives import rank as prank
+    from lambdagap_tpu_torch.ops.hist_cuda import (HIST_LAUNCHES,
+                                                   HIST_Q_LAUNCHES)
+    tr, va, params, cfg = (data[k] for k in ("train", "valid", "params",
+                                             "cfg"))
 
     # every gradient the runs take is checked finite, on the device
     finite = []
@@ -1437,6 +1555,9 @@ def rank_train_phase(args, smi: str) -> dict:
                   f"T8 [{tag}] K1 launches {launches} != leaf histograms "
                   f"built {built}")
             check(HIST_Q_LAUNCHES.launches == 0, f"T8 [{tag}] launched K2")
+            check(gb.learner.layout == "sorted", f"T8 [{tag}]: "
+                  f"tree_layout=auto resolved to {gb.learner.layout} at "
+                  f"{gb.num_data} rows")
             check(bool(torch.stack(finite).all()),
                   f"T8 [{tag}] a gradient was not finite")
             finite.clear()
@@ -1524,10 +1645,10 @@ def rank_train_phase(args, smi: str) -> dict:
           f"tree's host wall [{smi}]")
     qb = tr.construct(cfg).metadata.query_boundaries
     q_long = int(np.argmax(np.diff(qb)))
-    return {"out": out, "Xva": Xva, "grad": grad[0], "hess": hess[0],
-            "row_leaf": rec.row_leaf, "x_rows": lr.x_rows,
+    return {"out": out, "Xva": data["Xva"], "grad": grad[0],
+            "hess": hess[0], "row_leaf": rec.row_leaf, "x_rows": lr.x_rows,
             "long_rows": (int(qb[q_long]), int(qb[q_long + 1])),
-            "train": tr, "cfg": cfg, "k1_tree_ms": k_ms,
+            "train": tr, "cfg": cfg, "params": params, "k1_tree_ms": k_ms,
             "k1_launches_tree": lr.hist_builds}
 
 
@@ -1609,7 +1730,7 @@ def hist_mslr_phase(dev, t8: dict, smi: str) -> dict:
 
 
 def rank_card_vs_cpu_phase(smi: str) -> None:
-    """T9: 200 queries x 25 documents x 20 features, 63 leaves, 20 rounds,
+    """T9: 200 queries x 25 documents x 20 features, 63 leaves, 12 rounds,
     trained on the card and on the CPU: ndcg, lambdagap-s,
     lambdagap-x-plus-plus, rank_xendcg, and positions with by-query
     bagging; predictions on the training rows within rtol 1e-4 / atol
@@ -1629,8 +1750,7 @@ def rank_card_vs_cpu_phase(smi: str) -> None:
     pos = np.tile(np.arange(docs), nq)
     base = {"objective": "lambdarank", "num_leaves": 63, "verbose": -1,
             "learning_rate": 0.1}
-    for name, extra, position in (
-            ("ndcg", {}, None),
+    runs = (("ndcg", {}, None),
             ("lambdagap-s", {"lambdarank_target": "lambdagap-s"}, None),
             ("lambdagap-x-plus-plus", {
                 "lambdarank_target": "lambdagap-x-plus-plus",
@@ -1638,15 +1758,23 @@ def rank_card_vs_cpu_phase(smi: str) -> None:
             ("rank_xendcg", {"objective": "rank_xendcg"}, None),
             ("position + by-query bagging 0.7/1", {
                 "bagging_by_query": True, "bagging_fraction": 0.7,
-                "bagging_freq": 1}, pos)):
-        preds, secs = {}, {}
-        for device in ("cuda", "cpu"):
+                "bagging_freq": 1}, pos))
+    with CpuSide() as cpu:
+        futs = [cpu.submit({**base, **extra}, RANK_CPU_ROUNDS, {
+            "data": X, "label": y, "group": group, "position": position})
+            for _, extra, position in runs]
+        outs = []
+        for (name, extra, position), fut in zip(runs, futs):
             t0 = time.perf_counter()
-            bst = lgt.train({**base, **extra, "device_type": device},
+            bst = lgt.train({**base, **extra},
                             lgt.Dataset(X, label=y, group=group,
-                                        position=position), 20)
-            secs[device] = time.perf_counter() - t0
-            preds[device] = bst.predict(X)
+                                        position=position), RANK_CPU_ROUNDS)
+            secs = {"cuda": time.perf_counter() - t0}
+            preds = {"cuda": bst.predict(X)}
+            r = fut.result()
+            preds["cpu"], secs["cpu"] = r["pred"], r["secs"]
+            outs.append((name, preds, secs))
+    for name, preds, secs in outs:
         diff = float(np.abs(preds["cuda"] - preds["cpu"]).max())
         check(np.allclose(preds["cuda"], preds["cpu"], rtol=1e-4, atol=1e-5),
               f"T9 card != CPU [{name}]: max |diff| {diff}")
@@ -1659,7 +1787,7 @@ def rank_phases(args, dev, smi: str):
     """T8, T2 at 136 features, T9 and T10, each timed. Returns (T8's
     results, K1's numbers at 136 features)."""
     t0 = time.perf_counter()
-    t8 = rank_train_phase(args, smi)
+    t8 = rank_train_phase(args, smi, mslr_data(args))
     print(f"T8: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     k1m = hist_mslr_phase(dev, t8, smi)
@@ -1935,7 +2063,7 @@ def covtype_data(args, smi: str):
 
 
 def covtype_phase(args, dev, smi: str) -> dict:
-    """T11a-c: 7-class softmax (6 rounds, early stopping, multi_logloss,
+    """T11a-c: 7-class softmax (4 rounds, early stopping, multi_logloss,
     multi_error, auc_mu), one-vs-all (2 rounds) and quantized + bagged
     softmax (2 rounds) on one pair of Covertype-width Datasets."""
     import torch
@@ -2138,23 +2266,33 @@ def objectives_card_vs_cpu_phase(smi: str) -> None:
     base = {"num_leaves": 31, "learning_rate": 0.1, "verbose": -1}
     tr_rows = slice(0, 16_000)
     va_rows = slice(16_000, n)
-    for name, extra, y, wt in configs:
-        preds, raw, best, secs = {}, {}, {}, {}
-        for device in ("cuda", "cpu"):
-            tr = lgt.Dataset(X[tr_rows], label=y[tr_rows],
-                             weight=None if wt is None else wt[tr_rows],
-                             categorical_feature=[0])
-            va = lgt.Dataset(X[va_rows], label=y[va_rows],
-                             weight=None if wt is None else wt[va_rows],
-                             reference=tr)
+    def sets(y, wt):
+        return ({"data": X[tr_rows], "label": y[tr_rows],
+                 "weight": None if wt is None else wt[tr_rows],
+                 "categorical_feature": [0]},
+                {"data": X[va_rows], "label": y[va_rows],
+                 "weight": None if wt is None else wt[va_rows]})
+
+    with CpuSide() as cpu:
+        futs = [cpu.submit({**base, **extra}, 10, *sets(y, wt))
+                for _, extra, y, wt in configs]
+        outs = []
+        for (name, extra, y, wt), fut in zip(configs, futs):
+            train_kw, valid_kw = sets(y, wt)
+            tr = lgt.Dataset(**train_kw)
+            va = lgt.Dataset(reference=tr, **valid_kw)
             t0 = time.perf_counter()
-            bst = lgt.train({**base, **extra, "device_type": device}, tr, 10,
-                            valid_sets=[va],
+            bst = lgt.train({**base, **extra}, tr, 10, valid_sets=[va],
                             callbacks=[lgt.early_stopping(5, verbose=False)])
-            secs[device] = time.perf_counter() - t0
-            preds[device] = bst.predict(X[tr_rows])
-            raw[device] = bst.predict(X[tr_rows], raw_score=True)
-            best[device] = bst.best_iteration
+            secs = {"cuda": time.perf_counter() - t0}
+            preds = {"cuda": bst.predict(X[tr_rows])}
+            raw = {"cuda": bst.predict(X[tr_rows], raw_score=True)}
+            best = {"cuda": bst.best_iteration}
+            r = fut.result()
+            preds["cpu"], raw["cpu"] = r["pred"], r["raw"]
+            best["cpu"], secs["cpu"] = r["best"], r["secs"]
+            outs.append((name, preds, raw, best, secs))
+    for name, preds, raw, best, secs in outs:
         diff = float(np.abs(preds["cuda"] - preds["cpu"]).max())
         raw_diff = float(np.abs(raw["cuda"] - raw["cpu"]).max())
         for a, b, d, what in ((preds, preds, diff, "predictions"),
@@ -2532,7 +2670,7 @@ T15_FORCED = {"feature": 3, "threshold": 0.0,
                        "left": {"feature": 2, "threshold": -0.5}},
               "right": {"feature": 4, "threshold": 0.0}}
 T15_FORCED_BFS = [3, 1, 4, 2]     # the forced nodes' features, step order
-OPTION_ROUNDS = 3
+OPTION_ROUNDS = 2                 # T15 (cut from 3: the script's time)
 OPTION_CPU_ROUNDS = 10            # T15b: early_stopping(5) can fire
 
 
@@ -2614,12 +2752,13 @@ def tree_phases(bst, smi: str, tag: str) -> None:
           f"split scan {ph.get('split_scan', 0):.1f} ms, partition "
           f"{ph.get('partition', 0):.1f} ms, constraints "
           f"{ph.get('constraints', 0):.1f} ms, quantize "
-          f"{ph.get('quantize', 0):.1f} ms; {lr.host_syncs} host syncs "
-          f"[{smi}]")
+          f"{ph.get('quantize', 0):.1f} ms, layout_apply "
+          f"{ph.get('layout_apply', 0):.1f} ms ({lr.layout}); "
+          f"{lr.host_syncs} host syncs [{smi}]")
 
 
 def options_phase(t3: dict, dev, smi: str) -> dict:
-    """T15: each tree option on T3's Datasets at HIGGS width, 3 rounds
+    """T15: each tree option on T3's Datasets at HIGGS width, 2 rounds
     each, the counts zeroed just before each run and read just after."""
     import tempfile
     import lambdagap_tpu_torch as lgt
@@ -2700,10 +2839,14 @@ def options_card_vs_cpu_phase(smi: str) -> None:
             "num_leaves": 31, "learning_rate": 0.1, "verbose": -1}
     mono = {0: 1, 5: 1, 9: -1, 13: -1}
     groups = [list(range(g, g + 5)) for g in (0, 5, 10, 15)]
-    for tag, what, extra in option_variants(20, forced_path, mono, groups,
-                                            T15_HALVED):
-        out = card_vs_cpu({**base, **extra}, X[:16_000], y[:16_000],
-                          X[16_000:], y[16_000:], OPTION_CPU_ROUNDS)
+    with CpuSide() as cpu:
+        runs = [(tag, what, card_vs_cpu(cpu, {**base, **extra}, X[:16_000],
+                                        y[:16_000], X[16_000:], y[16_000:],
+                                        OPTION_CPU_ROUNDS))
+                for tag, what, extra in option_variants(
+                    20, forced_path, mono, groups, T15_HALVED)]
+        outs = [(tag, what, finish()) for tag, what, finish in runs]
+    for tag, what, out in outs:
         (pc, bc, ac, sc, _), (pp, _, _, sp, _) = out["cuda"], out["cpu"]
         print(f"T15b card == CPU [({tag}) {what}]: predictions max |diff| "
               f"{np.abs(pc - pp).max():.3g}, best_iteration {bc}, valid AUC "
@@ -2760,7 +2903,7 @@ def options_phases(t3: dict, dev, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 # T16-T16b: the host-driven serial learner at HIGGS width; card against CPU
 # ---------------------------------------------------------------------------
-SERIAL_ROUNDS = 3
+SERIAL_ROUNDS = 2                 # T16 (cut from 3: the script's time)
 SERIAL_CPU_ROUNDS = 10          # T16b: early_stopping(5) can fire
 # eight features with a coupled cost, six of them ones the label depends on
 T16_COUPLED = (1, 2, 3, 4, 5, 9, 13, 17)
@@ -2793,7 +2936,7 @@ def serial_variants(f: int, mono: dict) -> list:
 
 
 def serial_phase(t3: dict, dev, smi: str) -> dict:
-    """T16: the serial learner on T3's Datasets at HIGGS width, 3 rounds
+    """T16: the serial learner on T3's Datasets at HIGGS width, 2 rounds
     of each variant, the counts zeroed just before each run and read just
     after."""
     import lambdagap_tpu_torch as lgt
@@ -2818,7 +2961,7 @@ def serial_phase(t3: dict, dev, smi: str) -> dict:
         feats[tag] = {f for t in trees for f in t.split_feature}
         notes = []
         if tag == "s":
-            # the same trees as the fused learner's: T3's model at 3 rounds
+            # the same trees as the fused learner's: T3's model at 2 rounds
             got = bst.predict(Xva)
             want = t3["bst"].predict(Xva, num_iteration=SERIAL_ROUNDS)
             d = float(np.abs(got - want).max())
@@ -2888,9 +3031,13 @@ def serial_card_vs_cpu_phase(smi: str) -> None:
          "multi_logloss"),
         ("regression_l1", {**base, "objective": "regression_l1",
                            "metric": "l1"}, 10 * z + 50, "l1")]
-    for what, params, label, metric in runs:
-        out = card_vs_cpu(params, X[:16_000], label[:16_000], X[16_000:],
-                          label[16_000:], SERIAL_CPU_ROUNDS, metric)
+    with CpuSide() as cpu:
+        pairs = [(what, metric, card_vs_cpu(
+            cpu, params, X[:16_000], label[:16_000], X[16_000:],
+            label[16_000:], SERIAL_CPU_ROUNDS, metric))
+            for what, params, label, metric in runs]
+        outs = [(what, metric, finish()) for what, metric, finish in pairs]
+    for what, metric, out in outs:
         (pc, bc, mc, sc, b), (pp, _, _, sp, _) = out["cuda"], out["cpu"]
         check(b._booster.serial, f"T16b {what}: not the serial learner")
         print(f"T16b card == CPU [{what}]: predictions max |diff| "
@@ -2911,6 +3058,213 @@ def serial_phases(t3: dict, dev, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# T17: tree_layout=sorted against gather; K1 and K2 in window mode
+# ---------------------------------------------------------------------------
+def _model_text(bst) -> str:
+    """The model text without the layout's own parameter line."""
+    return "\n".join(ln for ln in bst.model_to_string().splitlines()
+                     if not ln.startswith("[tree_layout:"))
+
+
+def layout_run(params: dict, tr, rounds: int, tag: str, smi: str) -> dict:
+    """One T17 training (no validation set): the counts zeroed just before
+    and read just after; the kernel's launches == the histograms built
+    (each round's one tree's), under sorted every one a window launch;
+    then one more tree with CUDA events around its phases."""
+    import torch
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    counters = (hc.HIST_LAUNCHES, hc.HIST_Q_LAUNCHES,
+                hc.HIST_WINDOW_LAUNCHES, hc.HIST_Q_WINDOW_LAUNCHES)
+    walls, built = [], []
+    last = [0.0]
+
+    def per_round(env) -> None:
+        now = time.perf_counter()
+        walls.append((now - last[0]) * 1e3)
+        last[0] = now
+        built.append(env.model._booster.learner.hist_builds)
+
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    last[0] = time.perf_counter()
+    bst = lgt.train(params, tr, rounds, callbacks=[per_round])
+    torch.cuda.synchronize()
+    k1, k2, w1, w2 = (c.launches for c in counters)
+    gb = bst._booster
+    lr = gb.learner
+    quant = bool(params.get("use_quantized_grad")) and not gb.serial
+    used, other, window = (k2, k1, w2) if quant else (k1, k2, w1)
+    layout = params["tree_layout"]
+    check(lr.layout == layout, f"{tag}: trained {lr.layout}")
+    check(gb.scores.is_cuda and lr.x_rows.is_cuda, f"{tag}: not on the card")
+    check(used > 0 and used == sum(built), f"{tag}: {'K2' if quant else 'K1'}"
+          f" launches {used} != histograms built {sum(built)}")
+    check(other == 0, f"{tag}: launched the other kernel {other} times")
+    if layout == "sorted":
+        check(window == used, f"{tag}: {window} window launches of {used}")
+        check(not hasattr(lr.row_layout, "x_cols"),
+              f"{tag}: holds a column-major copy")
+    lr.time_phases = True
+    grad, hess = gb.boosting()
+    grad, hess, mask = gb.sample_strategy.sample(gb.iter_, grad, hess)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (lr.train if gb.serial else lr.train_device)(grad[0], hess[0], mask)
+    torch.cuda.synchronize()
+    tree_ms = (time.perf_counter() - t1) * 1e3
+    lr.time_phases = False
+    ph = dict(lr.phase_ms)
+    print(f"{tag}: rounds (ms) {', '.join(f'{w:.1f}' for w in walls)}, "
+          f"median {statistics.median(walls):.1f}; {'K2' if quant else 'K1'}"
+          f" launches {used} == histograms built, {window} without a row "
+          f"list; one more tree {tree_ms:.1f} ms host wall, device-stream "
+          f"layout_apply {ph.get('layout_apply', 0):.2f} ms, partition "
+          f"{ph.get('partition', 0):.1f} ms, histogram "
+          f"{ph.get('histogram', 0):.1f} ms, split scan "
+          f"{ph.get('split_scan', 0):.1f} ms; resident "
+          f"{lr.resident_bytes() / 1e9:.3f} GB [{smi}]")
+    out = {"text": _model_text(bst), "walls": walls,
+           "median": statistics.median(walls), "window": window,
+           "tree_ms": tree_ms, "phases": ph}
+    del bst, gb, lr, grad, hess, mask
+    torch.cuda.empty_cache()
+    return out
+
+
+def layout_phase(t3: dict, t8: dict, smi: str) -> dict:
+    """T17 (a)-(d): each variant under explicit gather, then sorted; the
+    model texts byte-equal. Returns the sorted runs' window launches of K1
+    and K2 and every run's numbers."""
+    quant = {"use_quantized_grad": True, "num_grad_quant_bins": 4,
+             "bagging_fraction": 0.7, "bagging_freq": 1}
+    variants = [("a", "f32 fused", t3, {}, LAYOUT_ROUNDS),
+                ("b", "quantized 4 levels + bagging 0.7/1 (K2)", t3, quant,
+                 LAYOUT_ROUNDS),
+                ("c", "tpu_fused_learner=0", t3, {"tpu_fused_learner": "0"},
+                 LAYOUT_ROUNDS),
+                ("d", "lambdarank ndcg at MSLR width", t8, {},
+                 LAYOUT_RANK_ROUNDS)]
+    out = {"k1_window": 0, "k2_window": 0}
+    for tag, what, base, extra, rounds in variants:
+        runs = {}
+        for layout in ("gather", "sorted"):
+            params = {**base["params"], **extra, "tree_layout": layout}
+            runs[layout] = layout_run(params, base["train"], rounds,
+                                      f"T17({tag}) [{what}, {layout}]", smi)
+        g, srt = runs["gather"], runs["sorted"]
+        check(srt["text"] == g["text"], f"T17({tag}): the sorted model text "
+              "differs from gather's")
+        out["k2_window" if tag == "b" else "k1_window"] += srt["window"]
+        print(f"T17({tag}) [{what}]: model text byte-equal under gather and "
+              f"sorted; median round {g['median']:.1f} -> "
+              f"{srt['median']:.1f} ms, partition "
+              f"{g['phases'].get('partition', 0):.1f} -> "
+              f"{srt['phases'].get('partition', 0):.1f} ms, histogram "
+              f"{g['phases'].get('histogram', 0):.1f} -> "
+              f"{srt['phases'].get('histogram', 0):.1f} ms, layout_apply "
+              f"{srt['phases'].get('layout_apply', 0):.2f} ms a tree "
+              f"(gather -> sorted) [{smi}]")
+        out[tag] = runs
+    return out
+
+
+def hist_window_phase(dev, seed: int, smi: str) -> dict:
+    """T17's kernels: K1 (no mask) and K2 (bagging mask 0.8) in window
+    mode at T3's 41,176-row leaf, the right child at its offset in its
+    parent's window of leaf-ordered copies of HIGGS-width rows, the next
+    leaf's rows past it: ``torch.equal`` to the plain version, to a rerun
+    and to the same leaf gathered through the permutation; the window
+    timed beside the gathered leaf, the plain version and ``index_add_``
+    over the contiguous window, with its bound."""
+    import torch
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    N, nb = HIGGS_ROWS, 256
+    bins = torch.randint(0, MAX_BIN, (N, F), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    grad = torch.randn(N, generator=gen, device=dev)
+    hess = torch.rand(N, generator=gen, device=dev) * 0.25
+    gq = torch.randint(-2, 3, (N,), generator=gen, device=dev,
+                       dtype=torch.int8)
+    hq = torch.randint(0, 5, (N,), generator=gen, device=dev,
+                       dtype=torch.int8)
+    bag = torch.rand(N, generator=gen, device=dev) < 0.8
+    perm = torch.randperm(N, generator=gen, device=dev).int()
+    p = perm.long()
+    xs, gs, hs, gqs, hqs, ms = (t[p].contiguous() for t in (bins, grad, hess,
+                                                           gq, hq, bag))
+    leaf = N // 255
+    begin, off = 1_003, leaf + 3        # the parent's window; its right child
+    w = slice(begin, begin + off + leaf + 5)
+    live = slice(begin + off, begin + off + leaf)
+    scale = hc.hist_scale(grad, hess)
+    cases = {
+        "K1": (hc.hist_rows, hc._hist_reference,
+               (xs[w], gs[w], hs[w], None, one(dev, leaf), nb, None,
+                one(dev, off), scale),
+               (bins, grad, hess, perm[w], one(dev, leaf), nb, None,
+                one(dev, off), scale),
+               (xs[live], gs[live], hs[live], None, leaf, nb, None), 8, 5),
+        "K2": (hc.hist_rows_q, hc._hist_q_reference,
+               (xs[w], gqs[w], hqs[w], None, one(dev, leaf), nb, ms[w],
+                one(dev, off)),
+               (bins, gq, hq, perm[w], one(dev, leaf), nb, bag,
+                one(dev, off)),
+               (xs[live], gqs[live], hqs[live], None, leaf, nb, ms[live]),
+               2, 2)}
+    out = {}
+    for name, (kernel, plain, args, gathered, lib_args, chan_bytes,
+               int_ops) in cases.items():
+        got = kernel(*args)
+        again = kernel(*args)
+        ref = plain(*args)
+        via_perm = kernel(*gathered)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{name} window: rerun differs")
+        check(torch.equal(got, ref), f"{name} window != plain: "
+              f"{int((got != ref).sum())} entries differ")
+        check(torch.equal(got, via_perm), f"{name} window != the same leaf "
+              "gathered through the permutation")
+        inbag = leaf if args[6] is None else int(ms[live].sum())
+        check(int(got[..., 2].long().sum()) == inbag * F,
+              f"{name} window counted rows wrongly")
+        k_ms = cuda_ms(lambda: kernel(*args))
+        g_ms = cuda_ms(lambda: kernel(*gathered))
+        p_ms = cuda_ms(lambda: plain(*args), reps=3, warm=1)
+        lib = index_add_call(*lib_args)
+        l_ms = cuda_ms(lib, reps=5, warm=1)
+        del lib
+        bound, by, nbytes = hist_bound(xs[live], None, leaf, nb, args[6],
+                                       chan_bytes, int_ops)
+        print(f"{name} window == plain [T3's {leaf}-row leaf at offset "
+              f"{off} in its parent's window at position {begin}, the next "
+              f"leaf's rows past it"
+              f"{', bagging mask 0.8' if args[6] is not None else ''}]: "
+              f"torch.equal, rerun bit-identical, == the leaf gathered "
+              f"through the permutation; window {k_ms:.4f} ms, gathered "
+              f"{g_ms:.4f} ms, plain {p_ms:.3f} ms, index_add_ over the "
+              f"window {l_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+              f"{nbytes / 1e6:.1f} MB) [{smi}]")
+        out[name] = {"ms": k_ms, "gathered_ms": g_ms, "plain_ms": p_ms,
+                     "library_ms": l_ms, "bound_ms": bound, "bound_by": by,
+                     "max_abs_err": float((got.double()
+                                           - ref.double()).abs().max())}
+    del bins, grad, hess, gq, hq, bag, perm, p, xs, gs, hs, gqs, hqs, ms
+    torch.cuda.empty_cache()
+    return out
+
+
+def layout_phases(t3: dict, t8: dict, dev, seed: int, smi: str) -> dict:
+    t0 = time.perf_counter()
+    t17 = layout_phase(t3, t8, smi)
+    t17["kernels"] = hist_window_phase(dev, seed, smi)
+    print(f"T17: {time.perf_counter() - t0:.1f} s")
+    return t17
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2918,7 +3272,7 @@ def main() -> int:
                     help="training rows of phase T3 (HIGGS's count)")
     ap.add_argument("--only", choices=("all", "kernels", "rank",
                                        "objectives", "predict", "shap",
-                                       "options", "serial"),
+                                       "options", "serial", "layout"),
                     default="all",
                     help="kernels: phases 1-4 (with the SASS check), T2 and "
                     "T2q; rank: phases 1-2, T8, T2 at 136 features, T9 and "
@@ -2927,7 +3281,8 @@ def main() -> int:
                     "phase 5's scan oracle, T3, T11a and T14; shap: phases "
                     "1-3 and T14's kernel S checks; options: phases 1-2, "
                     "T3, T15 and T15b; serial: phases 1-2, T3, T16 and "
-                    "T16b; each then stops without a result line")
+                    "T16b; layout: phases 1-2, T3, T8's data and T17; each "
+                    "then stops without a result line")
     args = ap.parse_args()
 
     import torch
@@ -2993,6 +3348,13 @@ def main() -> int:
         serial_phases(t3, dev, smi)
         print(f"chip_smoke: serial phases passed in "
               f"{time.perf_counter() - t_start:.1f} s (--only serial: no "
+              "result)")
+        return 0
+    if args.only == "layout":
+        t3 = train_phase(args, smi)
+        layout_phases(t3, mslr_data(args), dev, args.seed + 17, smi)
+        print(f"chip_smoke: layout phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--only layout: no "
               "result)")
         return 0
     if args.only == "objectives":
@@ -3142,6 +3504,10 @@ def main() -> int:
     # -- T8. ranking at MSLR width; T2 at 136 features; T9; T10 -------------
     t8, k1m = rank_phases(args, dev, smi)
 
+    # -- T17. sorted against gather on T3's and T8's Datasets; windows -------
+    t17 = layout_phases(t3, t8, dev, args.seed + 17, smi)
+    del t8["train"]
+
     # -- T11-T13. multiclass at Covertype width, T12, leaf renew at MSD -----
     t11, k1c, k2c_err = objective_phases(args, dev, smi)
 
@@ -3208,7 +3574,17 @@ def main() -> int:
         "max_abs_err": max(k2["max_abs_err"], k2c_err),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-        "library_ms": k2["library_ms"]}, t14["shap"]]}))
+        "library_ms": k2["library_ms"]}] + [{
+        "name": f"{name}@sorted", "route": "cuda",
+        "source": f"lambdagap_tpu_torch/csrc/{src}",
+        "replaces": f"lambdagap_tpu/ops/hist_pallas.py:{line}",
+        "launches": t17[count], "max_abs_err": w["max_abs_err"],
+        "ms": w["ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+        "bound_by": w["bound_by"], "library_ms": w["library_ms"]}
+        for name, src, line, count, w in (
+            ("hist_rows", "hist.cu", 79, "k1_window", t17["kernels"]["K1"]),
+            ("hist_rows_q", "hist_q.cu", 207, "k2_window",
+             t17["kernels"]["K2"]))] + [t14["shap"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

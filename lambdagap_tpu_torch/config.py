@@ -494,16 +494,16 @@ class Config:
     # TPU-specific knobs (no reference analog; tuning surface for XLA/Pallas)
     tpu_rows_per_block: int = 4096
     tpu_hist_impl: str = "auto"               # kept for parity with the JAX package's config; the port reads it nowhere: every histogram comes from ops/hist_cuda.hist_rows (the CUDA kernel on the card, its plain version on the CPU)
-    # physical row layout during training (docs/performance.md):
-    #   gather — rows stay in dataset order; the histogram pass gathers by
-    #            the leaf permutation (the differential oracle)
-    #   sorted — the packed row matrix is physically reordered by leaf
-    #            after each split, so histogram reads are contiguous
-    #            streams instead of row gathers
-    #   auto   — the JAX package picks sorted at >= 2^20 rows; the port
-    #            resolves auto to gather (the JAX package holds the two
-    #            layouts bit-identical) and raises NotImplementedError for
-    #            an explicit sorted until that layout is ported
+    # physical row layout during training, in both ported learners:
+    #   gather — rows stay in dataset order; the histogram kernels read a
+    #            leaf's rows through its slice of the leaf permutation, the
+    #            partition a column-major copy
+    #   sorted — leaf-ordered copies of the rows and their gradient
+    #            channels, rebuilt each tree and moved with the
+    #            permutation at each split, so the kernels read each leaf
+    #            as a contiguous window; no column-major copy
+    #   auto   — sorted at >= 2^20 rows, gather below, as the JAX package
+    #            resolves it; the two grow the same trees bit for bit
     tree_layout: str = "auto"                 # auto / gather / sorted
     tpu_num_devices: int = 0                  # 0 = all visible devices
     mesh_shape: str = ""                      # device mesh extents "DATAxFEATURE" over parallel/sharding.py axes ("8", "8x1", "1x8", "4x2", wildcard "0x4"/"2x0" = all remaining devices on that axis); an explicit AxB grid routes distributed training through the fused 2-D data x feature learner; "" = 1-D on the learner's natural axis with tpu_num_devices devices

@@ -4,14 +4,16 @@
 // Pallas kernel that `hist_pallas` launches (:167) for every leaf
 // histogram of the fused tree learner.
 //
-// What it computes: for the first `count` positions p of a leaf's row list
-// (`rows[offset + p]`, or p itself when there is no list), the sums of
-// (grad, hess, 1) into the bin of every feature: out[f][b][c], f32
-// [F, B, 3]. Positions at or past `count` may hold anything (another
-// leaf's rows) and are never dereferenced. `count` and `offset` may live in
-// device memory, so a launch needs no host read. An optional in-bag mask
-// (u8 [N], the bagging/GOSS sample) leaves out-of-bag rows out of all
-// three channels, the count included.
+// What it computes: for the first `count` positions p of a leaf, the sums
+// of (grad, hess, 1) into the bin of every feature: out[f][b][c], f32
+// [F, B, 3]. A leaf is either a row list (position p is row
+// `rows[offset + p]`) or, with no list, a window of a leaf-ordered copy
+// (tree_layout=sorted: position p is row `offset + p` of bins, grad, hess
+// and mask alike). Positions at or past `count` may hold anything (another
+// leaf's rows) and are never read. `count` and `offset` may live in device
+// memory, so a launch needs no host read. An optional in-bag mask (u8 [N],
+// the bagging/GOSS sample) leaves out-of-bag rows out of all three
+// channels, the count included.
 //
 // The sums are exact integers. grad and hess are taken in fixed point at
 // a power-of-two scale 2^k (one k per channel, from `scale`): each value
@@ -56,8 +58,9 @@
 //    random bins cost no bank conflicts and a bin that most rows fall into
 //    no same-address serialisation;
 //  - rows are staged with cp.async in 16-byte copies where they are
-//    contiguous (the root) and in 4-byte words of each gathered row at
-//    leaves, double-buffered under the adds of the tile before;
+//    contiguous (the root, and a window whose start is 16-byte aligned)
+//    and in 4-byte words of each row otherwise, double-buffered under the
+//    adds of the tile before;
 //  - the grid is sized by the card (SMs x resident blocks) and by the
 //    parent's positions; each block takes at least `min_rows` live rows
 //    and blocks past `count` exit before touching shared memory, so a
@@ -151,12 +154,17 @@ hist_kernel(const BinT* __restrict__ bins, int64_t F,
   const int used = hist_words(nf, W, B);   // words this block touches
   const int rs = row_stride(nf, (int)sizeof(BinT));
 
-  const int64_t off =
-      (rows != nullptr && offset_ptr != nullptr) ? (int64_t)(*offset_ptr) : 0;
+  const int64_t off = offset_ptr != nullptr ? (int64_t)(*offset_ptr) : 0;
   int64_t r0, r1;
   if (!block_range(count_ptr, count_const, P - off, min_rows, &r0, &r1))
     return;
   const int32_t* rw = rows != nullptr ? rows + off : nullptr;
+  if (rows == nullptr) {   // a window: every per-row array from `off` on
+    bins += off * F;
+    grad += off;
+    hess += off;
+    if (mask != nullptr) mask += off;
+  }
 
   const int words = hist_words(f_tile, W, B);
   unsigned* s_lg = reinterpret_cast<unsigned*>(smem);
@@ -349,9 +357,9 @@ extern "C" int lg_hist_occupancy(int bin_bytes, int f_tile,
 }
 
 // bins: u8/u16 [N, F] row-major; grad, hess: f32 [N]; mask: u8 [N] or null
-// (every row in the bag); rows: int32 [P] or null (positions are rows);
-// offset_ptr: one int32 on the device or null (0), position p reads
-// rows[offset + p]; count: *count_ptr when non-null, else count_const;
+// (every row in the bag); rows: int32 [P] or null (P = N: a window, position
+// p is row offset + p); offset_ptr: one int32 on the device or null (0),
+// position p reads rows[offset + p] (or row offset + p); count: *count_ptr when non-null, else count_const;
 // scale_ptr: int32 [2] on the device, the fixed-point exponents (k_g, k_h);
 // acc: int64 [F, num_bins, 3] workspace, all zero on entry and left all
 // zero; out: f32 [F, num_bins, 3]. Returns 0 on success, -1 for an

@@ -5,13 +5,14 @@
 // histogram of `use_quantized_grad=true`: an int8 one-hot matmul on the
 // TPU's matrix unit with exact int32 accumulation.
 //
-// What it computes: for the first `count` positions p of a leaf's row list
-// (`rows[offset + p]`, or p itself when there is no list), the sums of the
-// row's int8 gradient levels (g_q, h_q) and of 1 into the bin of every
-// feature, skipping rows an optional in-bag mask (u8 [N]) leaves out:
-// out[f][b] = (sum g_q, sum h_q, in-bag count), int32 [F, B, 3]. Positions
-// at or past `count` are never dereferenced; `count` and `offset` may live
-// in device memory. The caller keeps every sum below 2^31 (the JAX
+// What it computes: for the first `count` positions p of a leaf (a row
+// list, position p is row `rows[offset + p]`; or, with no list, a window
+// of a leaf-ordered copy, tree_layout=sorted: row `offset + p` of bins,
+// gq, hq and mask alike), the sums of the row's int8 gradient levels
+// (g_q, h_q) and of 1 into the bin of every feature, skipping rows an
+// optional in-bag mask (u8 [N]) leaves out: out[f][b] = (sum g_q, sum
+// h_q, in-bag count), int32 [F, B, 3]. Positions at or past `count` are
+// never read; `count` and `offset` may live in device memory. The caller keeps every sum below 2^31 (the JAX
 // package's exact_accum_limit("pallas"): rows x num_grad_quant_bins
 // < 2^31 - 1) and the levels in the quantizer's range: g_q in [-128, 127],
 // h_q in [0, 127]. The kernel does not check h_q: word B takes it as 8
@@ -123,12 +124,17 @@ hist_q_kernel(const BinT* __restrict__ bins, int64_t F,
   const int used = hist_words(nf, W, B);   // words this block touches
   const int rs = row_stride(nf, (int)sizeof(BinT));
 
-  const int64_t off =
-      (rows != nullptr && offset_ptr != nullptr) ? (int64_t)(*offset_ptr) : 0;
+  const int64_t off = offset_ptr != nullptr ? (int64_t)(*offset_ptr) : 0;
   int64_t r0, r1;
   if (!block_range(count_ptr, count_const, P - off, min_rows, &r0, &r1))
     return;
   const int32_t* rw = rows != nullptr ? rows + off : nullptr;
+  if (rows == nullptr) {   // a window: every per-row array from `off` on
+    bins += off * F;
+    gq += off;
+    hq += off;
+    if (mask != nullptr) mask += off;
+  }
 
   const int words = hist_words(f_tile, W, B);
   int* s_a = reinterpret_cast<int*>(smem);
@@ -283,9 +289,9 @@ extern "C" int lg_hist_q_occupancy(int bin_bytes, int f_tile,
 }
 
 // bins: u8/u16 [N, F] row-major; gq, hq: int8 [N]; mask: u8 [N] or null
-// (every row in the bag); rows: int32 [P] or null (positions are rows);
-// offset_ptr: one int32 on the device or null (0), position p reads
-// rows[offset + p]; count: *count_ptr when non-null, else count_const;
+// (every row in the bag); rows: int32 [P] or null (P = N: a window, position
+// p is row offset + p); offset_ptr: one int32 on the device or null (0),
+// position p reads rows[offset + p] (or row offset + p); count: *count_ptr when non-null, else count_const;
 // out: int32 [F, num_bins, 3], zeroed by the caller. Returns 0 on success,
 // -1 for an unsupported bin width, otherwise the cudaError_t of the launch.
 extern "C" int lg_hist_rows_q(const void* bins, int bin_bytes, int64_t F,

@@ -5,10 +5,10 @@ compiles one whole tree into one XLA program (a ``fori_loop`` over splits
 with masked no-op steps and no host sync). PyTorch runs eagerly, so the
 port keeps the algorithm and the device residency, not the loop form:
 
-* The binned matrix (row-major ``[N, C]`` for the histogram kernel and a
-  column-major copy for the partition), grad/hess, the leaf permutation,
-  the per-leaf and per-node tables and the per-leaf histograms
-  ``[L, C, B, 3]`` f32 all live on the device.
+* The binned matrix (row-major ``[N, C]`` for the histogram kernel and,
+  under ``tree_layout=gather``, a column-major copy for the partition),
+  grad/hess, the leaf permutation, the per-leaf and per-node tables and
+  the per-leaf histograms ``[L, C, B, 3]`` f32 all live on the device.
 * Each split step reads back ONE record of 10 to 21 int64s — the chosen
   leaf, whether its stored best gain is > 0, its begin, count, split
   feature, depth, parent pointer, threshold and kind (with forced splits
@@ -59,10 +59,23 @@ port keeps the algorithm and the device residency, not the loop form:
   back once (a second host read of that step) and re-scanned in one
   batched scan before the next step's argmax.
 
+* ``tree_layout=sorted`` (``auto`` at 2^20 rows and more, as the JAX
+  learner resolves it): each tree (each class's, under multiclass) first
+  copies the rows, the channels — grad/hess, or the quantized levels
+  drawn in dataset order — and the in-bag mask into persistent
+  leaf-ordered buffers (``row_layout``, ``ops/partition.SortedRows``,
+  phase ``layout_apply``; the JAX learner's ``srows``, :401-410); every leaf
+  histogram reads a window of them at ``begin + offset`` with no row list,
+  and the partition reads the split column from the leaf's window (EFB:
+  its bundle column, decoded) and moves the rows, channels and mask with
+  the permutation. No column-major copy is kept. The permutation is kept
+  too, so ``row_leaf`` and the leaf renewal read through it as under
+  gather, and the trees equal gather's bit for bit.
+
 CEGB and ``monotone_constraints_method=advanced`` train on the host-driven
 ``SerialTreeLearner`` (``models/learner.py``), where the booster routes
-them; the sorted layout and streaming are refused where the booster is
-built (``models/gbdt.py``).
+them; streaming is refused where the booster is built
+(``models/gbdt.py``).
 """
 from __future__ import annotations
 
@@ -74,11 +87,11 @@ import torch
 from ..config import Config
 from ..data.bundling import unbundle_map
 from ..data.dataset import BinnedDataset
-from ..ops.hist_cuda import (exact_accum_limit, hist_rows, hist_rows_q,
-                             hist_scale, quantize_gradients)
-from ..ops.histogram import subtract_histogram, unbundle_hist
-from ..ops.partition import decision_go_left, decode_bundled, \
-    split_partition
+from ..ops.hist_cuda import (exact_accum_limit, hist_scale,
+                             quantize_gradients)
+from ..ops.histogram import leaf_histogram, subtract_histogram, \
+    unbundle_hist
+from ..ops.partition import decision_go_left, decode_bundled
 from ..ops.split import CAT_WORDS, K_MIN_SCORE, BestSplit, best_split, \
     calculate_leaf_output, gather_threshold_split
 from ..utils import prng
@@ -154,12 +167,10 @@ class FusedTreeLearner(SerialTreeLearner):
                                        LI_CAT], device=device)
 
     def _upload_matrix(self) -> None:
-        """The binned matrix on the device, bundled when EFB forms a bundle
-        (the JAX learner, fused_learner.py:91-114: histograms and
-        partitions run over the bundled columns), row-major for the
-        histogram kernel and column-major for the partition's feature-column
-        reads (the JAX package's x_cols); u16 widens to int32 (torch indexes
-        no u16 everywhere)."""
+        """The binned matrix on the device, row-major, bundled when EFB
+        forms a bundle (the JAX learner, fused_learner.py:91-114: histograms
+        and partitions run over the bundled columns); the constructor adds
+        the layout's second copy, column-major or leaf-ordered."""
         meta, device = self.meta_host, self.device
         bun = self.dataset.ensure_bundle(self.config)
         self.bundle = bun
@@ -174,8 +185,6 @@ class FusedTreeLearner(SerialTreeLearner):
             hx = self.dataset.binned
             self.Bb = self.B
         self.x_rows = torch.from_numpy(np.ascontiguousarray(hx)).to(device)
-        cols = self.x_rows.T.contiguous()
-        self.x_cols = cols if cols.dtype == torch.uint8 else cols.int()
 
     def _build_forced_seq(self, nodes: int):
         """The forced-split JSON as a BFS schedule of (leaf, inner feature,
@@ -259,9 +268,18 @@ class FusedTreeLearner(SerialTreeLearner):
                     grad, hess, keys[1], cfg.num_grad_quant_bins,
                     cfg.stochastic_rounding)
                 qscale = torch.stack([gs, hs, torch.ones_like(gs)])
+            hscale = None
         else:
             # K1's fixed-point exponents, once per tree (no host read)
             hscale = hist_scale(grad, hess)
+        lay = self.row_layout
+        # sorted: the tree's leaf-ordered copies, from the dataset-order
+        # channels and mask (fused_learner.py:401-410)
+        with timer.phase("layout_apply"):
+            if self.quant:
+                lay.rebuild(gq, hq, mask)
+            else:
+                lay.rebuild(grad, hess, mask)
         # two independent streams a tree (fused_learner.py:395-398): [0]
         # extra_trees' thresholds, [1] by-node sampling
         xkey = bkey = None
@@ -271,16 +289,15 @@ class FusedTreeLearner(SerialTreeLearner):
             k2 = prng.split(self._bkey)
             self._bkey, bkey = k2[0], k2[1]
 
-        def leaf_hist(rows, count, offset=None) -> torch.Tensor:
-            """One leaf's f32 [C, Bb, 3] histogram from the kernel over
-            positions ``rows[offset + p]``, p < count; under quantization
-            the exact int32 level sums scaled to gradient units (the JAX
-            learner, fused_learner.py:679-681)."""
-            if self.quant:
-                return hist_rows_q(self.x_rows, gq, hq, rows, count, Bb,
-                                   mask, offset).float() * qscale
-            return hist_rows(self.x_rows, grad, hess, rows, count, Bb, mask,
-                             offset, hscale)
+        def leaf_hist(begin, count, live=None, offset=None) -> torch.Tensor:
+            """One f32 [C, Bb, 3] histogram from the kernel over the first
+            ``live`` positions from ``offset`` of the leaf ``[begin, begin +
+            count)`` (None: all of it); under quantization the exact int32
+            level sums scaled to gradient units (the JAX learner,
+            fused_learner.py:679-681)."""
+            h = leaf_histogram(lay, perm, begin, count, Bb, live, offset,
+                               hscale)
+            return h.float() * qscale if self.quant else h
 
         def scan_hist(h, sums) -> torch.Tensor:
             """Stored histograms [..., C, Bb, 3] -> per-feature [..., F, B,
@@ -325,7 +342,7 @@ class FusedTreeLearner(SerialTreeLearner):
         perm = torch.arange(N, dtype=torch.int32, device=dev)
         hist = torch.zeros((L, C, Bb, 3), dtype=torch.float32, device=dev)
         with timer.phase("histogram"):
-            hist[0] = leaf_hist(None, N)
+            hist[0] = leaf_hist(0, N)
         self.hist_builds = 1
         # the root's sums over the first stored column's bins, taken in
         # float64 so the card and the CPU agree to the bit
@@ -456,10 +473,9 @@ class FusedTreeLearner(SerialTreeLearner):
 
             # -- stable partition of the leaf's slice --------------------
             with timer.phase("partition"):
-                rows = perm[begin:begin + count]
                 bun = self.bundle
-                cv = self.x_cols[feat if bun is None else
-                                 int(bun.col_of[feat])][rows.long()]
+                col = feat if bun is None else int(bun.col_of[feat])
+                cv = lay.column(perm, begin, count, col)
                 if bun is not None and not bun.single[feat]:
                     cv = decode_bundled(cv, int(bun.off_of[feat]),
                                         int(meta["default_bins"][feat]),
@@ -469,7 +485,7 @@ class FusedTreeLearner(SerialTreeLearner):
                     int(meta["default_bins"][feat]),
                     int(meta["missing_types"][feat]),
                     int(meta["num_bins"][feat]), bool(cat), bits)
-                left_count = split_partition(perm, begin, count, gl)
+                left_count = lay.split(perm, begin, count, gl)
             right_count = count - left_count
 
             # -- node bookkeeping ----------------------------------------
@@ -487,12 +503,12 @@ class FusedTreeLearner(SerialTreeLearner):
                 small_is_left = left_count <= right_count
                 small_count = torch.where(small_is_left, left_count,
                                           right_count).to(torch.int32)
-                # the smaller child's rows are the parent's slice from
-                # `off` on: the kernel reads them there, with no gather
+                # the smaller child's rows are the parent's slice (or
+                # window) from `off` on: the kernel reads them there
                 off = torch.where(small_is_left, 0, left_count).to(
                     torch.int32).reshape(1)
-                hist_small = leaf_hist(perm[begin:begin + count],
-                                       small_count.reshape(1), off)
+                hist_small = leaf_hist(begin, count, small_count.reshape(1),
+                                       off)
                 hist_large = subtract_histogram(hist[leaf], hist_small)
                 hist_left = torch.where(small_is_left, hist_small,
                                         hist_large)

@@ -16,14 +16,26 @@ the learner of ``tpu_fused_learner=0``, of CEGB and of
 each leaf's begin and count in the permutation, sums, monotone bounds,
 interaction path, bin-space box (advanced) and best split, and the order
 the leaves were stored in. On the device: the per-feature binned matrix
-(row-major for the histogram kernel, a column-major copy for the
-partition), the permutation, one f32 ``[F, B, 3]`` histogram per leaf and,
-under lazy CEGB, the ``[F, N]`` mask of rows that paid each feature's cost.
+(row-major for the histogram kernel, and a column-major copy for the
+partition under ``tree_layout=gather``), the permutation, one f32
+``[F, B, 3]`` histogram per leaf and, under lazy CEGB, the ``[F, N]`` mask
+of rows that paid each feature's cost.
 
 * The root histogram and each smaller child's come from K1
   (``ops/hist_cuda.hist_rows``), which reads the child's rows in place in
   the parent's slice of the permutation (a device offset, no gathered copy,
   no power-of-two padding); the larger child's is the parent's minus it.
+* ``tree_layout=sorted`` (``auto`` at 2^20 rows and more, as in the JAX
+  package): each tree copies the rows, grad/hess and the in-bag mask into
+  leaf-ordered buffers (``ops/partition.SortedRows``, phase
+  ``layout_apply``); a split moves the leaf's rows with the permutation,
+  reading the split column from the leaf's window, and K1 reads each leaf
+  as a window of those copies. Both layouts sit behind one interface
+  (``row_layout``: ``GatherRows`` or ``SortedRows``; the histograms through
+  ``ops/histogram.leaf_histogram``), so the loop does not branch on it.
+  The permutation is kept as under gather, so CEGB's paid rows, the score
+  update and the L1 refit read through it unchanged, and the trees equal
+  gather's bit for bit.
 * A split partitions the leaf's slice stably (out-of-bag rows too), builds
   the children's histograms and scans both children in one batched call
   (``ops/split.best_split`` with no depth guard, the JAX package's
@@ -62,9 +74,9 @@ import torch
 
 from ..config import Config
 from ..data.dataset import BinnedDataset
-from ..ops.hist_cuda import hist_rows, hist_scale
-from ..ops.histogram import subtract_histogram
-from ..ops.partition import decision_go_left, split_partition
+from ..ops.hist_cuda import hist_scale
+from ..ops.histogram import leaf_histogram, subtract_histogram
+from ..ops.partition import GatherRows, SortedRows, decision_go_left
 from ..ops.split import (CAT_WORDS, SplitParams, best_split,
                          calculate_leaf_output, gather_threshold_split,
                          monotone_split_penalty)
@@ -381,6 +393,11 @@ class SerialTreeLearner:
         self._col_rng = np.random.RandomState(config.feature_fraction_seed)
         self._init_options(dataset, config)
         self._upload_matrix()
+        # the layout's second copy of the rows: column-major for the gather
+        # partition, or leaf-ordered copies rebuilt each tree (then no
+        # column-major copy, JAX fused_learner.py:233-245)
+        self.row_layout = (SortedRows if self.layout == "sorted"
+                           else GatherRows)(self.x_rows)
         # the serial learner's state: extra_trees' numpy stream, CEGB, the
         # last tree's partition (for the score update and the L1 refit)
         self._extra_rng = np.random.RandomState(config.extra_seed)
@@ -402,16 +419,14 @@ class SerialTreeLearner:
         self.phase_ms: Dict[str, float] = {}
 
     def _upload_matrix(self) -> None:
-        """The per-feature binned matrix on the device, row-major for K1
-        and column-major for the partition (u16 widens to int32: torch
-        indexes no u16 everywhere). The serial learner reads per-feature
-        bins, never EFB's bundled columns (JAX ``learner.py:102``)."""
+        """The per-feature binned matrix on the device, row-major (``x_rows``,
+        K1's input; the constructor adds the layout's second copy,
+        ``row_layout``). The serial learner reads per-feature bins, never
+        EFB's bundled columns (JAX ``learner.py:102``)."""
         self.bundle = None
         self.Bb = self.B
         self.x_rows = torch.from_numpy(
             np.ascontiguousarray(self.dataset.binned)).to(self.device)
-        cols = self.x_rows.T.contiguous()
-        self.x_cols = cols if cols.dtype == torch.uint8 else cols.int()
 
     def _init_cegb(self, dataset: BinnedDataset, config: Config) -> None:
         """CEGB's penalties per used feature (``lambdagap_tpu/models/
@@ -444,12 +459,14 @@ class SerialTreeLearner:
                                      device=self.device)
 
     def resident_bytes(self) -> int:
-        """Device bytes this learner keeps for the run: the binned matrix
-        in both layouts (and lazy CEGB's paid-row mask); per-tree state is
-        counted by the caller."""
-        n = (self.x_rows.numel() * self.x_rows.element_size()
-             + self.x_cols.numel() * self.x_cols.element_size())
-        return n + (0 if self._paid is None else self._paid.numel())
+        """Device bytes this learner keeps for the run: the row-major
+        binned matrix and its layout's second copy (gather: the
+        column-major copy; sorted: the leaf-ordered copies, their channels
+        and the partition's scratch, as made so far) and lazy CEGB's
+        paid-row mask; per-tree state is counted by the caller."""
+        return (self.x_rows.numel() * self.x_rows.element_size()
+                + self.row_layout.nbytes()
+                + (0 if self._paid is None else self._paid.numel()))
 
     def _init_options(self, dataset: BinnedDataset, config: Config) -> None:
         """The tree options, mapped from original to used features."""
@@ -538,16 +555,27 @@ class SerialTreeLearner:
             thr_bin = mapper._value_to_bin_scalar(thr)
         return k, int(thr_bin)
 
-    @staticmethod
-    def _resolve_layout(config: Config) -> str:
-        """``tree_layout``: auto and gather resolve to the gather layout (the
-        JAX package holds its two layouts bit-identical, so the trees do not
-        depend on the choice); the physically sorted layout is not ported."""
-        if config.tree_layout == "sorted":
-            raise NotImplementedError(
-                "tree_layout=sorted is not ported to lambdagap_tpu_torch yet "
-                "(ROADMAP.md, Queue 1); use tree_layout=auto or gather")
-        return "gather"
+    # both ported learners train either layout (the JAX package's parallel
+    # learners opt out; they are not ported)
+    supports_sorted_layout = True
+
+    def _resolve_layout(self, config: Config) -> str:
+        """``tree_layout`` as the JAX package resolves it
+        (``lambdagap_tpu/models/learner.py:333-349``): a learner without the
+        sorted layout keeps gather, with the reference's info line for an
+        explicit sorted; ``auto`` is sorted at 2^20 rows and more, gather
+        below. The two layouts grow the same trees bit for bit: the same
+        rows in the same order reach exact integer sums."""
+        layout = config.tree_layout
+        if not self.supports_sorted_layout:
+            if layout == "sorted":
+                log.info("tree_layout=sorted is not supported with "
+                         "tree_learner=%s (%s); using the gather layout",
+                         config.tree_learner, type(self).__name__)
+            return "gather"
+        if layout == "auto":
+            return "sorted" if self.num_data >= (1 << 20) else "gather"
+        return layout
 
     def _feature_mask(self) -> np.ndarray:
         """Per-tree column sampling (reference: src/treelearner/
@@ -722,7 +750,11 @@ class SerialTreeLearner:
         grad, hess = grad.contiguous(), hess.contiguous()
         mask = None if row_mask is None else row_mask.contiguous()
         hscale = hist_scale(grad, hess)      # K1's exponents, once a tree
-        x_rows, x_cols = self.x_rows, self.x_cols
+        lay = self.row_layout
+        # sorted: the tree's leaf-ordered copies, from the dataset-order
+        # gradients and mask (JAX learner.py:773-790)
+        with timer.phase("layout_apply"):
+            lay.rebuild(grad, hess, mask)
         mono_on = self.mono_on
         adv_on = mono_on and self.mono_method == "advanced"
         # advanced keeps intermediate's bookkeeping (AdvancedLeafConstraints
@@ -810,8 +842,7 @@ class SerialTreeLearner:
         perm = torch.arange(N, dtype=torch.int32, device=dev)
         hist = torch.empty((L, F, B, 3), dtype=torch.float32, device=dev)
         with timer.phase("histogram"):
-            hist[0] = hist_rows(x_rows, grad, hess, None, N, B, mask, None,
-                                hscale)
+            hist[0] = leaf_histogram(lay, perm, 0, N, B, scale=hscale)
         self.hist_builds = 1
         # the root's sums over feature 0's bins, in float64 so the card and
         # the CPU agree to the bit
@@ -915,13 +946,13 @@ class SerialTreeLearner:
             with timer.phase("partition"):
                 rows = perm[begin:begin + count]
                 gl = decision_go_left(
-                    x_cols[feat][rows.long()], thr, s.default_left,
-                    int(meta["default_bins"][feat]),
+                    lay.column(perm, begin, count, feat), thr,
+                    s.default_left, int(meta["default_bins"][feat]),
                     int(meta["missing_types"][feat]),
                     int(meta["num_bins"][feat]), cat,
                     self._upload(s.cat_bitset.astype(np.int64)) if cat
                     else zero_bits)
-                lc_dev = split_partition(perm, begin, count, gl)
+                lc_dev = lay.split(perm, begin, count, gl)
 
             # the children's bounds (basic: the mid of the two outputs caps
             # the constrained side; intermediate and advanced: each child
@@ -960,7 +991,8 @@ class SerialTreeLearner:
 
             if not full:
                 # the smaller child's histogram from K1 over its rows in the
-                # parent's slice, the larger's by subtraction
+                # parent's slice of the permutation (gather) or of the
+                # sorted copies (a window), the larger's by subtraction
                 with timer.phase("histogram"):
                     rc_dev = count - lc_dev
                     sil = lc_dev <= rc_dev
@@ -968,8 +1000,8 @@ class SerialTreeLearner:
                         torch.int32).reshape(1)
                     off = torch.where(sil, 0, lc_dev).to(
                         torch.int32).reshape(1)
-                    h_small = hist_rows(x_rows, grad, hess, rows,
-                                        small_count, B, mask, off, hscale)
+                    h_small = leaf_histogram(lay, perm, begin, count, B,
+                                             small_count, off, hscale)
                     h_large = subtract_histogram(hist[leaf], h_small)
                     h_lr = torch.stack([torch.where(sil, h_small, h_large),
                                         torch.where(sil, h_large, h_small)])

@@ -12,9 +12,15 @@ The counterpart of ``lambdagap_tpu/ops/hist_pallas.py``:
   grad/hess to those levels, with its ``jax.random`` stochastic rounding.
 
 Both take an optional in-bag mask ``[N]`` (bagging/GOSS): a masked-out row
-adds nothing to any channel; and an optional device ``offset``, so that a
-leaf's rows are passed as a view of its parent's slice of the permutation
-(position p reads ``rows[offset + p]``). On a CUDA tensor each launches
+adds nothing to any channel; and an optional device ``offset``. A leaf is
+passed either as a row list — a view of its parent's slice of the
+permutation, position p reads ``rows[offset + p]`` (``tree_layout=gather``)
+— or, with no row list, as a window of leaf-ordered copies of the bins and
+channels: position p reads row ``offset + p`` of ``bins``, the channels and
+the mask alike (``tree_layout=sorted``; the JAX package's
+``leaf_histogram_sorted``, ``lambdagap_tpu/ops/histogram.py:170-195``).
+Rows at or past ``offset + count`` are never read: in a window they are the
+next leaf's. On a CUDA tensor each launches
 its kernel (``csrc/hist.cu``, ``csrc/hist_q.cu``; the designs and bounds
 are described there) or raises; only a CPU tensor takes the plain version
 (:func:`_hist_reference`, :func:`_hist_q_reference`). The Pallas kernels'
@@ -48,6 +54,10 @@ HIST_SOURCE = "hist.cu"
 HIST_Q_SOURCE = "hist_q.cu"
 HIST_LAUNCHES = LaunchCounter()
 HIST_Q_LAUNCHES = LaunchCounter()
+# the launches of each kernel with no row list (a window of the rows
+# themselves: a root, or a leaf of tree_layout=sorted), also counted above
+HIST_WINDOW_LAUNCHES = LaunchCounter()
+HIST_Q_WINDOW_LAUNCHES = LaunchCounter()
 
 # each block takes at least this many live rows, so its fixed cost (zeroing
 # and flushing its shared histogram) is spread over enough adds; a small
@@ -198,10 +208,9 @@ def _check(name, bins, chans, rows, count, num_bins, mask, offset,
                 raise TypeError(f"{name}: a tensor {label} must be "
                                 f"{size} int32")
             tensors.append((label, t))
-    if offset is not None and (rows is None or
-                               not isinstance(offset, torch.Tensor)):
-        raise TypeError(f"{name}: offset is a one-element int32 tensor and "
-                        "needs a row list")
+    if offset is not None and not isinstance(offset, torch.Tensor):
+        raise TypeError(f"{name}: offset is a one-element int32 tensor on "
+                        "the device, not a host number")
     for label, t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: {label} is on {t.device}, bins on "
@@ -215,17 +224,17 @@ def _check(name, bins, chans, rows, count, num_bins, mask, offset,
 
 def _live(bins, rows, count, mask, offset):
     """(row id [P] with dead positions replaced by row 0, live [P]) for the
-    plain versions: position p reads ``rows[offset + p]``; positions at or
-    past ``count`` (or past the list) are never read through, and
-    out-of-bag rows are not live."""
+    plain versions: position p reads ``rows[offset + p]``, or row ``offset
+    + p`` with no row list (a window); positions at or past ``count`` (or
+    past the list or the rows) are never read through, and out-of-bag rows
+    are not live."""
     P = _positions(bins, rows)
     pos = torch.arange(P, device=bins.device)
-    valid = pos < count
+    at = pos if offset is None else pos + offset.long()
+    valid = (pos < count) & (at < P)
     if rows is None:
-        r = pos
+        r = at
     else:
-        at = pos if offset is None else pos + offset.long()
-        valid = valid & (at < P)
         r = rows.long()[torch.where(valid, at, 0)]
     r = torch.where(valid, r, 0)
     if mask is not None:
@@ -358,18 +367,22 @@ def hist_rows(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
     bins: u8/u16 ``[N, F]`` C-contiguous; grad, hess: f32 ``[N]``; rows:
     int32 ``[P]`` (a slice of the permutation holding the leaf's rows) or
-    None for rows ``0..N-1``; count: the number of live positions, a
-    Python int or a one-element int32 tensor on the device (so a launch
-    needs no host read); mask: bool ``[N]`` in-bag rows, or None for all;
-    offset: a one-element int32 tensor on the device, or None for 0 —
-    position p reads ``rows[offset + p]``; scale: the fixed-point exponents
-    from :func:`hist_scale`, computed here from grad and hess when None
-    (the learner computes them once per tree). Entries of ``rows`` at or
-    past ``offset + count`` are never dereferenced.
+    None for a window of the rows themselves; count: the number of live
+    positions, a Python int or a one-element int32 tensor on the device
+    (so a launch needs no host read); mask: bool ``[N]`` in-bag rows, or
+    None for all; offset: a one-element int32 tensor on the device, or None
+    for 0 — position p reads ``rows[offset + p]``, or with no row list row
+    ``offset + p`` of bins, grad, hess and mask; scale: the fixed-point
+    exponents from :func:`hist_scale`, computed here from grad and hess
+    when None (the learner computes them once per tree, over the whole
+    dataset). Entries of ``rows``, and rows of a window, at or past
+    ``offset + count`` are never read. The grid is sized by the positions
+    P (the parent's slice or window) and the live count on the device.
 
     On a CUDA tensor this launches the kernel on the current stream (one
-    launch counted) and raises if the launch fails; on a CPU tensor it runs
-    the plain version."""
+    launch counted, and one window launch when there is no row list) and
+    raises if the launch fails; on a CPU tensor it runs the plain
+    version."""
     _check("hist_rows", bins, (("grad", grad, torch.float32),
                                ("hess", hess, torch.float32)),
            rows, count, num_bins, mask, offset, scale)
@@ -400,6 +413,8 @@ def hist_rows(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"histogram kernel launch failed (code {rc})")
     HIST_LAUNCHES.add()
+    if rows is None:
+        HIST_WINDOW_LAUNCHES.add()
     return out
 
 
@@ -447,6 +462,8 @@ def hist_rows_q(bins: torch.Tensor, gq: torch.Tensor, hq: torch.Tensor,
         raise RuntimeError(f"quantized histogram kernel launch failed "
                            f"(code {rc})")
     HIST_Q_LAUNCHES.add()
+    if rows is None:
+        HIST_Q_WINDOW_LAUNCHES.add()
     return out
 
 

@@ -8,13 +8,18 @@ smaller side with :func:`~lambdagap_tpu_torch.ops.hist_cuda.hist_rows` (or
 ``hist_rows_q``) — and the EFB un-bundling of a histogram over bundled
 columns back to per-feature space. The XLA one-hot contraction of the JAX
 package (its non-Pallas path) is not ported: every histogram of the port
-comes from a kernel.
+comes from a kernel, through :func:`leaf_histogram` in either row
+layout.
 """
 from __future__ import annotations
+
+from typing import Optional, Union
 
 import torch
 
 from ..data.bundling import KIND_COPY, KIND_DEFAULT
+from .hist_cuda import hist_rows, hist_rows_q
+from .partition import GatherRows, SortedRows
 
 
 def subtract_histogram(parent_hist: torch.Tensor,
@@ -45,3 +50,28 @@ def unbundle_hist(hist_b: torch.Tensor, src: torch.Tensor,
     resid = totals[..., None, :] - nzsum
     return torch.where((kind == KIND_DEFAULT)[..., None], resid[..., None, :],
                        out)
+
+
+def leaf_histogram(layout: Union[GatherRows, SortedRows],
+                   perm: torch.Tensor, begin: int, count: int,
+                   num_bins: int, live: Optional[torch.Tensor] = None,
+                   offset: Optional[torch.Tensor] = None,
+                   scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A leaf's histogram from its kernel, in either row layout
+    (``lambdagap_tpu/ops/histogram.py``'s ``leaf_histogram`` and, under
+    ``tree_layout=sorted``, ``leaf_histogram_sorted``, :170-195): the leaf
+    ``[begin, begin + count)`` read through its slice of the permutation
+    (gather) or as a window of the leaf-ordered copies with no row list
+    (sorted). f32 channels go to K1 (f32 ``[F, B, 3]``; its fixed-point
+    exponents ``scale`` come from the whole dataset's gradients), int8
+    levels to K2 (int32). ``live`` and ``offset`` (device tensors) pick the
+    first ``live`` positions from ``offset`` on — a child inside its
+    parent's slice or window; None: the whole leaf. Both layouts give the
+    kernel the same rows in the same order and the sums are exact
+    integers, so the histograms are equal bit for bit."""
+    bins, a, b, rows, mask = layout.kernel_inputs(perm, begin, count,
+                                                  live is None)
+    live = count if live is None else live
+    if a.dtype == torch.int8:
+        return hist_rows_q(bins, a, b, rows, live, num_bins, mask, offset)
+    return hist_rows(bins, a, b, rows, live, num_bins, mask, offset, scale)

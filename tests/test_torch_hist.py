@@ -5,7 +5,10 @@ cases ``tests/test_layout.py`` holds ``hist_pallas`` to: a ragged count,
 junk past the count, gather/contiguous order invariance, u16 bins; and the
 fixed-point contract K1 shares with it: the sums do not depend on the
 order of a leaf's rows, the scale exponents do not either, no sum
-overflows, and an offset into the row list equals slicing it.
+overflows, and an offset into the row list equals slicing it. With no row
+list, a window of leaf-ordered copies at an offset (tree_layout=sorted) is
+held to the JAX package's ``leaf_histogram_sorted`` and to ``hist_pallas``
+with the next leaf's rows past the count, and equals the gathered leaf.
 
 Tolerances: grad/hess within rtol 2e-3 / atol 1e-4 of ``hist_pallas`` (its
 bf16 hi/lo channel split is ~f32-accurate, the bar tests/test_layout.py
@@ -21,6 +24,7 @@ import pytest
 import torch
 
 from lambdagap_tpu.ops.hist_pallas import hist_pallas, pack_gh8
+from lambdagap_tpu.ops.histogram import leaf_histogram_sorted
 from lambdagap_tpu_torch.ops import hist_cuda as hc
 
 
@@ -234,7 +238,73 @@ def test_offset_equals_slicing():
 
 
 def test_offset_needs_a_row_list():
+    """An offset is a one-element int32 tensor (the launch reads it on the
+    device), with a row list or without one (a window); a host number is
+    refused."""
     bins, g, h = (torch.from_numpy(a) for a in _data(11, 32, 2, 8))
     with pytest.raises(TypeError, match="offset"):
-        hc.hist_rows(bins, g, h, None, 32, 8,
-                     offset=torch.zeros(1, dtype=torch.int32))
+        hc.hist_rows(bins, g, h, None, 32, 8, offset=0)
+    with pytest.raises(TypeError, match="offset"):
+        hc.hist_rows(bins, g, h, torch.arange(32, dtype=torch.int32), 32, 8,
+                     offset=torch.zeros(2, dtype=torch.int32))
+
+
+def _window_cases():
+    # (begin, count): the first leaf, a middle one whose window runs into
+    # the next leaf's rows, one row at the very end, an empty leaf
+    return [(0, 300), (137, 250), (599, 1), (200, 0)]
+
+
+@pytest.mark.parametrize("begin, count", _window_cases())
+def test_window_matches_leaf_histogram_sorted_and_hist_pallas(begin, count):
+    """With no row list, position p reads row offset + p of the bins, the
+    channels and the mask alike (tree_layout=sorted); rows past offset +
+    count are the next leaf's and never count. Held to the JAX package's
+    ``leaf_histogram_sorted`` (f32 one-hot) and to ``hist_pallas`` in
+    interpret mode on the window with the next leaf's rows past the count
+    (tests/test_layout.py:205-221's case), and to the f64 loop."""
+    N, F, B = 600, 5, 16
+    bins, g, h = _data(13, N, F, B)
+    mask = np.random.RandomState(14).rand(N) < 0.7
+    t = torch.from_numpy
+    got = hc.hist_rows(t(bins), t(g), t(h), None,
+                       torch.tensor([count], dtype=torch.int32), B, t(mask),
+                       torch.tensor([begin], dtype=torch.int32)).numpy()
+    win = slice(begin, N)
+    inbag = begin + np.nonzero(mask[begin:begin + count])[0]
+    ref = _np_hist(bins, g, h, inbag, len(inbag), B)
+    gh = np.stack([g, h, mask.astype(np.float32)], 1)
+    js = np.asarray(leaf_histogram_sorted(
+        jnp.asarray(bins), jnp.asarray(gh), jnp.int32(begin),
+        jnp.int32(count), padded_size=1024, num_bins=B, precision="f32"))
+    gh8 = pack_gh8(jnp.asarray(g[win]), jnp.asarray(h[win]),
+                   jnp.asarray(mask[win]))
+    pal = np.asarray(hist_pallas(jnp.asarray(bins[win]), gh8, B, count))
+    assert got.dtype == np.float32 and got.shape == (F, B, 3)
+    for other in (ref, js, pal):
+        np.testing.assert_array_equal(got[..., 2], other[..., 2])
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got, js, rtol=2e-3, atol=1e-4)
+    np.testing.assert_allclose(got, pal, rtol=2e-3, atol=1e-4)
+
+
+def test_window_equals_the_gathered_leaf():
+    """A leaf read as a window of the leaf-ordered copies equals the same
+    leaf read through its slice of the permutation, ``torch.equal``, the
+    mask included, at u8 and u16 bins."""
+    rng = np.random.RandomState(15)
+    for dtype, B in ((np.uint8, 64), (np.uint16, 1024)):
+        N, F = 700, 4
+        bins, g, h = _data(15, N, F, B, dtype)
+        mask = rng.rand(N) < 0.8
+        perm = rng.permutation(N).astype(np.int32)
+        t = torch.from_numpy
+        for off, count in ((0, 300), (300, 400), (123, 45)):
+            cnt = torch.tensor([count], dtype=torch.int32)
+            o = torch.tensor([off], dtype=torch.int32)
+            gathered = hc.hist_rows(t(bins), t(g), t(h), t(perm), cnt, B,
+                                    t(mask), o)
+            window = hc.hist_rows(t(bins[perm]), t(g[perm]), t(h[perm]),
+                                  None, cnt, B, t(mask[perm]), o,
+                                  hc.hist_scale(t(g), t(h)))
+            assert torch.equal(window, gathered)

@@ -6,8 +6,10 @@ tensor) ``array_equal`` to ``hist_pallas_q`` in interpret mode at
 ``tests/test_layout.py:249-263``'s shape, with a mask and with u16 bins,
 the masked f32 plain version (``_hist_reference``) against a numpy
 float64 loop (rtol 1e-6 / atol 1e-6: it sums 64-bit fixed-point integers
-and rounds once; the count channel exactly), and an offset into the row
-list equal to slicing it."""
+and rounds once; the count channel exactly), an offset into the row
+list equal to slicing it, and a window of leaf-ordered copies (no row list,
+tree_layout=sorted) exact against the JAX package's
+``leaf_histogram_sorted``, ``hist_pallas_q`` and the gathered leaf."""
 import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from lambdagap_tpu.ops import hist_pallas as hp
+from lambdagap_tpu.ops.histogram import leaf_histogram_sorted
 from lambdagap_tpu_torch.ops import hist_cuda as hc
 from lambdagap_tpu_torch.utils import prng
 
@@ -206,3 +209,58 @@ def test_plain_q_offset_equals_slicing():
         want = hc.hist_rows_q(bins, gq, hq, t(rows[off:off + count].copy()),
                               count, B, mask)
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("begin, count", [(0, 300), (137, 250), (599, 1),
+                                          (200, 0)])
+def test_plain_q_window_matches_jax_sorted_and_hist_pallas_q(begin, count):
+    """With no row list, position p reads row offset + p of the bins, the
+    levels and the mask (tree_layout=sorted); the next leaf's rows past the
+    count never count. Exact against the JAX package's
+    ``leaf_histogram_sorted`` on the levels as f32 (integer sums far below
+    2^24), ``hist_pallas_q`` in interpret mode on the window, and an int64
+    loop."""
+    rng = np.random.RandomState(16)
+    N, F, B = 600, 4, 16
+    bins = rng.randint(0, B, (N, F)).astype(np.uint8)
+    gq, hq = _levels(16, N)
+    mask = rng.rand(N) < 0.7
+    got = hc.hist_rows_q(t(bins), t(gq), t(hq), None,
+                         torch.tensor([count], dtype=torch.int32), B,
+                         t(mask), torch.tensor([begin], dtype=torch.int32))
+    assert got.dtype == torch.int32 and got.shape == (F, B, 3)
+    got = got.numpy()
+    loop = np.zeros((F, B, 3), np.int64)
+    for i in range(begin, begin + count):
+        if mask[i]:
+            for f in range(F):
+                loop[f, bins[i, f]] += [gq[i], hq[i], 1]
+    np.testing.assert_array_equal(got, loop)
+    gh = np.stack([gq, hq, mask], 1).astype(np.float32)
+    js = np.asarray(leaf_histogram_sorted(
+        jnp.asarray(bins), jnp.asarray(gh), jnp.int32(begin),
+        jnp.int32(count), padded_size=1024, num_bins=B, precision="f32"))
+    np.testing.assert_array_equal(got, js.astype(np.int64))
+    win = slice(begin, N)
+    np.testing.assert_array_equal(
+        got, _pallas_q(bins[win], gq[win], hq[win], mask[win], count, B))
+
+
+def test_plain_q_window_equals_the_gathered_leaf():
+    """A leaf read as a window of the leaf-ordered copies equals the same
+    leaf read through its slice of the permutation, u8 and u16 bins."""
+    rng = np.random.RandomState(17)
+    for dtype, B in ((np.uint8, 64), (np.uint16, 1024)):
+        N, F = 700, 4
+        bins = rng.randint(0, B, (N, F)).astype(dtype)
+        gq, hq = _levels(17, N)
+        mask = rng.rand(N) < 0.8
+        perm = rng.permutation(N).astype(np.int32)
+        for off, count in ((0, 300), (300, 400), (123, 45)):
+            cnt = torch.tensor([count], dtype=torch.int32)
+            o = torch.tensor([off], dtype=torch.int32)
+            gathered = hc.hist_rows_q(t(bins), t(gq), t(hq), t(perm), cnt, B,
+                                      t(mask), o)
+            window = hc.hist_rows_q(t(bins[perm]), t(gq[perm]), t(hq[perm]),
+                                    None, cnt, B, t(mask[perm]), o)
+            assert torch.equal(window, gathered)

@@ -27,8 +27,13 @@ in-bag mask, reruns bit-identically and refuses bad inputs; the
 int8 histogram kernel (K2) is ``torch.equal`` to its plain version at six
 shapes (a saturated and a skewed one among them) and on a rerun; both
 read a leaf through an offset into its parent's slice exactly as through
-the slice itself, and give every host thread its own sums when two build
-histograms at once on one stream; the threefry draws and the quantized
+the slice itself, read a window of leaf-ordered copies (no row list,
+tree_layout=sorted: the root, a 41,176-row leaf at an offset, masked, u16,
+empty) equal to their plain versions and to the same leaf gathered
+through the permutation, and give every host thread its own sums when two
+build histograms at once on one stream; tree_layout=sorted trains on the
+card to gather's model byte for byte (f32, quantized + bagged, the serial
+learner), every histogram a window launch; the threefry draws and the quantized
 levels on the card equal the CPU's bit for bit; and short trainings on the
 card (f32,
 quantized + bagging, GOSS, EFB, rankers: lambdarank targets,
@@ -635,6 +640,117 @@ def test_hist_kernels_read_a_leaf_through_an_offset(cuda_device):
                            hc.hist_rows_q(bins, gq, hq, child, count, nb,
                                           mask))
     torch.cuda.synchronize()
+
+
+def _sorted_copy(t, perm):
+    """t's rows in the order of perm on the card (u16 moves as int16:
+    torch's CUDA indexing has no uint16)."""
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16)[perm].view(torch.uint16)
+    return t[perm].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["root", "leaf", "leaf_masked", "u16",
+                                  "empty"])
+def test_hist_kernels_read_a_sorted_window_on_card(case, cuda_device):
+    """K1 and K2 with no row list (tree_layout=sorted): position p reads row
+    offset + p of the leaf-ordered bins, channels and mask, the next leaf's
+    rows past the count never count. Each is ``torch.equal`` to its plain
+    version (one launch and one window launch counted a call), and K1 / K2
+    on the sorted window equal K1 / K2 gathered through ``perm`` on the
+    same leaf: the root, a 41,176-row leaf (T3's N/255) at a non-zero
+    offset inside its parent's window, the same with a bagging mask, u16
+    bins with a ragged count, and an empty leaf."""
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    dev = cuda_device
+    shape = "u16" if case == "u16" else "root"
+    bins, grad, hess, _, _, nb = _hist_case(shape, dev)
+    _, gq, hq, _, _, _, mask = _hist_q_case(shape, dev)
+    if case in ("root", "leaf"):
+        mask = None
+    n = bins.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(10)
+    perm = torch.randperm(n, generator=gen, device=dev).int()
+    p = perm.long()
+    xs, gs, hs, gqs, hqs = (_sorted_copy(t, p) for t in (bins, grad, hess,
+                                                          gq, hq))
+    ms = None if mask is None else mask[p].contiguous()
+    scale = hc.hist_scale(grad, hess)     # the dataset order's, as trained
+    if case == "root":
+        begin, parent, off, live = 0, n, 0, n
+    elif case == "u16":
+        begin, parent, off, live = 1_001, 90_000, 12_000, 77_777
+    else:       # the right child of a split, the next leaf's rows past it
+        begin, parent, off, live = 1_003, 82_355, 41_179, 41_176
+        live = 0 if case == "empty" else live
+    o = torch.tensor([off], dtype=torch.int32, device=dev)
+    c = torch.tensor([live], dtype=torch.int32, device=dev)
+    w = slice(begin, begin + parent)
+    mw = None if ms is None else ms[w]
+    rows = perm[w]
+    args = (xs[w], gs[w], hs[w], None, c, nb, mw, o, scale)
+    qargs = (xs[w], gqs[w], hqs[w], None, c, nb, mw, o)
+    before = (hc.HIST_LAUNCHES.launches, hc.HIST_WINDOW_LAUNCHES.launches,
+              hc.HIST_Q_LAUNCHES.launches, hc.HIST_Q_WINDOW_LAUNCHES.launches)
+    got, got_q = hc.hist_rows(*args), hc.hist_rows_q(*qargs)
+    after = (hc.HIST_LAUNCHES.launches, hc.HIST_WINDOW_LAUNCHES.launches,
+             hc.HIST_Q_LAUNCHES.launches, hc.HIST_Q_WINDOW_LAUNCHES.launches)
+    assert [b - a for a, b in zip(before, after)] == [1, 1, 1, 1]
+    assert torch.equal(got, hc._hist_reference(*args))
+    assert torch.equal(got_q, hc._hist_q_reference(*qargs))
+    assert torch.equal(got, hc.hist_rows(bins, grad, hess, rows, c, nb, mask,
+                                         o, scale))
+    assert torch.equal(got_q, hc.hist_rows_q(bins, gq, hq, rows, c, nb, mask,
+                                             o))
+    assert torch.equal(got, hc.hist_rows(*args))
+    torch.cuda.synchronize()
+    live_rows = p[begin + off:begin + off + live]
+    inbag = live if mask is None else int(mask[live_rows].sum())
+    assert int(got_q[..., 2].long().sum()) == inbag * bins.shape[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    {},
+    {"use_quantized_grad": True, "num_grad_quant_bins": 4,
+     "bagging_fraction": 0.7, "bagging_freq": 1},
+    {"tpu_fused_learner": "0", "bagging_fraction": 0.7, "bagging_freq": 1},
+])
+def test_sorted_layout_on_card_equals_gather(extra, cuda_device):
+    """tree_layout=sorted on the card grows gather's model, byte for byte
+    but for the layout's parameter line; every histogram of the sorted run
+    is a window launch of its kernel (K2 when quantized)."""
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    rng = np.random.RandomState(12)
+    X = rng.randn(6000, 10)
+    y = X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + 0.3 * rng.randn(6000)
+    params = {"objective": "regression", "num_leaves": 31, "verbose": -1,
+              **extra}
+    quant = "use_quantized_grad" in extra
+    texts, built = {}, []
+    for layout in ("gather", "sorted"):
+        built.clear()
+        before = (hc.HIST_LAUNCHES.launches, hc.HIST_Q_LAUNCHES.launches,
+                  hc.HIST_WINDOW_LAUNCHES.launches,
+                  hc.HIST_Q_WINDOW_LAUNCHES.launches)
+        bst = lgt.train({**params, "tree_layout": layout},
+                        lgt.Dataset(X, label=y), 4,
+                        callbacks=[lambda env: built.append(
+                            env.model._booster.learner.hist_builds)])
+        after = (hc.HIST_LAUNCHES.launches, hc.HIST_Q_LAUNCHES.launches,
+                 hc.HIST_WINDOW_LAUNCHES.launches,
+                 hc.HIST_Q_WINDOW_LAUNCHES.launches)
+        k1, k2, w1, w2 = (b - a for a, b in zip(before, after))
+        assert bst._booster.learner.layout == layout
+        assert (k2 if quant else k1) == sum(built) > 0
+        assert (k1 if quant else k2) == 0
+        if layout == "sorted":
+            assert (w2 if quant else w1) == sum(built)
+        texts[layout] = "\n".join(
+            ln for ln in bst.model_to_string().splitlines()
+            if not ln.startswith("[tree_layout:"))
+    assert texts["sorted"] == texts["gather"]
 
 
 @pytest.mark.cuda

@@ -276,7 +276,6 @@ def test_saturated_max_delta_step_differs_from_jax_only_at_a_tie():
     {"linear_tree": True},
     {"data_residency": "stream"},
     {"tree_learner": "data"},
-    {"tree_layout": "sorted"},
     {"boosting": "dart"},
     {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
     {"tree_learner": "feature"},
