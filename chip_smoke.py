@@ -3,7 +3,7 @@
 CUDA card and check them.
 
     python3 chip_smoke.py [--seed N] [--rows N]
-                          [--only kernels|rank|objectives|predict|shap|options|serial|layout]
+                          [--only kernels|rank|objectives|predict|shap|options|serial|layout|registry]
 
 Run from the root of a checkout. Phases, each fatal on failure:
 
@@ -42,6 +42,29 @@ Run from the root of a checkout. Phases, each fatal on failure:
    dispatch (a ``CompiledForest.predict`` call) made exactly one fused
    launch, with no launch of K3 or the accumulation alone (so in every
    served phase below);
+T18. the multi-model registry on phase 3's forest as ``default``, a
+   300-tree 3-class forest at HIGGS width, the 70-category forest (hostile
+   rows) and a 200 x 63 regression forest at MSLR-WEB30K's 136 columns,
+   each answer ``array_equal`` to its model's scan oracle on the card: (a)
+   240 requests of 1-4096 rows from 4 threads, each to a named model, one
+   fused launch per dispatch; (b) ``serve_hbm_budget_mb`` from the
+   entries' own bytes so that any two fit, 8 round-robin requests:
+   evictions and readmissions, generations kept, resident bytes within the
+   budget (the members' artifacts admitted from (a), no second compile);
+   (c) on (a)'s server, 10 swaps of default between the forest and its
+   first 400 trees while 4 threads submit, each answer its generation's
+   oracle, none failed; (d) the delta swap from the 400-tree base back to
+   the forest (the frame's bytes beside the full text's), two stale deltas
+   ``SwapFailed`` at an unchanged generation, then ``serve_swap_breaker=2``
+   rejects the next swap (``SwapRejected``) and serving goes on; (e)
+   ``serve_pack_models``: (a)'s burst through the fused kernel's packed
+   mode, fused launches == packed dispatches and no per-model dispatch;
+   the packed launch at 4,096 mixed rows ``torch.equal`` to its plain
+   version, to a rerun and to each member's own launch on its rows, timed
+   beside the sum of those solo launches, with its bound (the workspace
+   left out, as in ``fused_bound``); then a swap of the packed default to
+   its 400-tree base, after which the next mixed requests equal their
+   generations' oracles (``--only registry`` runs phases 1-3 and T18);
 T2. the f32 histogram kernel (K1) against its plain version on the card at
    seven shapes (the HIGGS root, a leaf read at an offset inside its
    parent's slice with junk around it, u16 bins with a ragged count, count
@@ -88,7 +111,7 @@ T8. ranking at MSLR-WEB30K width: seeded synthetic query sets of Fold 1's
    1..1,251 with one of exactly 1,251, relevance 0-4 skewed toward 0) plus
    2,000 validation queries; ``lgt.train`` with ``lambdarank`` (target
    ndcg, ``eval_at=[10]``, 255 leaves, 255 bins, ``min_data_in_leaf=50``),
-   6 rounds with ``early_stopping(5)``, then 3 rounds of
+   3 rounds with ``early_stopping(5)``, then 3 rounds of
    lambdagap-x-plus-plus and 3 of ``rank_xendcg`` with by-query bagging on
    the same Dataset; the counts zeroed just before each run and read just
    after (K1 launches == leaf histograms), every gradient finite, the
@@ -108,7 +131,7 @@ T11. multiclass at UCI Covertype's width: seeded synthetic rows of its
    shape (``covtype_like``: 464,809 training and 116,203 validation rows,
    10 integer-valued continuous features in its ranges, 4 wilderness and 40
    soil one-hot columns that EFB bundles, 7 classes at its shares), 255
-   leaves, 255 bins: T11a softmax (``num_class=7``) 4 rounds with
+   leaves, 255 bins: T11a softmax (``num_class=7``) 2 rounds with
    ``early_stopping(5)`` and multi_logloss / multi_error / auc_mu on the
    validation set, T11b one-vs-all 2 rounds, T11c softmax on 4-level
    quantized gradients with bagging 0.8/1, 2 rounds, all on one pair of
@@ -221,11 +244,12 @@ T17. tree_layout=sorted against gather (T3, T6 and T8 already train
    leaf gathered through the permutation; timed beside the gathered leaf,
    the plain version and ``index_add_`` over the contiguous window
    (``--only layout`` runs phases 1-2, T3, T8's data and T17);
-6. the kernels line (one JSON object, ten entries; each entry's
+6. the kernels line (one JSON object, eleven entries; each entry's
    ``max_abs_err`` the largest of its kernel's comparisons, T13's K1 in
    ``hist_rows@covtype`` and T11c's K2 in ``hist_rows_q``; the fused
-   kernel's launches phase 5's, K3's phase 5's and T14's pred_leaf, the
-   accumulation's phase 5's, none; ``hist_rows@sorted`` and
+   kernel's launches phase 5's, its packed mode's
+   (``predict_forest@packed``) T18 (e)'s burst's, K3's phase 5's and T14's
+   pred_leaf, the accumulation's phase 5's, none; ``hist_rows@sorted`` and
    ``hist_rows_q@sorted`` the window launches of T17's sorted runs) and,
    last, the device line.
 
@@ -278,7 +302,7 @@ MSLR_F = 136                    # MSLR-WEB30K features
 MSLR_QUERIES = 18_919           # MSLR-WEB30K Fold 1's training queries
 MSLR_VALID_QUERIES = 2_000
 MSLR_MAX_DOCS = 1_251           # its longest query
-RANK_ROUNDS = 6                 # T8 (cut from 10: the script's time)
+RANK_ROUNDS = 3                 # T8 (cut from 10: the script's time)
 RANK_CPU_ROUNDS = 12            # T9 (cut from 20: the script's time)
 RANK_SHORT_ROUNDS = 3
 LAYOUT_ROUNDS = 3               # T17 (a)-(c)
@@ -287,7 +311,7 @@ LAYOUT_RANK_ROUNDS = 2          # T17 (d)
 # wilderness and 40 soil one-hot columns), 7 cover types with these shares
 COV_TRAIN, COV_VALID = 464_809, 116_203
 COV_SHARES = (0.3646, 0.4876, 0.0615, 0.0047, 0.0163, 0.0299, 0.0353)
-COV_ROUNDS = 4                  # T11a (cut from 6: the script's time)
+COV_ROUNDS = 2                  # T11a (cut from 6: the script's time)
 COV_SHORT_ROUNDS = 2
 # YearPredictionMSD: 463,715 training and 51,630 test rows, 90 features
 MSD_TRAIN, MSD_VALID, MSD_F = 463_715, 51_630, 90
@@ -2063,7 +2087,7 @@ def covtype_data(args, smi: str):
 
 
 def covtype_phase(args, dev, smi: str) -> dict:
-    """T11a-c: 7-class softmax (4 rounds, early stopping, multi_logloss,
+    """T11a-c: 7-class softmax (2 rounds, early stopping, multi_logloss,
     multi_error, auc_mu), one-vs-all (2 rounds) and quantized + bagged
     softmax (2 rounds) on one pair of Covertype-width Datasets."""
     import torch
@@ -3265,6 +3289,407 @@ def layout_phases(t3: dict, t8: dict, dev, seed: int, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# T18: the multi-model registry, hot swap, delta swap, the swap breaker and
+# cross-model packing (the fused kernel's packed mode)
+# ---------------------------------------------------------------------------
+REG_REQUESTS = 240              # T18 (a): mixed requests over the members
+REG_SWAPS = 10                  # T18 (c): swaps of default under load
+REG_BASE_TREES = 400            # T18 (c)-(d): the delta's base
+PACK_ROWS = 4096                # T18 (e): the packed launch timed
+
+
+def registry_members(seed: int, text: str, params: dict) -> dict:
+    """T18's members on the card as (Booster, features, rows maker):
+    ``default`` phase 3's forest from its text; a 300-tree 3-class forest
+    at HIGGS width; the 70-category forest with hostile rows; a 200 x 63
+    regression forest at MSLR-WEB30K's 136 columns."""
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.convert import booster_from_numpy
+    from lambdagap_tpu_torch.models import synth
+
+    def booster(trees, feats, objective):
+        return booster_from_numpy(synth.header(feats, objective), trees,
+                                  params)
+    return {
+        "default": (lgt.Booster(model_str=text, params=params), F,
+                    synth.random_rows),
+        "multiclass": (booster(synth.random_trees(seed + 3, 300, LEAVES, F,
+                                                  GRID), F,
+                               "multiclass num_class:3"), F,
+                       synth.random_rows),
+        "categorical": (booster(synth.categorical_trees(
+            seed + 1, num_features=6), 6, "binary sigmoid:1"), 6,
+            synth.hostile_rows),
+        "mslr": (booster(synth.random_trees(seed + 19, 200, 63, MSLR_F,
+                                            GRID), MSLR_F, "regression"),
+                 MSLR_F, synth.random_rows),
+    }
+
+
+def scan_oracle(gb, X: np.ndarray, dev, trees: Optional[int] = None):
+    """Raw scores of the first ``trees`` trees of ``gb`` on the card
+    through the scan engine: [N] for one class, [N, K] for more."""
+    import torch
+    from lambdagap_tpu_torch.ops.predict import (forest_to_arrays,
+                                                 predict_forest)
+    models = gb.models[:trees]
+    K = gb.num_tree_per_iteration
+    forest, depth = forest_to_arrays(models, device=dev)
+    out = predict_forest(torch.from_numpy(X).to(dev), forest,
+                         [i % K for i in range(len(models))], K,
+                         depth).cpu().numpy()
+    return out[0] if K == 1 else out.T
+
+
+def model_burst(server, data: dict, plan, clients: int = 4):
+    """Submit every (model, offset, rows) request of ``plan`` from
+    ``clients`` threads at once; returns (results in plan order, seconds).
+    No request may fail."""
+    answers = [None] * len(plan)
+    errors = []
+
+    def client(tid: int) -> None:
+        futs = []
+        for i in range(tid, len(plan), clients):
+            name, lo, n = plan[i]
+            futs.append((i, server.submit(data[name][lo:lo + n],
+                                          model=name)))
+        for i, f in futs:
+            try:
+                answers[i] = f.result(timeout=300)
+            except Exception as e:  # noqa: BLE001 — reported, fails below
+                errors.append(f"request {i}: {e!r}")
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    seconds = time.perf_counter() - t0
+    check(not any(th.is_alive() for th in threads), "T18 clients hung")
+    check(not errors, "T18: " + "; ".join(errors[:3]))
+    return answers, seconds
+
+
+def check_model_answers(tag: str, answers, plan, oracle: dict) -> None:
+    for i, ((name, lo, n), res) in enumerate(zip(plan, answers)):
+        want = oracle[name][lo:lo + n]
+        check(res.values.shape == want.shape and
+              np.array_equal(res.values, want),
+              f"{tag}: request {i} ({n} rows of {name!r}) != its scan oracle")
+
+
+def packed_bound(xt, packed, cfs: dict, rows_of: dict, steps: int):
+    """The packed launch's bound, on ``fused_bound``'s yardstick: the rows,
+    every member's tables once (the artifact's node tables, the leaf table,
+    the CSR, the classes and the member maps), the row map and the scores,
+    each once (not the carry nor the workspace, which stay on the chip's
+    side of the bound); one f32 operation per decision step of each row's
+    own member and per add of its own trees. Also returns the bytes of the
+    [T, R] f32 workspace, printed beside the bound."""
+    import torch
+    R = xt.shape[0]
+    t = packed.tables
+    nbytes = xt.numel() * 4 + sum(int(a.nbytes) for a in
+                                  t.artifact_tables()
+                                  if isinstance(a, torch.Tensor))
+    nbytes += sum(int(a.nbytes) for a in (
+        packed._leaf_value, t.group_tree_lo, t.group_tree,
+        packed._tree_class, packed._group_model))
+    nbytes += R * 4 + packed.num_class * R * 4
+    adds = sum(len(rows_of[n]) * cf.num_trees for n, cf in cfs.items())
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = (steps + adds) / H100_F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, packed.num_trees * R * 4)
+
+
+def registry_phase(seed: int, dev, smi: str, text: str) -> dict:
+    """T18 (a)-(e); returns the packed kernel's numbers for the kernels
+    line."""
+    import torch
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.guard.degrade import SwapFailed, SwapRejected
+    from lambdagap_tpu_torch.infer import engine as eng
+    from lambdagap_tpu_torch.serve import delta
+    t_phase = time.perf_counter()
+    # (a)'s server swaps in (c)-(d): its breaker opens after 2 failures
+    members = registry_members(seed, text, {"predict_engine": "compiled",
+                                            "serve_swap_breaker": 2})
+    names = list(members)
+    rng = np.random.RandomState(seed + 18)
+    data = {n: np.ascontiguousarray(make(rng, 20000, feats))
+            for n, (_b, feats, make) in members.items()}
+    boosters = {n: b for n, (b, _f, _m) in members.items()}
+    oracle = {n: scan_oracle(b._booster, data[n], dev)
+              for n, b in boosters.items()}
+    for n in names:
+        check(np.all(np.isfinite(oracle[n])), f"T18: {n} oracle not finite")
+    print(f"T18 members, rows and scan oracles: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    # (a) four models behind one registry, 240 mixed requests, 4 threads
+    t0 = time.perf_counter()
+    plan = [(names[i % 4], (i * 977) % (20000 - SIZES[i % len(SIZES)]),
+             SIZES[i % len(SIZES)]) for i in range(REG_REQUESTS)]
+    with Dispatches() as da:
+        server = boosters["default"].as_server(raw_score=True)
+        for n in names[1:]:
+            server.add_model(n, boosters[n])
+        answers, secs = model_burst(server, data, plan)
+        snap = server.stats_snapshot()
+    da.check("T18 (a)")
+    check_model_answers("T18 (a)", answers, plan, oracle)
+    check(snap["requests"] == REG_REQUESTS and
+          snap["registry"]["resident_models"] == 4, "T18 (a): stats")
+    sizes = {n: server.registry.entry(n).bytes for n in names}
+    artifacts = {n: server.artifact_bytes(n) for n in names}
+    print(f"T18 (a) registry: {REG_REQUESTS} requests of 1-4096 rows over "
+          f"{len(names)} models ({', '.join(f'{n} {sizes[n] / 1e6:.2f} MB' for n in names)}) "
+          f"from 4 threads in {secs:.2f} s, each == its scan oracle; "
+          f"{da.line()} ({time.perf_counter() - t0:.1f} s) [{smi}]")
+
+    # (b) the budget fits any two members: round-robin traffic evicts and
+    # re-admits (the artifacts admitted from (a): no second compile)
+    t0 = time.perf_counter()
+    top2 = sorted(sizes.values())[-2:]
+    budget_mb = (sum(top2) + 4096) / (1 << 20)
+    check(min(sizes.values()) > 4096 + 1, "T18 (b): a member under 4 KB")
+    bst_b = lgt.Booster(model_str=text, params={
+        "predict_engine": "compiled", "serve_hbm_budget_mb": budget_mb})
+    with bst_b.as_server(raw_score=True, buckets=(8, 64)) as srv:
+        for n in names[1:]:
+            srv.admit_artifact(artifacts[n])
+        for n in names[1:]:
+            srv.add_model(n, boosters[n])
+        rr = [(names[i % 4], 64 * i, 64) for i in range(8)]
+        got = [srv.submit(data[n][lo:lo + k], model=n).result(300)
+               for n, lo, k in rr]
+        snapb = srv.stats_snapshot()
+    check_model_answers("T18 (b)", got, rr, oracle)
+    reg = snapb["registry"]
+    check(snapb["evictions"] > 0 and snapb["readmissions"] > 0,
+          f"T18 (b): {snapb['evictions']} evictions, "
+          f"{snapb['readmissions']} readmissions")
+    check(all(m["generation"] == 0 for m in reg["models"].values()) and
+          all(r.generation == 0 for r in got), "T18 (b): a generation moved")
+    check(reg["hbm_bytes_resident"] <= reg["hbm_budget_bytes"],
+          "T18 (b): resident bytes over the budget")
+    print(f"T18 (b) budget {reg['hbm_budget_bytes']} bytes (two members): "
+          f"8 round-robin requests, each == its oracle; "
+          f"{snapb['evictions']} evictions, {snapb['readmissions']} "
+          f"readmissions, generations 0, resident "
+          f"{reg['hbm_bytes_resident']} bytes; compiles local "
+          f"{snapb['cache']['compiles_local']} shared "
+          f"{snapb['cache']['compiles_shared']} "
+          f"({time.perf_counter() - t0:.1f} s) [{smi}]")
+
+    # (c) on (a)'s server: 10 swaps of default between the full forest and
+    # its first 400 trees while 4 threads submit; (d) the delta swap back
+    # to the full forest, a stale delta, the breaker
+    t0 = time.perf_counter()
+    srv = server
+    gb = boosters["default"]._booster
+    base_bst = lgt.Booster(model_str=gb.save_model_to_string(
+        num_iteration=REG_BASE_TREES), params={"predict_engine": "compiled"})
+    xd = data["default"]
+    swap_oracle = [oracle["default"],
+                   scan_oracle(gb, xd, dev, trees=REG_BASE_TREES)]
+    check(not np.array_equal(swap_oracle[0], swap_oracle[1]),
+          "T18 (c): the two forests score alike")
+    stop = threading.Event()
+    served, bad, errors = [0] * 4, [], []
+
+    def client(tid: int) -> None:
+        crng = np.random.RandomState(seed + 100 + tid)
+        while not stop.is_set():
+            n = int(crng.choice((1, 7, 64, 512)))
+            lo = int(crng.randint(0, len(xd) - n))
+            try:
+                res = srv.submit(xd[lo:lo + n]).result(timeout=300)
+            except Exception as e:  # noqa: BLE001 — reported, fails below
+                errors.append(repr(e))
+                return
+            served[tid] += 1
+            if not np.array_equal(res.values,
+                                  swap_oracle[res.generation % 2][lo:lo + n]):
+                bad.append((tid, lo, n, res.generation))
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+    for th in threads:
+        th.start()
+    swaps = [base_bst, boosters["default"]]
+    swap_s = []
+    for g in range(1, REG_SWAPS + 1):
+        ts = time.perf_counter()
+        check(srv.swap(swaps[(g + 1) % 2]) == g, "T18 (c): swap order")
+        swap_s.append(time.perf_counter() - ts)
+    stop.set()
+    for th in threads:
+        th.join(600)
+    check(not any(th.is_alive() for th in threads), "T18 (c): clients hung")
+    check(not errors, "T18 (c): " + "; ".join(errors[:3]))
+    check(not bad, f"T18 (c): {len(bad)} torn answers, first {bad[:2]}")
+    check(sum(served) >= 40, f"T18 (c): only {sum(served)} requests served")
+    print(f"T18 (c) hot swap: {REG_SWAPS} swaps of default (500 <-> "
+          f"{REG_BASE_TREES} trees, median {statistics.median(swap_s):.2f} s "
+          f"a swap) under {sum(served)} requests from 4 threads, each == its "
+          f"generation's oracle, none failed "
+          f"({time.perf_counter() - t0:.1f} s) [{smi}]")
+
+    t0 = time.perf_counter()
+    check(srv.swap(base_bst) == REG_SWAPS + 1, "T18 (d): swap to the base")
+    frame = delta.make_delta(srv.model_text(), text)
+    check(frame is not None, "T18 (d): the full forest extends its base")
+    gen = srv.swap_delta(frame)
+    check(gen == REG_SWAPS + 2, "T18 (d): delta generation")
+    res = srv.submit(xd[:4096]).result(300)
+    check(res.generation == gen and
+          np.array_equal(res.values, oracle["default"][:4096]),
+          "T18 (d): the delta-swapped forest != the full forest's oracle")
+    for _ in range(2):
+        try:
+            srv.swap_delta(frame)             # its base has moved on
+            fail("T18 (d): a stale delta swapped")
+        except SwapFailed:
+            pass
+        check(srv.generation == gen, "T18 (d): a failed swap moved on")
+    try:
+        srv.swap(base_bst)
+        fail("T18 (d): the breaker let a swap through")
+    except SwapRejected:
+        pass
+    res = srv.submit(xd[:64]).result(300)
+    check(np.array_equal(res.values, oracle["default"][:64]) and
+          srv.health.snapshot()["swap_breaker"] == "open",
+          "T18 (d): serving after the breaker opened")
+    snapd = srv.stats_snapshot()
+    srv.close()
+    print(f"T18 (d) delta swap: {delta.delta_bytes(frame)} bytes of frame "
+          f"against {len(text)} of full text, answers == the full forest's "
+          f"oracle; 2 stale deltas SwapFailed at generation {gen}, then "
+          f"SwapRejected (breaker {snapd['health']['swap_breaker']}), "
+          f"serving on; swaps {snapd['swaps']}, failures "
+          f"{snapd['swap_failures']} ({time.perf_counter() - t0:.1f} s) "
+          f"[{smi}]")
+
+    # (e) serve_pack_models: a mixed burst through the packed mode, then
+    # the packed launch at 4,096 mixed rows against its plain version and
+    # each member's own launch
+    t0 = time.perf_counter()
+    t_e = t0
+    bst_e = lgt.Booster(model_str=text, params={
+        "predict_engine": "compiled", "serve_pack_models": True})
+    srv = bst_e.as_server(raw_score=True)
+    for n in names[1:]:
+        srv.admit_artifact(artifacts[n])
+        srv.add_model(n, boosters[n])
+    before = srv.stats_snapshot()["cache"]["packed_dispatches"]
+    with Dispatches() as de:
+        answers, secs = model_burst(srv, data, plan)
+    snape = srv.stats_snapshot()
+    packed_n = snape["cache"]["packed_dispatches"] - before
+    check_model_answers("T18 (e)", answers, plan, oracle)
+    check(de.calls == 0 and de.k3 == 0 and de.acc == 0,
+          f"T18 (e): per-model dispatches under packing ({de.line()})")
+    check(packed_n > 0 and de.fused == packed_n,
+          f"T18 (e): {de.fused} fused launches for {packed_n} packed "
+          "dispatches")
+    pack = srv._pack
+    packed = pack.packed
+    print(f"T18 (e) packing: {REG_REQUESTS} mixed requests in {secs:.2f} s, "
+          f"each == its oracle; {packed_n} packed dispatches, {de.fused} "
+          f"fused launches, none per model; pack of {packed.num_trees} "
+          f"trees, width {packed.width}, {pack.hbm_bytes / 1e6:.2f} MB "
+          f"({time.perf_counter() - t0:.1f} s) [{smi}]")
+
+    cfs = {n: srv.registry.get(n)._compiled for n in packed.names}
+    prng = np.random.RandomState(seed + 181)
+    rm = prng.randint(0, len(cfs), PACK_ROWS).astype(np.int32)
+    x = np.full((PACK_ROWS, packed.width), np.nan, np.float32)
+    rows_of = {}
+    for i, n in enumerate(packed.names):
+        mine = np.nonzero(rm == i)[0]
+        rows_of[n] = mine
+        x[mine, :data[n].shape[1]] = data[n][mine]
+    xt = torch.from_numpy(x).to(dev)
+    rmt = torch.from_numpy(rm).to(dev)
+    t = packed.tables
+
+    def launch():
+        return eng._predict_forest(xt, t, t.group_tree_lo, t.group_tree,
+                                   packed._leaf_value, packed._tree_class,
+                                   packed.num_class, 0, 0.0, rmt,
+                                   packed._group_model)
+
+    def plain():
+        return eng._predict_forest_reference(
+            xt, t, t.group_tree_lo, t.group_tree, packed._leaf_value,
+            packed._tree_class, packed.num_class, 0, 0.0, rmt,
+            packed._group_model)
+    got, ref = launch(), plain()
+    again = launch()
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    check(torch.equal(got, ref) and torch.equal(again, got),
+          f"T18 (e): packed launch != plain ({int((got != ref).sum())} "
+          "scores differ) or a rerun moved")
+    xs, steps = {}, 0
+    for n, cf in cfs.items():
+        idx = torch.from_numpy(rows_of[n]).to(dev)
+        xs[n] = xt[idx, :cf.width].contiguous()
+        solo = cf.predict(xs[n])
+        check(torch.equal(got[:cf.num_class, idx], solo) and
+              not bool(got[cf.num_class:, idx].any()),
+              f"T18 (e): packed rows of {n!r} != its own launch")
+        carry = eng.traverse_forest(xs[n], cf.tables)
+        steps += steps_taken(cf.artifact, carry.cpu().numpy())
+    ms = cuda_ms(launch)
+    solo_ms = cuda_ms(lambda: [cfs[n].predict(xs[n]) for n in cfs])
+    plain_ms = cuda_ms(plain, reps=3, warm=1)
+    bound_ms, bound_by, nbytes, ws_bytes = packed_bound(
+        xt, packed, cfs, rows_of, steps)
+    print(f"T18 (e) packed launch @{PACK_ROWS} mixed rows x "
+          f"{packed.num_trees} trees ({len(cfs)} members, "
+          f"{', '.join(f'{n} {len(r)}' for n, r in rows_of.items())} rows): "
+          f"{ms:.4f} ms against the members' solo launches {solo_ms:.4f} ms "
+          f"(sum, same rows); bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{nbytes / 1e6:.2f} MB, {steps} own decision steps; the "
+          f"workspace's {ws_bytes / 1e6:.2f} MB would add "
+          f"{ws_bytes / H100_BYTES_PER_S * 1e3:.4f} ms); plain "
+          f"{plain_ms:.3f} ms; == plain == each solo launch, rerun "
+          f"bit-identical ({time.perf_counter() - t_e:.1f} s in (e)) "
+          f"[{smi}]")
+
+    # a swap of a packed member rebuilds the pack before it returns: the
+    # next mixed batch serves the new forest under its generation
+    t0 = time.perf_counter()
+    before = srv.stats_snapshot()["cache"]["packed_dispatches"]
+    check(srv.swap(base_bst) == 1, "T18 (e): packed swap generation")
+    other = names[1]
+    got = [srv.submit(xd[:512]), srv.submit(data[other][:64], model=other)]
+    got = [f.result(300) for f in got]
+    snap_sw = srv.stats_snapshot()
+    srv.close()
+    check(got[0].generation == 1 and got[1].generation == 0 and
+          np.array_equal(got[0].values, swap_oracle[1][:512]) and
+          np.array_equal(got[1].values, oracle[other][:64]),
+          "T18 (e): after a packed swap, answers != their generation's "
+          "oracle")
+    check(snap_sw["cache"]["packed_dispatches"] > before and
+          snap_sw["errors"] == 0, "T18 (e): the swapped pack did not serve")
+    print(f"T18 (e) packed swap of default to {REG_BASE_TREES} trees: the "
+          f"pack rebuilt within the swap, the next mixed requests == their "
+          f"generations' oracles ({time.perf_counter() - t0:.1f} s) "
+          f"[{smi}]")
+    print(f"T18: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": de.fused, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "solo_ms": solo_ms}
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3272,7 +3697,8 @@ def main() -> int:
                     help="training rows of phase T3 (HIGGS's count)")
     ap.add_argument("--only", choices=("all", "kernels", "rank",
                                        "objectives", "predict", "shap",
-                                       "options", "serial", "layout"),
+                                       "options", "serial", "layout",
+                                       "registry"),
                     default="all",
                     help="kernels: phases 1-4 (with the SASS check), T2 and "
                     "T2q; rank: phases 1-2, T8, T2 at 136 features, T9 and "
@@ -3281,8 +3707,9 @@ def main() -> int:
                     "phase 5's scan oracle, T3, T11a and T14; shap: phases "
                     "1-3 and T14's kernel S checks; options: phases 1-2, "
                     "T3, T15 and T15b; serial: phases 1-2, T3, T16 and "
-                    "T16b; layout: phases 1-2, T3, T8's data and T17; each "
-                    "then stops without a result line")
+                    "T16b; layout: phases 1-2, T3, T8's data and T17; "
+                    "registry: phases 1-3 and T18; each then stops without "
+                    "a result line")
     args = ap.parse_args()
 
     import torch
@@ -3385,6 +3812,13 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)")
     check(m["thr_bits"] == 16, "the 254-boundary grid needs u16 codes")
 
+    if args.only == "registry":
+        registry_phase(args.seed, dev, smi, text)
+        print(f"chip_smoke: registry phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--only registry: no "
+              "result)")
+        return 0
+
     if args.only == "shap":
         data = synth.random_rows(np.random.RandomState(args.seed + 7), 20000,
                                  F)
@@ -3469,6 +3903,9 @@ def main() -> int:
               f" rows/s ({secs:.2f} s); one-row closed loop p50 "
               f"{one[49]:.3f} ms p99 {one[98]:.3f} ms [{smi}]")
 
+    # -- T18. the registry, hot / delta swap, the breaker, packing ----------
+    t18 = registry_phase(args.seed, dev, smi, text)
+
     # -- T2. the histogram kernels against their plain versions -------------
     t0 = time.perf_counter()
     k1 = hist_phase(dev, args.seed + 11, smi)
@@ -3529,6 +3966,13 @@ def main() -> int:
         "ms": fused[4096]["ms"], "plain_ms": fused[4096]["plain_ms"],
         "bound_ms": fused[4096]["bound_ms"],
         "bound_by": fused[4096]["bound_by"], "library_ms": None}, {
+        "name": "predict_forest@packed", "route": "cuda",
+        "source": "lambdagap_tpu_torch/csrc/traverse.cu",
+        "replaces": "lambdagap_tpu/infer/engine.py:241",
+        "launches": t18["launches"], "max_abs_err": t18["max_abs_err"],
+        "ms": t18["ms"], "plain_ms": t18["plain_ms"],
+        "bound_ms": t18["bound_ms"], "bound_by": t18["bound_by"],
+        "library_ms": None}, {
         "name": "traverse_forest", "route": "cuda",
         "source": "lambdagap_tpu_torch/csrc/traverse.cu",
         "replaces": "lambdagap_tpu/infer/engine.py:68",

@@ -13,6 +13,8 @@ serves it::
                     callbacks=[lgt.early_stopping(10)])  # CUDA histograms
     server = lgt.Booster(model_str=bst.model_to_string()).as_server()
     y = server.predict(rows)                     # CUDA traversal
+    server.add_model("b", "model_b.txt")         # a multi-model registry
+    server.swap("model_v2.txt")                  # hot swap, a new generation
 
 A ranker takes query groups (sizes or per-row query ids) and optional
 positions: ``lgt.Dataset(X, label=rel, group=sizes, position=pos)`` with

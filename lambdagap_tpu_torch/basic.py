@@ -424,14 +424,15 @@ class Booster:
         (``lambdagap_tpu_torch.serve.ForestServer``): the forest is lowered
         and uploaded to the device once, and concurrent
         ``predict``/``submit`` calls are coalesced into padded device
-        batches. A non-default value of a serve knob of a layer the port
-        does not carry (request tracing, the HBM budget of a registry, the
-        serve-side profiler, the autonomics) is refused by name."""
+        batches, in a multi-model registry (``serve_hbm_budget_mb``,
+        ``serve_swap_breaker``, ``serve_pack_models`` bind). A non-default
+        value of a serve knob of a layer the port does not carry (request
+        tracing, the serve-side profiler, the autonomics) is refused by
+        name."""
         from .serve import ForestServer
         cfg = self.config
         for knob, unset in (("serve_trace_sample", 0.0),
                             ("serve_trace_out", ""),
-                            ("serve_hbm_budget_mb", 0.0),
                             ("profile_serve_start_req", -1),
                             ("serve_autonomics", False),
                             ("serve_autonomics_placement", True)):

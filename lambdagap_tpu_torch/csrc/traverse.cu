@@ -80,6 +80,22 @@
 //    zero-missing test survive compilation; float -> int uses
 //    __float2int_rz, which saturates like XLA's convert (1e10 -> INT_MAX).
 //
+// The packed mode of the fused kernel replaces the JAX package's
+// `_predict_packed` (lambdagap_tpu/infer/engine.py:241-266): many models'
+// forests merged into one set of tables (`pack_buffers` in engine.py) and
+// one mixed batch, each row of one member (row_model[r]) and each
+// structure group of one member (group_model[g]). The JAX package walks
+// every (row, group) and masks the foreign trees' leaf values to +0.0
+// before one forest-order scan; here a (row, group) of two members does
+// not walk at all: its carry is set to 0 (not ~leaf), so the epilogue
+// writes +0.0 for each of the group's trees, every workspace row is still
+// written, and the accumulation adds in forest order as before. The running
+// sums start at +0.0, so those adds are exact: a row's scores are its
+// member's served alone, bit for bit. The test is per (row, group), since a
+// block's 8 groups and 256 rows may straddle members. A warp whose rows all
+// belong elsewhere skips the walk (no live chain), paying only the stores.
+// Null maps give the unpacked launch, unchanged.
+//
 // Plain C interface for ctypes (no PyTorch headers): the wrappers are
 // `predict_forest`, `traverse_forest` and `accumulate_forest` in
 // lambdagap_tpu_torch/infer/engine.py.
@@ -124,6 +140,8 @@ struct TraverseArgs {
   int groups;
   const uint32_t* cat_tab;
   int cat_words;
+  const int32_t* row_model;      // packed mode: [rows] member of each row,
+  const int32_t* group_model;    //   [groups] of each group; else null
   int32_t* out;                  // [groups, rows]
 };
 
@@ -157,7 +175,8 @@ __device__ __forceinline__ bool go_left(const int4 rec, const float v,
 // kRowsPerThread each, as independent chains whose loads are in flight
 // together; `done(g, row0, r, node)` then takes the finished carries
 // (row0 + r[i] < rows are live): K3 stores them, the fused kernel turns
-// them into leaf values.
+// them into leaf values. In packed mode a row of another member than the
+// group's does not walk and carries 0.
 template <bool kSmemRows, typename Done>
 __device__ __forceinline__ void walk_groups(const TraverseArgs a, int g0,
                                             int g1, const float* s_x,
@@ -172,12 +191,17 @@ __device__ __forceinline__ void walk_groups(const TraverseArgs a, int g0,
     const int4* recs = a.recs + a.group_node_lo[g];
     const int steps = a.group_steps[g];
     const int32_t root = a.group_root[g];
+    const int32_t member = a.row_model ? __ldg(a.group_model + g) : 0;
     int r[kRowsPerThread];  // rows of the tile
     int32_t node[kRowsPerThread];
+    bool own[kRowsPerThread];
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
       r[i] = set * (32 * kRowsPerThread) + i * 32 + lane;
-      node[i] = row0 + r[i] < a.rows ? root : -1;
+      const int64_t row = row0 + r[i];
+      own[i] = a.row_model == nullptr ||
+               (row < a.rows && __ldg(a.row_model + row) == member);
+      node[i] = row < a.rows && own[i] ? root : -1;
     }
     for (int d = 0; d < steps; ++d) {
       bool live = false;
@@ -210,6 +234,10 @@ __device__ __forceinline__ void walk_groups(const TraverseArgs a, int g0,
         node[i] = node[i] < 0 ? node[i] : next;
       }
     }
+    // a foreign (row, group) carries 0, not ~leaf: +0.0 for its trees
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i)
+      if (!own[i]) node[i] = 0;
     done(g, row0, r, node);
   }
 }
@@ -767,6 +795,8 @@ extern "C" int lg_traverse_forest(
   a.groups = (int)groups;
   a.cat_tab = cat_tab;
   a.cat_words = cat_words;
+  a.row_model = nullptr;
+  a.group_model = nullptr;
   a.out = out;
   const dim3 grid((unsigned)row_tiles, (unsigned)group_tiles);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -818,18 +848,23 @@ extern "C" int lg_accumulate_forest(
 // forest-order accumulation into out [num_class, rows] by each row tile's
 // accumulation blocks. counters holds at least 1 + 2 ceil(rows / 256)
 // zeros and is left zeroed; no other launch may use it at the same time.
-// Returns 0 on success, otherwise the cudaError_t of the launch.
+// Packed mode: row_model [rows] and group_model [groups], both or neither
+// (null: the unpacked launch); no early stop there. Returns 0 on success,
+// otherwise the cudaError_t of the launch.
 extern "C" int lg_predict_forest(
     const float* x, int64_t rows, int64_t x_stride, int width,
     const void* recs, const int32_t* group_node_lo, const int32_t* group_root,
     const int32_t* group_steps, int64_t groups, const uint32_t* cat_tab,
     int cat_words, const int32_t* group_tree_lo, const int32_t* group_tree,
     const float* leaf_value, int64_t leaves, const int32_t* tree_class,
-    int64_t trees, int num_class, int es_freq, float es_margin, float* ws,
+    int64_t trees, int num_class, int es_freq, float es_margin,
+    const int32_t* row_model, const int32_t* group_model, float* ws,
     int64_t ws_stride, int32_t* counters, float* out, void* stream) {
   if (rows == 0) return 0;
   if (groups == 0 || trees == 0 || num_class < 1 || ws_stride < rows ||
-      ws_stride % 32 != 0)
+      ws_stride % 32 != 0 ||
+      (row_model == nullptr) != (group_model == nullptr) ||
+      (row_model != nullptr && es_freq > 0))
     return (int)cudaErrorInvalidValue;
   const int64_t row_tiles = (rows + kBlockRows - 1) / kBlockRows;
   const int64_t group_tiles = (groups + kBlockGroups - 1) / kBlockGroups;
@@ -853,6 +888,8 @@ extern "C" int lg_predict_forest(
   a.t.groups = (int)groups;
   a.t.cat_tab = cat_tab;
   a.t.cat_words = cat_words;
+  a.t.row_model = row_model;
+  a.t.group_model = group_model;
   a.t.out = nullptr;
   a.group_tree_lo = group_tree_lo;
   a.group_tree = group_tree;

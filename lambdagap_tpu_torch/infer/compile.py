@@ -210,12 +210,27 @@ def source_key_of(gbdt, start_iteration: int = 0, num_iteration: int = -1
     admitted WITHOUT re-deriving it from the trees. The model side hashes
     the serialized tree region (serve/delta.py's base-hash precedent), so
     any leaf/structure change — including in-place refits that bump the
-    generation — changes the key."""
-    from ..serve.delta import model_text_of, split_model_text
+    generation — changes the key.
+
+    Serializing a large forest's text costs about a second on the host, and
+    every swap and re-admission of a held booster looks its artifact up by
+    this key; so the tree region's hash is kept on the booster, valid while
+    its generation and the very tree objects in ``models`` are the same
+    (in-place edits of a tree bump the generation:
+    ``GBDT.invalidate_predict_cache``)."""
     cfg = gbdt.config
-    _header, blocks, _tail = split_model_text(model_text_of(gbdt))
-    h = hashlib.sha256()
-    h.update("".join(blocks).encode())
+    trees = tuple(gbdt.models)
+    memo = getattr(gbdt, "_tree_region_sha", None)
+    if memo is None or memo[0] != gbdt.generation or \
+            len(memo[1]) != len(trees) or \
+            any(a is not b for a, b in zip(memo[1], trees)):
+        from ..serve.delta import model_text_of, split_model_text
+        _header, blocks, _tail = split_model_text(model_text_of(gbdt))
+        region = hashlib.sha256("".join(blocks).encode())
+        # the trees are read again: lazy ones are materialized by now
+        memo = (gbdt.generation, tuple(gbdt.models), region)
+        gbdt._tree_region_sha = memo
+    h = memo[2].copy()
     h.update(json.dumps({
         "start_iteration": int(start_iteration),
         "num_iteration": int(num_iteration),

@@ -37,13 +37,22 @@ tensor takes the plain version (:func:`_predict_forest_reference`: the
 records walk, the workspace through the CSR, :func:`_accumulate`;
 :func:`_traverse_all_reference`, block by block like the JAX package's
 ``_traverse_all``; :func:`_leaf_values` + :func:`_accumulate`, ~T small
-torch ops). ``PackedForests`` and linear leaves wait for later slices.
+torch ops). Linear leaves wait for a later slice.
+
+:class:`PackedForests` extends the bucket idea ACROSS models (the JAX
+package's ``PackedForests`` and ``_predict_packed``): many compiled forests
+merged into one set of tables (:func:`pack_buffers`), whose dispatch is
+ONE launch of the same fused kernel in its packed mode — each row carries
+its member index (``row_model``), each structure group its owner
+(``group_model``), and a (row, group) of two different members does not
+walk: it writes ``+0.0`` for the group's trees, so the forest-order sums of
+a row are bit for bit its member's served alone.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -204,12 +213,18 @@ def device_tables(artifact: ForestArtifact,
     """Upload an artifact's node tables once (the analog of the JAX
     package's ``_device_blocks``), with the kernel's node records and the
     CSR of each group's trees beside them."""
-    width = int(artifact.meta["width"])
+    return _upload_tables(artifact.buffers, int(artifact.meta["width"]),
+                          device)
+
+
+def _upload_tables(b: Dict[str, np.ndarray], width: int,
+                   device: torch.device) -> ForestTables:
+    """:func:`device_tables` of an artifact's buffers (or of
+    :func:`pack_buffers`' merge of several) read at ``width`` features."""
     if width >= MAX_WIDTH:
         raise NotImplementedError(
             f"the traversal kernel packs feature ids into 28 bits; this "
             f"forest reads {width} features")
-    b = artifact.buffers
     rec, gnl, groot, gsteps = node_records(b)
     gtl, gt = group_trees(b["group_of_tree"], groot.shape[0])
 
@@ -230,6 +245,82 @@ def device_tables(artifact: ForestArtifact,
                              np.asarray(b["block_group_lo"])),
         depths=tuple(int(d) for d in np.asarray(b["block_depth"])),
         width=width)
+
+
+def _narrowest(n_codes: int):
+    """The smallest unsigned dtype indexing ``n_codes`` palette rows."""
+    for dt in (np.uint8, np.uint16):
+        if n_codes <= np.iinfo(dt).max + 1:
+            return dt
+    return np.uint32
+
+
+def pack_buffers(buffers: Sequence[Dict[str, np.ndarray]]
+                 ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+    """Merge several artifacts' buffers (constant leaves) into the buffers
+    of one forest, and the member of each of its structure groups.
+
+    Node blocks concatenate unchanged (their child ids are block-local);
+    the block directory, ``group_of_tree`` and the palette codes shift by
+    the members before; the palettes concatenate (bitset rows zero-padded
+    to the widest member's words: an extra word's bits are all clear, the
+    member's own answer for a category past its words); leaf tables pad
+    to the widest member's leaf count, rows a member's trees never select.
+    Returns ``(buffers, group_model [G] int32)``."""
+    if not buffers:
+        raise ValueError("pack_buffers needs at least one member")
+    if any("leaf_const" in b for b in buffers):
+        raise NotImplementedError(
+            "linear-leaf forests are not ported to lambdagap_tpu_torch yet "
+            "(ROADMAP.md, port queue: linear leaves)")
+    W = max(int(np.asarray(b["cat_table"]).shape[1]) for b in buffers)
+    L = max(int(np.asarray(b["leaf_value"]).shape[1]) for b in buffers)
+    out = {k: [] for k in ("node_feat", "node_thr", "node_flags", "node_cat",
+                           "node_left", "node_right", "thr_table",
+                           "cat_table", "root", "group_of_tree",
+                           "tree_class", "block_depth", "leaf_value")}
+    node_lo, group_lo, group_model = [0], [0], []
+    n_thr = n_cat = n_nodes = n_groups = 0
+    for mi, b in enumerate(buffers):
+        G = int(np.asarray(b["root"]).shape[0])
+        cat = np.asarray(b["cat_table"], np.uint32)
+        lv = np.asarray(b["leaf_value"], np.float32)
+        out["node_feat"].append(np.asarray(b["node_feat"], np.uint32))
+        out["node_thr"].append(np.asarray(b["node_thr"], np.int64) + n_thr)
+        out["node_cat"].append(np.asarray(b["node_cat"], np.int64) + n_cat)
+        for k in ("node_flags", "node_left", "node_right", "root",
+                  "tree_class", "block_depth"):
+            out[k].append(np.asarray(b[k]))
+        out["thr_table"].append(np.asarray(b["thr_table"], np.float32))
+        out["cat_table"].append(np.pad(cat, ((0, 0), (0, W - cat.shape[1]))))
+        out["group_of_tree"].append(
+            np.asarray(b["group_of_tree"], np.int64) + n_groups)
+        out["leaf_value"].append(np.pad(lv, ((0, 0), (0, L - lv.shape[1]))))
+        node_lo += [v + n_nodes for v in
+                    np.asarray(b["block_node_lo"], np.int64)[1:].tolist()]
+        group_lo += [v + n_groups for v in
+                     np.asarray(b["block_group_lo"], np.int64)[1:].tolist()]
+        group_model.append(np.full(G, mi, np.int32))
+        n_thr += len(out["thr_table"][-1])
+        n_cat += cat.shape[0]
+        n_nodes += len(out["node_left"][-1])
+        n_groups += G
+    cat_all = np.concatenate(out.pop("cat_table"))
+    merged = {k: np.concatenate(v) for k, v in out.items()}
+    feat = merged["node_feat"]
+    merged["node_feat"] = feat.astype(
+        np.uint16 if feat.size == 0 or feat.max() < 65536 else np.uint32)
+    merged["node_thr"] = merged["node_thr"].astype(_narrowest(n_thr))
+    merged["node_cat"] = merged["node_cat"].astype(_narrowest(n_cat))
+    merged["cat_table"] = cat_all
+    for k, dt in (("node_flags", np.uint8), ("node_left", np.int32),
+                  ("node_right", np.int32), ("root", np.int32),
+                  ("group_of_tree", np.int32), ("tree_class", np.int32),
+                  ("block_depth", np.int32)):
+        merged[k] = merged[k].astype(dt)
+    merged["block_node_lo"] = np.asarray(node_lo, np.int32)
+    merged["block_group_lo"] = np.asarray(group_lo, np.int32)
+    return merged, np.concatenate(group_model)
 
 
 # ---------------------------------------------------------------------------
@@ -361,12 +452,20 @@ def _predict_forest_reference(x: torch.Tensor, t: ForestTables,
                               leaf_value: torch.Tensor,
                               tree_class: torch.Tensor, num_class: int,
                               early_stop_freq: int,
-                              early_stop_margin: float) -> torch.Tensor:
+                              early_stop_margin: float,
+                              row_model: Optional[torch.Tensor] = None,
+                              group_model: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """The fused kernel's phases in plain torch ops -> [num_class, R] f32:
     the records walk (:func:`_traverse_records_reference`), each group's
     trees' leaf values into the ``[T, R]`` workspace through the CSR (+0.0
-    for a carry that is not ``~leaf``), then :func:`_accumulate`."""
+    for a carry that is not ``~leaf``), then :func:`_accumulate`. Packed
+    (``row_model`` [R] / ``group_model`` [G]): a (row, group) of two
+    members carries 0, so its trees add +0.0."""
     node = _traverse_records_reference(x, t).long()    # [R, G]
+    if row_model is not None:
+        own = group_model.long()[None, :] == row_model.long()[:, None]
+        node = torch.where(own, node, 0)
     T, L = leaf_value.shape
     lo = group_tree_lo.long()
     owner = torch.repeat_interleave(
@@ -422,6 +521,7 @@ def _kernel_lib(dev: torch.device) -> ctypes.CDLL:
                 #                         leaf_value, leaves
                 p, i64, i32,            # tree_class, trees, num_class
                 i32, ctypes.c_float,    # early-stop freq, margin
+                p, p,                   # row_model, group_model (or null)
                 p, i64,                 # ws, its row stride
                 p, p, p]                # counters, out, stream
             lib.lg_predict_forest.restype = ctypes.c_int
@@ -632,11 +732,37 @@ def _check_csr(group_tree_lo: torch.Tensor, group_tree: torch.Tensor,
         raise ValueError("group_tree must list every tree exactly once")
 
 
+def _check_packed(row_model: torch.Tensor, group_model: torch.Tensor,
+                  rows: int, groups: int, device: torch.device) -> None:
+    """Refuse packed maps that are not int32 [rows] / [groups] on the
+    rows' device, or hold a member outside ``[0, members)`` (members: one
+    past the largest ``group_model``). One host read of both maps."""
+    for name, a, n in (("row_model", row_model, rows),
+                       ("group_model", group_model, groups)):
+        if a.device != device:
+            raise ValueError(f"predict_forest: {name} is on {a.device}, "
+                             f"the rows on {device}")
+        if a.dtype != torch.int32 or a.shape != (n,) or \
+                not a.is_contiguous():
+            raise ValueError(f"predict_forest: {name} must be contiguous "
+                             f"int32 [{n}], got {a.dtype} "
+                             f"{tuple(a.shape)}")
+    gm, rm = group_model.cpu(), row_model.cpu()
+    members = int(gm.max()) + 1 if groups else 0
+    for name, a in (("group_model", gm), ("row_model", rm)):
+        if a.numel() and (int(a.min()) < 0 or int(a.max()) >= members):
+            raise ValueError(f"{name} holds members {int(a.min())}.."
+                             f"{int(a.max())}; the pack has {members}")
+
+
 def predict_forest(x: torch.Tensor, t: ForestTables,
                    group_tree_lo: torch.Tensor, group_tree: torch.Tensor,
                    leaf_value: torch.Tensor, tree_class: torch.Tensor,
                    num_class: int, early_stop_freq: int,
-                   early_stop_margin: float) -> torch.Tensor:
+                   early_stop_margin: float,
+                   row_model: Optional[torch.Tensor] = None,
+                   group_model: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """Raw scores [num_class, R] f32 of the rows ``x`` [R, >= width]: every
     row through every structure group of ``t``, tree t's leaf value added
     in forest order into ``out[tree_class[t]]`` with the early-stop replay
@@ -649,7 +775,13 @@ def predict_forest(x: torch.Tensor, t: ForestTables,
     ValueError (one host read of the maps; ``CompiledForest`` checks its
     maps once at upload instead). On a CUDA tensor this launches the fused
     kernel once on the current stream and raises if the launch fails; on a
-    CPU tensor it runs the plain version."""
+    CPU tensor it runs the plain version.
+
+    Packed mode (both or neither): ``row_model`` [R] / ``group_model``
+    [G], int32, the member of each row and of each structure group
+    (:func:`pack_buffers`); a row's score sums only its own member's trees
+    (a foreign group's trees add +0.0). Early stop is refused there, as in
+    the JAX package's packs: its tree-count replay is per member."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"predict_forest runs on cuda or cpu, not "
                          f"{x.device}")
@@ -674,28 +806,42 @@ def predict_forest(x: torch.Tensor, t: ForestTables,
                          f"{tuple(tree_class.shape)}")
     if num_class < 1:
         raise ValueError(f"num_class must be >= 1, got {num_class}")
-    _check_csr(group_tree_lo, group_tree, int(t.group_root.shape[0]), T)
+    G = int(t.group_root.shape[0])
+    _check_csr(group_tree_lo, group_tree, G, T)
     if T:
         c_lo, c_hi = torch.aminmax(tree_class.cpu())
         if int(c_lo) < 0 or int(c_hi) >= num_class:
             raise ValueError(f"tree_class holds classes {int(c_lo)}.."
                              f"{int(c_hi)}; the forest has {num_class}")
+    if (row_model is None) != (group_model is None):
+        raise ValueError("predict_forest: row_model and group_model come "
+                         "together (packed mode) or not at all")
+    if row_model is not None:
+        if early_stop_freq > 0:
+            raise ValueError("predict_forest: early stop cannot replay a "
+                             "per-member tree count in packed mode")
+        _check_packed(row_model, group_model, x.shape[0], G, x.device)
     return _predict_forest(x, t, group_tree_lo, group_tree, leaf_value,
                            tree_class, num_class, early_stop_freq,
-                           early_stop_margin)
+                           early_stop_margin, row_model, group_model)
 
 
 def _predict_forest(x: torch.Tensor, t: ForestTables,
                     group_tree_lo: torch.Tensor, group_tree: torch.Tensor,
                     leaf_value: torch.Tensor, tree_class: torch.Tensor,
                     num_class: int, early_stop_freq: int,
-                    early_stop_margin: float) -> torch.Tensor:
+                    early_stop_margin: float,
+                    row_model: Optional[torch.Tensor] = None,
+                    group_model: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """:func:`predict_forest` on maps already checked: the plain version on
-    a CPU tensor, else one launch of the fused kernel."""
+    a CPU tensor, else one launch of the fused kernel (packed when
+    ``row_model`` is given)."""
     if x.device.type == "cpu":
         return _predict_forest_reference(
             x, t, group_tree_lo, group_tree, leaf_value, tree_class,
-            num_class, early_stop_freq, early_stop_margin)
+            num_class, early_stop_freq, early_stop_margin, row_model,
+            group_model)
     if x.device.type != "cuda":
         raise ValueError(f"predict_forest runs on cuda or cpu, not "
                          f"{x.device}")
@@ -722,8 +868,11 @@ def _predict_forest(x: torch.Tensor, t: ForestTables,
             group_tree_lo.data_ptr(), group_tree.data_ptr(),
             leaf_value.data_ptr(), leaf_value.shape[1], tree_class.data_ptr(),
             T, num_class, max(int(early_stop_freq), 0),
-            float(np.float32(early_stop_margin)), ws.data_ptr(),
-            ws.shape[1], counters.data_ptr(), out.data_ptr(), stream)
+            float(np.float32(early_stop_margin)),
+            None if row_model is None else row_model.data_ptr(),
+            None if group_model is None else group_model.data_ptr(),
+            ws.data_ptr(), ws.shape[1], counters.data_ptr(), out.data_ptr(),
+            stream)
     if rc != 0:
         with _counters_lock:         # the next launch starts from zeros
             _counters.pop((x.device.index, stream), None)
@@ -784,3 +933,91 @@ class CompiledForest:
                                self._leaf_value, self._tree_class,
                                self.num_class, self.early_stop_freq,
                                self._es_margin)
+
+    @property
+    def nbytes(self) -> int:
+        """Resident device bytes: the artifact's node tables, the kernel's
+        records and CSR, the maps and the leaf table."""
+        return _tensor_bytes(self.tables) + sum(
+            int(a.nbytes) for a in (self._group_of_tree, self._tree_class,
+                                    self._leaf_value))
+
+
+def _tensor_bytes(tables: ForestTables) -> int:
+    return sum(int(a.nbytes) for a in tables if isinstance(a, torch.Tensor))
+
+
+class PackedForests:
+    """Many compiled forests merged into ONE set of tables on one device.
+
+    The port of the JAX package's ``PackedForests``: the members' node
+    blocks, palettes and leaf tables merge (:func:`pack_buffers`),
+    ``group_model`` records each structure group's owner, and
+    ``predict(x, row_model)`` serves a MIXED batch in one launch of the
+    fused kernel's packed mode; each row sums only its own member's trees,
+    so its scores are bit for bit the member's served alone. Averaging
+    and objective conversion stay per member with the caller
+    (``serve/cache.ModelPack``), after the one packed dispatch.
+
+    Members must not use prediction early stop; mixed num_class is fine —
+    rows of a narrower model leave the extra class rows at zero — and so
+    are mixed widths: rows are padded to the widest member with NaN, which
+    no member's tree reads.
+    """
+
+    def __init__(self, members: Dict[str, CompiledForest]) -> None:
+        if not members:
+            raise ValueError("PackedForests needs at least one member")
+        for name, cf in members.items():
+            if cf.early_stop_freq > 0:
+                raise ValueError(
+                    f"model {name!r} uses prediction early stop; packs "
+                    "dispatch many models at once and cannot replay a "
+                    "per-model tree-count stop")
+        cfs = list(members.values())
+        devices = {cf.device for cf in cfs}
+        if len(devices) != 1:
+            raise ValueError(f"pack members live on {sorted(map(str, devices))}"
+                             "; a pack runs on one device")
+        self.device = cfs[0].device
+        self.names = list(members)
+        self.model_index = {n: i for i, n in enumerate(self.names)}
+        self.num_class = max(cf.num_class for cf in cfs)
+        self.width = max(cf.width for cf in cfs)
+        b, gm = pack_buffers([cf.artifact.buffers for cf in cfs])
+        G = gm.shape[0]
+        tc = torch.from_numpy(b["tree_class"])
+        # every map is checked here, once: no host read per dispatch
+        _check_maps(torch.from_numpy(b["group_of_tree"]), tc, G,
+                    self.num_class)
+        self.tables = _upload_tables(b, self.width, self.device)
+        self._tree_class = tc.to(self.device)
+        self._group_model = torch.from_numpy(gm).to(self.device)
+        self._leaf_value = torch.from_numpy(b["leaf_value"]).to(self.device)
+        self.num_trees = int(tc.shape[0])
+
+    def predict(self, x: torch.Tensor, row_model) -> torch.Tensor:
+        """x: [N, >= pack width] f32 rows; row_model: [N] member index per
+        row (``model_index``), a host array: checked on the host, then
+        uploaded. Returns raw [num_class, N] f32. On the card: one launch
+        of the fused kernel in its packed mode."""
+        rm = np.ascontiguousarray(np.asarray(row_model, np.int32))
+        if rm.shape != (x.shape[0],):
+            raise ValueError(f"row_model must be [{x.shape[0]}], got "
+                             f"{rm.shape}")
+        if rm.size and (rm.min() < 0 or rm.max() >= len(self.names)):
+            raise ValueError(f"row_model holds members {rm.min()}.."
+                             f"{rm.max()}; the pack has {len(self.names)}")
+        x = x.to(device=self.device, dtype=torch.float32).contiguous()
+        t = self.tables
+        return _predict_forest(x, t, t.group_tree_lo, t.group_tree,
+                               self._leaf_value, self._tree_class,
+                               self.num_class, 0, 0.0,
+                               torch.from_numpy(rm).to(self.device),
+                               self._group_model)
+
+    @property
+    def nbytes(self) -> int:
+        return _tensor_bytes(self.tables) + sum(
+            int(a.nbytes) for a in (self._tree_class, self._group_model,
+                                    self._leaf_value))

@@ -55,17 +55,20 @@ from ..guard.degrade import ServeOverloaded, ServeTimeout
 
 class Request:
     """One queued predict: rows + the future its caller waits on, plus the
-    tenant it bills to. (The JAX package's Request also carries a registry
-    model name and a trace context; both wait for their slices.)"""
+    registry model it targets and the tenant it bills to. (The JAX
+    package's Request also carries a trace context, which waits for the
+    tracing slice.)"""
 
-    __slots__ = ("x", "future", "t_submit", "deadline", "tenant")
+    __slots__ = ("x", "future", "t_submit", "deadline", "model", "tenant")
 
     def __init__(self, x: np.ndarray, deadline: Optional[float] = None,
+                 model: Optional[str] = None,
                  tenant: Optional[str] = None) -> None:
         self.x = x
         self.future: Future = Future()
         self.t_submit = time.perf_counter()
         self.deadline = deadline         # absolute perf_counter time, or None
+        self.model = model               # registry model name (None = default)
         self.tenant = tenant             # accounting/fairness key (optional)
 
     def expired(self, now: Optional[float] = None) -> bool:
@@ -233,7 +236,7 @@ class MicroBatcher:
             t.start()
 
     # ------------------------------------------------------------------
-    def submit(self, x: np.ndarray,
+    def submit(self, x: np.ndarray, model: Optional[str] = None,
                tenant: Optional[str] = None) -> Future:
         """Enqueue [n, D] float32 rows; returns the Future the worker will
         resolve. Thread-safe. Raises ``RuntimeError`` after close and
@@ -242,7 +245,7 @@ class MicroBatcher:
         (``block`` waits for space instead)."""
         deadline = (time.perf_counter() + self.timeout
                     if self.timeout > 0 else None)
-        req = Request(x, deadline=deadline, tenant=tenant)
+        req = Request(x, deadline=deadline, model=model, tenant=tenant)
         while True:
             with self._submit_lock:
                 if self._closed:
@@ -288,7 +291,7 @@ class MicroBatcher:
                 f"request deadline expired after {waited * 1e3:.1f}ms in "
                 "queue (serve_timeout_ms); shed before dispatch"))
         if self.stats is not None:
-            self.stats.record_timeout(tenant=req.tenant)
+            self.stats.record_timeout(model=req.model, tenant=req.tenant)
 
     def _loop(self) -> None:
         drain = False

@@ -3,10 +3,11 @@
 ``lambdagap_tpu_torch``, ``chip_smoke.py`` and the A/B scripts
 (``dispatch_ab.py``, ``train_ab.py``) import neither ``jax`` nor
 ``lambdagap_tpu``: a subprocess with both blocked in ``sys.modules`` loads
-a JAX-saved model, predicts and serves on the CPU, then trains quantized
-and bagged over EFB bundles (the threefry draws, the samplers, the int8
-histograms and the bundling included). Asking for the card where there is
-none raises instead of quietly running on the CPU.
+a JAX-saved model, predicts and serves on the CPU (the registry, a swap
+and a delta frame included), then trains quantized and bagged over EFB
+bundles (the threefry draws, the samplers, the int8 histograms and the
+bundling included). Asking for the card where there is none raises
+instead of quietly running on the CPU.
 """
 import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import ast
@@ -35,8 +36,15 @@ text = open({model!r}).read()
 X = np.load({rows!r})
 bst = lgt.Booster(model_str=text, params={{"device_type": "cpu"}})
 raw = bst.predict(X, raw_score=True)
+from lambdagap_tpu_torch.serve import delta, registry, swap
 with bst.as_server(raw_score=True) as server:
     served = server.predict(X)
+    base = server.model_text()
+    server.add_model("m2", base)
+    assert swap.load_booster(base, {{"device_type": "cpu"}}).device.type == "cpu"
+    assert server.swap(base, model="m2") == 1
+    assert delta.make_delta(base, base)["append"] == ""
+    assert isinstance(server.registry, registry.ModelRegistry)
 assert np.array_equal(raw, served)
 np.save({out!r}, raw)
 rng = np.random.RandomState(1)

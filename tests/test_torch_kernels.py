@@ -16,7 +16,11 @@ values and the accumulation in one launch) equals its plain version with
 forests at 1 to 4,096 rows, early stop off and on, reruns and a row alone
 bit-identically, leaves its counters at zero (also after three
 dispatches queued back to back) and gives two streams at once their own
-counters; a compiled dispatch on the card is one launch of the fused
+counters; its packed mode (several forests merged, a member index a row)
+equals its plain version and each member's own launch row by row, on
+packs whose 8-group blocks and 256-row tiles straddle members and on one
+with a 136-column member (no row staging), and null maps leave the
+unpacked launch as it was; a compiled dispatch on the card is one launch of the fused
 kernel and none of K3 or the accumulation alone; the compiled engine
 and the server on the card equal the scan oracle on the card; the f32
 histogram kernel (K1)
@@ -80,7 +84,8 @@ CPU = {"device_type": "cpu"}
 def _forest(kind):
     """(text, trees, features) of one synthetic forest, via the text
     round trip; "large": two 16,384-leaf trees, deep walks over groups of
-    16,383 records each; "merged": 12 structures of 3 trees each;
+    16,383 records each; "merged": 12 structures of 3 trees each; "mslr":
+    20 trees at MSLR-WEB30K's 136 features;
     "multiclass" / "multiclass20": 8 rounds of 3 / 20 classes."""
     objective = "binary sigmoid:1"
     if kind == "numeric":
@@ -93,6 +98,8 @@ def _forest(kind):
                 trees.append(t)
     elif kind == "large":
         trees, feats = synth.random_trees(2, 2, 16384, 28), 28
+    elif kind == "mslr":
+        trees, feats = synth.random_trees(5, 20, 63, 136), 136
     elif kind.startswith("multiclass"):
         K = 20 if kind == "multiclass20" else 3
         trees, feats = synth.random_trees(6, 8 * K, 15, 10, grid_size=3), 10
@@ -311,6 +318,82 @@ def test_fused_kernel_equals_plain_version_on_card(kind, early_stop, rows,
     assert torch.equal(eng.predict_forest(
         x, t, t.group_tree_lo, t.group_tree, cf._leaf_value, cf._tree_class,
         cf.num_class, freq, margin), ref)
+
+
+def _pack_case(kinds, dev):
+    """(PackedForests of the ``kinds`` forests on ``dev``, their
+    CompiledForests by kind)."""
+    cfs = {}
+    for kind in kinds:
+        text, _trees, _feats = _forest(kind)
+        art = compile_forest(lgt.Booster(model_str=text, params=CPU)._booster)
+        cfs[kind] = eng.CompiledForest(art, dev)
+    return eng.PackedForests(cfs), cfs
+
+
+def _pack_rows(packed, cfs, n, seed):
+    """(rows [n, pack width], member of each row): each row its member's
+    kind of rows, NaN past the member's features."""
+    rng = np.random.RandomState(seed)
+    rm = rng.randint(0, len(cfs), n).astype(np.int32)
+    x = np.full((n, packed.width), np.nan, np.float32)
+    for i, kind in enumerate(cfs):
+        feats = _forest(kind)[2]
+        mine = rm == i
+        x[mine, :feats] = _rows(kind, int(mine.sum()), feats, seed)
+    return x, rm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kinds", [("numeric", "categorical", "multiclass"),
+                                   ("merged", "mslr", "categorical")])
+@pytest.mark.parametrize("rows", [1, 97, 256, 601, 4096])
+def test_packed_kernel_equals_plain_version_and_members_on_card(
+        kinds, rows, cuda_device):
+    """The fused kernel's packed mode: one launch equal to its plain
+    version and, row by row, to each member's own launch; reruns
+    bit-identical; 8-group blocks and 256-row tiles straddle members; the
+    136-column pack reads its rows from global memory (no staging)."""
+    packed, cfs = _pack_case(kinds, cuda_device)
+    gm = packed._group_model.tolist()
+    assert any(len(set(gm[i:i + 8])) > 1 for i in range(0, len(gm), 8))
+    x, rm = _pack_rows(packed, cfs, rows, seed=rows)
+    xt = torch.from_numpy(x).to(cuda_device)
+    rmt = torch.from_numpy(rm).to(cuda_device)
+    t = packed.tables
+    ref = eng._predict_forest_reference(
+        xt, t, t.group_tree_lo, t.group_tree, packed._leaf_value,
+        packed._tree_class, packed.num_class, 0, 0.0, rmt,
+        packed._group_model)
+    eng.PREDICT_LAUNCHES.reset()
+    got = packed.predict(xt, rm)
+    again = packed.predict(xt, rm)
+    assert _counters_zero(cuda_device)
+    assert eng.PREDICT_LAUNCHES.launches == 2
+    assert got.shape == ref.shape and torch.equal(got, ref)
+    assert torch.equal(again, got)
+    assert torch.equal(eng.predict_forest(
+        xt, t, t.group_tree_lo, t.group_tree, packed._leaf_value,
+        packed._tree_class, packed.num_class, 0, 0.0, rmt,
+        packed._group_model), got)
+    for i, cf in enumerate(cfs.values()):
+        mine = torch.from_numpy(np.nonzero(rm == i)[0]).to(cuda_device)
+        if mine.numel():
+            solo = cf.predict(xt[mine, :cf.width].contiguous())
+            assert torch.equal(got[:cf.num_class, mine], solo)
+            assert not got[cf.num_class:, mine].any()
+
+
+@pytest.mark.cuda
+def test_null_row_model_leaves_the_unpacked_launch_unchanged(cuda_device):
+    """Null packed maps are today's launch (== its plain version); a
+    one-member pack gives the same bits."""
+    cf, _, _, feats = _fused_case("merged", cuda_device, False)
+    x = torch.from_numpy(_rows("merged", 601, feats, seed=4)).to(cuda_device)
+    base = cf.predict(x)
+    assert torch.equal(base, _plain(cf, x))
+    packed = eng.PackedForests({"m": cf})
+    assert torch.equal(packed.predict(x, np.zeros(601, np.int32)), base)
 
 
 @pytest.mark.cuda

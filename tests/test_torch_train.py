@@ -296,7 +296,7 @@ def test_unported_options_refuse_loudly(params, tmp_path):
 
 @pytest.mark.parametrize("knob, value", [
     ("serve_trace_sample", 0.5), ("serve_trace_out", "spans.jsonl"),
-    ("serve_hbm_budget_mb", 64.0), ("profile_serve_start_req", 3),
+    ("profile_serve_start_req", 3),
     ("serve_autonomics", True), ("serve_autonomics_placement", False)])
 def test_unported_serve_knobs_refuse_loudly(knob, value):
     """A serve knob of a layer the port does not carry refuses by name in
