@@ -3,7 +3,7 @@
 CUDA card and check them.
 
     python3 chip_smoke.py [--seed N] [--rows N]
-                          [--only kernels|rank|objectives|predict|shap|options|serial|layout|registry]
+                          [--only kernels|rank|objectives|predict|shap|options|serial|layout|registry|stream]
 
 Run from the root of a checkout. Phases, each fatal on failure:
 
@@ -94,7 +94,7 @@ T6. T3's configuration and Datasets with ``use_quantized_grad`` (4
    the validation logloss falls; one tree's phases and K2's kernel-only
    time, the threefry draw's time, peak memory; the model served back
    against the scan oracle;
-T4. the example shape (16,000 x 20, 63 leaves, 30 rounds, validation set,
+T4. the example shape (16,000 x 20, 63 leaves, 20 rounds, validation set,
    early stopping) trained on the card and on the CPU, f32, quantized (16
    levels, renew), GOSS and bagging 0.7/1: predictions on the training
    rows within rtol 1e-4 / atol 1e-5, ``best_iteration`` equal; the
@@ -151,7 +151,7 @@ T11-serve. T11a's 7-class model served on the card, early stop off and on
    (a margin that stops some rows): each [rows, 7] answer ``array_equal``
    to the scan oracle, converted outputs its softmax at rtol 1e-6, one
    fused launch per dispatch;
-T12. 16,000 x 20 with a 12-category column, 31 leaves, 10 rounds with a
+T12. 16,000 x 20 with a 12-category column, 31 leaves, 6 rounds with a
    validation set and early stopping, on the card and on the CPU:
    multiclass, multiclassova, multiclass + GOSS, regression_l1 (also with
    bagging 0.7/1), huber, fair, poisson, quantile, mape, gamma, tweedie,
@@ -160,7 +160,7 @@ T12. 16,000 x 20 with a 12-category column, 31 leaves, 10 rounds with a
    equal;
 T13. regression at YearPredictionMSD's width (``msd_like``: 463,715 +
    51,630 rows x 90 features, integer years 1922-2011 skewed toward the
-   2000s), 255 leaves, 3 rounds each of regression_l1 and quantile (the
+   2000s), 255 leaves, 2 rounds each of regression_l1 and quantile (the
    leaf-renew path: the renew pass's host ms per tree, the booster's
    ``renew_ms``) and huber; two leaves of each renewed run's last tree
    against numpy's percentile of their residuals at the scores before
@@ -231,7 +231,7 @@ T16b. (s), (c), (r), (l), (v), 3-class softmax and regression_l1 on the
 T17. tree_layout=sorted against gather (T3, T6 and T8 already train
    sorted: ``auto`` resolves to it at 2^20 rows and more, which those
    phases check): on T3's Datasets (a) f32 fused, (b) quantized 4 levels +
-   bagging 0.7/1 (K2), (c) ``tpu_fused_learner=0``, 3 rounds each, and on
+   bagging 0.7/1 (K2), (c) ``tpu_fused_learner=0``, 2 rounds each, and on
    T8's Dataset (d) lambdarank ndcg, 2 rounds, each under explicit gather
    and sorted: the model text byte-equal but for the ``[tree_layout: ...]``
    line, the histogram kernel's launches == the histograms built and,
@@ -244,14 +244,36 @@ T17. tree_layout=sorted against gather (T3, T6 and T8 already train
    leaf gathered through the permutation; timed beside the gathered leaf,
    the plain version and ``index_add_`` over the contiguous window
    (``--only layout`` runs phases 1-2, T3, T8's data and T17);
-6. the kernels line (one JSON object, eleven entries; each entry's
+T19. out of core: (a) T3's training set re-sharded into host
+   shards of 2^20 rows; fused gather, fused sorted, serial, and GOSS
+   (learning rate 1.0, so round 2 samples) with ``stream_goss_compact``
+   on and off, 2 rounds each, streamed (``data_residency`` auto over the
+   ShardedBinnedDataset) and resident (the GOSS runs share one resident
+   twin): each streamed model text byte-equal up to ``end of trees`` to
+   its resident twin, every streamed histogram K1's accumulate mode (one
+   finish a histogram, at least one window launch each) and no resident
+   K1 launch, no device matrix; the rings' ``h2d_prefetch`` /
+   ``chunk_wait`` totals, windows, bytes and host reads a tree; K1's
+   accumulate mode over T3's root in 11 windows ``torch.equal`` to its
+   plain version and to one resident launch, timed beside both,
+   ``index_add_`` and the root's bound; (b) ``predict_stream`` of T3's
+   500,000 validation rows at 65,536 and 4,096-row windows and ring
+   depths 1, 2 and 4 ``array_equal`` to ``Booster.predict`` (one fused
+   launch a window), from an ``np.memmap`` into an ``np.memmap`` ``out``
+   (converted), and from a ShardedBinnedDataset on T3's validation bins;
+   rows/s and ``h2d_prefetch`` / ``chunk_wait`` / ``d2h_scores`` totals;
+   (c) ``pred_contrib`` of 4,096 rows in windows of 1,024, one S call a
+   window, ``array_equal`` to ``predict(pred_contrib=True)``
+   (``--only stream`` runs phases 1-2, T3 and T19);
+6. the kernels line (one JSON object, twelve entries; each entry's
    ``max_abs_err`` the largest of its kernel's comparisons, T13's K1 in
    ``hist_rows@covtype`` and T11c's K2 in ``hist_rows_q``; the fused
    kernel's launches phase 5's, its packed mode's
    (``predict_forest@packed``) T18 (e)'s burst's, K3's phase 5's and T14's
    pred_leaf, the accumulation's phase 5's, none; ``hist_rows@sorted`` and
-   ``hist_rows_q@sorted`` the window launches of T17's sorted runs) and,
-   last, the device line.
+   ``hist_rows_q@sorted`` the window launches of T17's sorted runs,
+   ``hist_rows@stream`` the accumulate-mode launches of T19 (a)'s streamed
+   runs) and, last, the device line.
 
 The card-vs-CPU phases (T4, T7, T9, T12, T15b, T16b) train their CPU
 sides in ``CPU_WORKERS`` spawned worker processes beside the card's runs;
@@ -305,7 +327,14 @@ MSLR_MAX_DOCS = 1_251           # its longest query
 RANK_ROUNDS = 3                 # T8 (cut from 10: the script's time)
 RANK_CPU_ROUNDS = 12            # T9 (cut from 20: the script's time)
 RANK_SHORT_ROUNDS = 3
-LAYOUT_ROUNDS = 3               # T17 (a)-(c)
+LAYOUT_ROUNDS = 2               # T17 (a)-(c) (cut from 3 for T19)
+STREAM_ROUNDS = 2               # T19 (a)
+CARD_CPU_ROUNDS = 20            # T4 (cut from 30 for T19: the script's time)
+OBJ_CPU_ROUNDS = 6              # T12 (cut from 10 for T19: the script's time)
+STREAM_SHARD_ROWS = 1 << 20     # T19: host shards of 2^20 rows
+STREAM_WINDOWS = (65_536, 4_096)   # T19 (b): predict_stream window rows
+STREAM_DEPTHS = (1, 2, 4)       # T19 (b): ring depths
+STREAM_CONTRIB_ROWS = 4096      # T19 (c)
 LAYOUT_RANK_ROUNDS = 2          # T17 (d)
 # UCI Covertype: 581,012 rows split 80/20, 54 features (10 continuous, 4
 # wilderness and 40 soil one-hot columns), 7 cover types with these shares
@@ -315,7 +344,7 @@ COV_ROUNDS = 2                  # T11a (cut from 6: the script's time)
 COV_SHORT_ROUNDS = 2
 # YearPredictionMSD: 463,715 training and 51,630 test rows, 90 features
 MSD_TRAIN, MSD_VALID, MSD_F = 463_715, 51_630, 90
-MSD_ROUNDS = 3
+MSD_ROUNDS = 2                  # T13 (cut from 3 for T19)
 
 
 def fail(msg: str) -> None:
@@ -1163,7 +1192,8 @@ def train_phase(args, smi: str):
           f"main kernel and its f32 pass; torch.profiler), "
           f"{100 * k_ms / tree_ms:.1f}% of the tree's host wall [{smi}]")
     return {"bst": bst, "Xva": Xva, "launches": launches, "train": tr,
-            "valid": va, "params": params, "auc": auc[-1]}
+            "valid": va, "params": params, "auc": auc[-1],
+            "median_ms": statistics.median(walls)}
 
 
 def quant_phase(t3: dict, smi: str):
@@ -1369,7 +1399,8 @@ def card_vs_cpu_phase() -> None:
     aucs = {}
     with CpuSide() as cpu:
         runs = [(name, card_vs_cpu(cpu, {**base, **extra}, X[:16_000],
-                                   y[:16_000], X[16_000:], y[16_000:], 30))
+                                   y[:16_000], X[16_000:], y[16_000:],
+                                   CARD_CPU_ROUNDS))
                 for name, extra in variants]
         outs = [(name, finish()) for name, finish in runs]
     for name, out in outs:
@@ -2245,7 +2276,7 @@ def covtype_serve_phase(t11: dict, dev, smi: str) -> None:
 
 def objectives_card_vs_cpu_phase(smi: str) -> None:
     """T12: 16,000 rows x 20 features, one 12-category column, 31 leaves,
-    10 rounds with a validation set and early stopping, every objective
+    6 rounds with a validation set and early stopping, every objective
     this slice adds, each on the card and on the CPU: training-row
     predictions within rtol 1e-4 / atol 1e-5, the same best_iteration."""
     import lambdagap_tpu_torch as lgt
@@ -2298,7 +2329,7 @@ def objectives_card_vs_cpu_phase(smi: str) -> None:
                  "weight": None if wt is None else wt[va_rows]})
 
     with CpuSide() as cpu:
-        futs = [cpu.submit({**base, **extra}, 10, *sets(y, wt))
+        futs = [cpu.submit({**base, **extra}, OBJ_CPU_ROUNDS, *sets(y, wt))
                 for _, extra, y, wt in configs]
         outs = []
         for (name, extra, y, wt), fut in zip(configs, futs):
@@ -2306,7 +2337,8 @@ def objectives_card_vs_cpu_phase(smi: str) -> None:
             tr = lgt.Dataset(**train_kw)
             va = lgt.Dataset(reference=tr, **valid_kw)
             t0 = time.perf_counter()
-            bst = lgt.train({**base, **extra}, tr, 10, valid_sets=[va],
+            bst = lgt.train({**base, **extra}, tr, OBJ_CPU_ROUNDS,
+                            valid_sets=[va],
                             callbacks=[lgt.early_stopping(5, verbose=False)])
             secs = {"cuda": time.perf_counter() - t0}
             preds = {"cuda": bst.predict(X[tr_rows])}
@@ -2350,7 +2382,7 @@ def leaf_of_rows(tree, X: np.ndarray) -> np.ndarray:
 
 def msd_phase(args, dev, smi: str) -> float:
     """T13: regression_l1 and quantile (alpha 0.9), both on the renew
-    path, and huber, 3 rounds each at YearPredictionMSD width with 255
+    path, and huber, 2 rounds each at YearPredictionMSD width with 255
     leaves; the renew pass's host ms per tree; two leaves of each renewed
     run's last tree against numpy's percentile of their residuals; K1
     against its plain version on the 90-feature matrix with round 1's L1
@@ -3690,6 +3722,271 @@ def registry_phase(seed: int, dev, smi: str, text: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# T19: out of core: stream training on T3's Datasets in host shards,
+# predict_stream through the two rings, pred_contrib a window at a time
+# ---------------------------------------------------------------------------
+def stream_run(params: dict, ds, tag: str, smi: str, streamed: bool) -> dict:
+    """One T19 (a) training of STREAM_ROUNDS rounds (no validation set),
+    the counts zeroed just before and read just after. Streamed: every
+    histogram from K1's accumulate mode (one finish a histogram, at least
+    one window each), no resident K1 launch, no device matrix."""
+    import torch
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    counters = (hc.HIST_LAUNCHES, hc.HIST_Q_LAUNCHES,
+                hc.HIST_STREAM_LAUNCHES, hc.HIST_FINISH_LAUNCHES)
+    walls, built, syncs = [], [], []
+    last = [0.0]
+
+    def per_round(env) -> None:
+        now = time.perf_counter()
+        walls.append((now - last[0]) * 1e3)
+        last[0] = now
+        lr_ = env.model._booster.learner
+        built.append(lr_.hist_builds)
+        syncs.append(lr_.host_syncs)
+
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    last[0] = time.perf_counter()
+    bst = lgt.train(params, ds, STREAM_ROUNDS, callbacks=[per_round])
+    torch.cuda.synchronize()
+    k1, k2, win, fin = (c.launches for c in counters)
+    lr = bst._booster.learner
+    check(lr.residency == ("stream" if streamed else "hbm"),
+          f"{tag}: data_residency resolved to {lr.residency}")
+    check(bst._booster.scores.is_cuda, f"{tag}: scores not on the card")
+    check(k2 == 0, f"{tag}: launched K2 {k2} times")
+    out = {"text": _model_text(bst).split("end of trees")[0],
+           "walls": walls, "median": statistics.median(walls),
+           "built": built, "syncs": syncs, "windows": win}
+    if streamed:
+        lay = lr.row_layout
+        check(lr.x_rows is None, f"{tag}: holds a device matrix")
+        check(k1 == 0, f"{tag}: {k1} resident K1 launches")
+        check(fin == sum(built) and win >= fin,
+              f"{tag}: {fin} finishes and {win} window launches for "
+              f"{sum(built)} histograms")
+        ph = lay.clock.snapshot()
+        out.update(phases=ph, ring_windows=lay.ring.windows,
+                   ring_bytes=lay.ring.bytes)
+        print(f"{tag}: rounds (ms) {', '.join(f'{w:.1f}' for w in walls)};"
+              f" K1 accumulate-mode launches {win} for {sum(built)} "
+              f"histograms (finishes {fin}), no resident K1 launch; ring "
+              f"{lay.ring.windows} windows, {lay.ring.bytes / 1e9:.3f} GB "
+              f"up; h2d_prefetch {ph.get('h2d_prefetch', 0):.3f} s, "
+              f"chunk_wait {ph.get('chunk_wait', 0):.3f} s, host_read "
+              f"{ph.get('host_read', 0):.3f} s, host_mirror "
+              f"{ph.get('host_mirror', 0):.3f} s; host reads a tree "
+              f"{syncs} [{smi}]")
+    else:
+        check(k1 == sum(built) and win == 0 and fin == 0,
+              f"{tag}: K1 launches {k1} != histograms {sum(built)}, or "
+              f"accumulate mode launched ({win}, {fin})")
+        print(f"{tag}: rounds (ms) {', '.join(f'{w:.1f}' for w in walls)}; "
+              f"K1 launches {k1} == histograms; host reads a tree {syncs} "
+              f"[{smi}]")
+    del bst, lr
+    torch.cuda.empty_cache()
+    return out
+
+
+def stream_train_phase(t3: dict, smi: str) -> dict:
+    """T19 (a): T3's training set in host shards of 2^20 rows (the last
+    ragged); each configuration trained resident and streamed in this
+    call, the model texts byte-equal up to ``end of trees``."""
+    import lambdagap_tpu_torch as lgt
+    t0 = time.perf_counter()
+    sds = lgt.ShardedBinnedDataset.from_dataset(t3["train"].construct(),
+                                                STREAM_SHARD_ROWS)
+    print(f"T19 data: T3's {sds.num_data} x {sds.num_features} bins in "
+          f"{sds.num_shards} host shards of {sds.shard_rows} rows (last "
+          f"{sds.shards[-1].shape[0]}), {time.perf_counter() - t0:.1f} s")
+    goss = {"data_sample_strategy": "goss", "learning_rate": 1.0}
+    variants = [("fused gather", {"tree_layout": "gather"}),
+                ("fused sorted", {"tree_layout": "sorted"}),
+                ("serial", {"tpu_fused_learner": "0"}),
+                ("GOSS, compaction on", goss),
+                ("GOSS, compaction off", {**goss,
+                                          "stream_goss_compact": False})]
+    out = {"launches": 0, "runs": {}}
+    resident = {}
+    for what, extra in variants:
+        params = {**t3["params"], **extra}
+        # compaction changes nothing resident: both GOSS runs share a twin
+        key = json.dumps({k: v for k, v in extra.items()
+                          if k != "stream_goss_compact"}, sort_keys=True)
+        if key not in resident:
+            resident[key] = stream_run(
+                {**params, "data_residency": "hbm"}, t3["train"],
+                f"T19(a) [{what}, resident]", smi, False)
+        res = resident[key]
+        st = stream_run(params, lgt.Dataset(sds), f"T19(a) [{what}, "
+                        "streamed]", smi, True)
+        check(st["text"] == res["text"], f"T19(a) [{what}]: the streamed "
+              "model text differs from the resident one")
+        out["launches"] += st["windows"]
+        out["runs"][what] = (res, st)
+        print(f"T19(a) [{what}]: model text byte-equal streamed and "
+              f"resident; median round {res['median']:.1f} -> "
+              f"{st['median']:.1f} ms (resident -> streamed; T3's median "
+              f"round {t3['median_ms']:.1f} ms) [{smi}]")
+    del sds
+    return out
+
+
+def stream_kernel_phase(t3: dict, smi: str) -> dict:
+    """``hist_rows@stream``: K1's accumulate mode over T3's root in
+    windows of 2^20 rows (already on the card: kernel time, no copies),
+    ``torch.equal`` to its plain version and to one resident launch over
+    the same rows; timed beside the resident launch, the plain version
+    and ``index_add_``, with the root's bound."""
+    import torch
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    gb = t3["bst"]._booster
+    bins = gb.learner.x_rows
+    grad, hess = gb.boosting()
+    grad, hess = grad[0].contiguous(), hess[0].contiguous()
+    N, nb = bins.shape[0], 256
+    scale = hc.hist_scale(grad, hess)
+    spans = [(lo, min(lo + STREAM_SHARD_ROWS, N))
+             for lo in range(0, N, STREAM_SHARD_ROWS)]
+    acc = hc.hist_acc(bins.shape[1], nb, bins.device)
+
+    def streamed():
+        for lo, hi in spans:
+            hc.hist_rows_add(acc, bins[lo:hi], grad[lo:hi], hess[lo:hi],
+                             None, hi - lo, nb, scale)
+        return hc.hist_finish(acc, scale)
+
+    def plain():
+        a = hc.hist_acc(bins.shape[1], nb, bins.device)
+        for lo, hi in spans:
+            hc._hist_add_reference(a, bins[lo:hi], grad[lo:hi], hess[lo:hi],
+                                   None, hi - lo, nb, None, None, scale)
+        return hc._hist_finish_reference(a, scale)
+
+    def resident():
+        return hc.hist_rows(bins, grad, hess, None, N, nb, scale=scale)
+
+    got, again, ref, one_ = streamed(), streamed(), plain(), resident()
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "hist_rows@stream: rerun differs")
+    check(torch.equal(got, ref), f"hist_rows@stream != plain: "
+          f"{int((got != ref).sum())} entries differ")
+    check(torch.equal(got, one_), "hist_rows@stream != one resident launch "
+          "over the same rows")
+    s_ms = cuda_ms(streamed)
+    r_ms = cuda_ms(resident)
+    p_ms = cuda_ms(plain, reps=3, warm=1)
+    lib = index_add_call(bins, grad, hess, None, N, nb)
+    l_ms = cuda_ms(lib, reps=5, warm=1)
+    del lib
+    bound, by, nbytes = hist_bound(bins, None, N, nb)
+    print(f"hist_rows@stream == plain == one resident launch [T3's root, "
+          f"{N} x {bins.shape[1]}, {len(spans)} windows of "
+          f"{STREAM_SHARD_ROWS} rows]: streamed root {s_ms:.4f} ms "
+          f"({len(spans)} accumulate launches + 1 finish), resident root "
+          f"{r_ms:.4f} ms, plain {p_ms:.3f} ms, index_add_ {l_ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB) [{smi}]")
+    out = {"ms": s_ms, "resident_ms": r_ms, "plain_ms": p_ms,
+           "library_ms": l_ms, "bound_ms": bound, "bound_by": by,
+           "max_abs_err": float((got.double() - ref.double()).abs().max())}
+    del acc, grad, hess, got, again, ref, one_
+    torch.cuda.empty_cache()
+    return out
+
+
+def predict_stream_phase(t3: dict, smi: str) -> None:
+    """T19 (b)-(c): T3's model scores its 500,000 validation rows out of
+    core — an ndarray at each window size and ring depth (each window one
+    launch of the fused kernel), an ``np.memmap`` into an ``np.memmap``
+    out, a binned ShardedBinnedDataset on T3's bins — each
+    ``array_equal`` to ``Booster.predict``; then ``pred_contrib`` of
+    4,096 rows on kernel S, equal to ``predict(pred_contrib=True)``."""
+    import torch
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.infer import PREDICT_LAUNCHES
+    from lambdagap_tpu_torch.models.shap import TREE_SHAP_LAUNCHES
+    bst, Xva = t3["bst"], t3["Xva"]
+    cfg = bst._booster.config
+    want = bst.predict(Xva, raw_score=True)
+    conv = bst.predict(Xva)
+    for W in STREAM_WINDOWS:
+        for depth in STREAM_DEPTHS:
+            cfg.predict_stream_depth = depth
+            st = {}
+            torch.cuda.synchronize()
+            PREDICT_LAUNCHES.reset()
+            got = bst.predict_stream(Xva, raw_score=True, window_rows=W,
+                                     stats_out=st)
+            launches = PREDICT_LAUNCHES.launches
+            check(np.array_equal(got, want), f"T19(b): predict_stream at "
+                  f"{W} rows, depth {depth} != predict")
+            check(launches == st["windows"], f"T19(b): {launches} fused "
+                  f"launches for {st['windows']} windows")
+            ph = st["phases"]
+            print(f"T19(b) [ndarray, window {W}, depth {depth}]: "
+                  f"{st['rows']} rows in {st['windows']} windows (buckets "
+                  f"{st['buckets']}) == predict, one fused launch a window;"
+                  f" {st['rows_per_s']:.0f} rows/s, wall {st['wall_s']:.3f}"
+                  f" s; h2d_prefetch {ph['h2d_prefetch']:.4f} s, chunk_wait"
+                  f" {ph['chunk_wait']:.4f} s, d2h_scores "
+                  f"{ph['d2h_scores']:.4f} s [{smi}]")
+    cfg.predict_stream_depth = 0
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "t19")
+    os.makedirs(here, exist_ok=True)
+    src = np.memmap(os.path.join(here, "valid.f32"), dtype=np.float32,
+                    mode="w+", shape=Xva.shape)
+    src[:] = Xva
+    src.flush()
+    out = np.memmap(os.path.join(here, "scores.f32"), dtype=np.float32,
+                    mode="w+", shape=(Xva.shape[0],))
+    st = {}
+    bst.predict_stream(src, window_rows=STREAM_WINDOWS[0], out=out,
+                       stats_out=st)
+    check(np.array_equal(np.asarray(out), conv),
+          "T19(b): the memmap source's converted scores != predict")
+    print(f"T19(b) [np.memmap in, np.memmap out, converted]: == predict; "
+          f"{st['rows_per_s']:.0f} rows/s [{smi}]")
+    del src, out
+    sv = lgt.ShardedBinnedDataset.from_dataset(t3["valid"].construct(),
+                                               STREAM_SHARD_ROWS)
+    st = {}
+    got = bst.predict_stream(sv, raw_score=True,
+                             window_rows=STREAM_WINDOWS[0], stats_out=st)
+    check(np.array_equal(got, want),
+          "T19(b): the binned source's scores != predict")
+    print(f"T19(b) [ShardedBinnedDataset on T3's bins, tensor engine]: == "
+          f"predict; {st['rows_per_s']:.0f} rows/s [{smi}]")
+    sub = np.ascontiguousarray(Xva[:STREAM_CONTRIB_ROWS])
+    ref = bst.predict(sub, pred_contrib=True)
+    TREE_SHAP_LAUNCHES.reset()
+    st = {}
+    got = bst.predict_stream(sub, pred_contrib=True, window_rows=1024,
+                             stats_out=st)
+    check(TREE_SHAP_LAUNCHES.launches == st["windows"] == 4,
+          f"T19(c): {TREE_SHAP_LAUNCHES.launches} S calls for "
+          f"{st['windows']} windows")
+    check(np.array_equal(got, ref), "T19(c): streamed pred_contrib != "
+          "predict(pred_contrib=True)")
+    print(f"T19(c) [pred_contrib, {STREAM_CONTRIB_ROWS} rows in windows of "
+          f"1024]: == predict(pred_contrib=True), one S call a window; "
+          f"{st['rows_per_s']:.0f} rows/s [{smi}]")
+
+
+def stream_phases(t3: dict, smi: str) -> dict:
+    t0 = time.perf_counter()
+    t19 = stream_train_phase(t3, smi)
+    t19["kernel"] = stream_kernel_phase(t3, smi)
+    predict_stream_phase(t3, smi)
+    print(f"T19: {time.perf_counter() - t0:.1f} s")
+    return t19
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3698,7 +3995,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("all", "kernels", "rank",
                                        "objectives", "predict", "shap",
                                        "options", "serial", "layout",
-                                       "registry"),
+                                       "registry", "stream"),
                     default="all",
                     help="kernels: phases 1-4 (with the SASS check), T2 and "
                     "T2q; rank: phases 1-2, T8, T2 at 136 features, T9 and "
@@ -3708,8 +4005,8 @@ def main() -> int:
                     "1-3 and T14's kernel S checks; options: phases 1-2, "
                     "T3, T15 and T15b; serial: phases 1-2, T3, T16 and "
                     "T16b; layout: phases 1-2, T3, T8's data and T17; "
-                    "registry: phases 1-3 and T18; each then stops without "
-                    "a result line")
+                    "registry: phases 1-3 and T18; stream: phases 1-2, T3 "
+                    "and T19; each then stops without a result line")
     args = ap.parse_args()
 
     import torch
@@ -3782,6 +4079,13 @@ def main() -> int:
         layout_phases(t3, mslr_data(args), dev, args.seed + 17, smi)
         print(f"chip_smoke: layout phases passed in "
               f"{time.perf_counter() - t_start:.1f} s (--only layout: no "
+              "result)")
+        return 0
+    if args.only == "stream":
+        t3 = train_phase(args, smi)
+        stream_phases(t3, smi)
+        print(f"chip_smoke: stream phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--only stream: no "
               "result)")
         return 0
     if args.only == "objectives":
@@ -3941,6 +4245,9 @@ def main() -> int:
     # -- T8. ranking at MSLR width; T2 at 136 features; T9; T10 -------------
     t8, k1m = rank_phases(args, dev, smi)
 
+    # -- T19. out of core: stream training, predict_stream, pred_contrib ----
+    t19 = stream_phases(t3, smi)
+
     # -- T17. sorted against gather on T3's and T8's Datasets; windows -------
     t17 = layout_phases(t3, t8, dev, args.seed + 17, smi)
     del t8["train"]
@@ -4028,7 +4335,16 @@ def main() -> int:
         for name, src, line, count, w in (
             ("hist_rows", "hist.cu", 79, "k1_window", t17["kernels"]["K1"]),
             ("hist_rows_q", "hist_q.cu", 207, "k2_window",
-             t17["kernels"]["K2"]))] + [t14["shap"]]}))
+             t17["kernels"]["K2"]))] + [{
+        "name": "hist_rows@stream", "route": "cuda",
+        "source": "lambdagap_tpu_torch/csrc/hist.cu",
+        "replaces": "lambdagap_tpu/ops/hist_pallas.py:79",
+        "launches": t19["launches"],
+        "max_abs_err": t19["kernel"]["max_abs_err"],
+        "ms": t19["kernel"]["ms"], "plain_ms": t19["kernel"]["plain_ms"],
+        "bound_ms": t19["kernel"]["bound_ms"],
+        "bound_by": t19["kernel"]["bound_by"],
+        "library_ms": t19["kernel"]["library_ms"]}] + [t14["shap"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -31,18 +31,28 @@ rolls back, dumps its JSON and pickles; ``predict_engine`` is ``compiled``,
 ``tensor`` or ``scan``, all bit-identical. ``LGBMRegressor`` /
 ``LGBMClassifier`` / ``LGBMRanker`` wrap ``train`` for scikit-learn users.
 
+Out of core, the binned matrix stays in host row shards and the learners
+stream windows of it to the card::
+
+    sds = lgt.ShardedBinnedDataset.from_matrix(X, lgt.Config.from_params(
+        {}), shard_rows=1 << 20, label=y)     # or from_sequences([...])
+    bst = lgt.train(params, lgt.Dataset(sds), 100)   # data_residency=auto
+    scores = bst.predict_stream(Xv_memmap, out=out_memmap)
+
 Entry points run on the card unless ``device_type="cpu"`` is passed; the
 CPU runs every kernel's plain PyTorch version. See README.md ("The PyTorch
 port") for what is ported and ROADMAP.md for what is not yet.
 """
-from .basic import Booster, Dataset
+from .basic import Booster, Dataset, Sequence
 from .callback import early_stopping, log_evaluation, record_evaluation
 from .config import Config
+from .data.stream import ShardedBinnedDataset
 from .engine import train
 from .serve import ForestServer
 from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
 
 __all__ = ["Booster", "Config", "Dataset", "ForestServer", "LGBMClassifier",
-           "LGBMModel", "LGBMRanker", "LGBMRegressor", "early_stopping",
+           "LGBMModel", "LGBMRanker", "LGBMRegressor", "Sequence",
+           "ShardedBinnedDataset", "early_stopping",
            "log_evaluation", "record_evaluation", "train"]
 __version__ = "0.2.0"

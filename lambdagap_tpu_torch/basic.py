@@ -13,7 +13,12 @@ model string. Entry points run on the card by default
 (``device_type="cuda"``, raising where there is none);
 ``params={"device_type": "cpu"}`` runs every kernel's plain version on the
 CPU. A scipy sparse matrix is predicted one dense window of 65,536 rows at
-a time. Pandas / Arrow inputs and data files wait for the loader.
+a time. A ``Sequence`` (or a list of them) is binned streamingly
+(``BinnedDataset.from_sequences``), and an already-built
+``ShardedBinnedDataset`` passes through to out-of-core training;
+``Booster.predict_stream`` scores out of core (``infer/stream.py``).
+Pandas / Arrow inputs, scipy sparse training matrices and data files wait
+for the loader.
 """
 from __future__ import annotations
 
@@ -39,6 +44,22 @@ def _is_scipy_sparse(data) -> bool:
     return hasattr(data, "tocsr") and hasattr(data, "nnz")
 
 
+class Sequence:
+    """Row-batch access for streaming Dataset construction (the JAX
+    package's ``Sequence``, ``lambdagap_tpu/basic.py:76``; reference:
+    lightgbm.Sequence): subclass with ``__len__`` and ``__getitem__`` (a
+    row slice -> numpy rows); ``batch_size`` sets how many rows a batch
+    reads. The full float matrix never exists in memory."""
+
+    batch_size = 4096
+
+    def __getitem__(self, idx):
+        raise NotImplementedError("Sequence.__getitem__")
+
+    def __len__(self):
+        raise NotImplementedError("Sequence.__len__")
+
+
 def _refuse_file(data) -> None:
     if isinstance(data, (str, os.PathLike)):
         raise NotImplementedError(
@@ -50,8 +71,10 @@ class Dataset:
     """Training data with lazy construction (reference: basic.py:1744
     Dataset._lazy_init). ``data`` is a dense matrix (float32 and float64
     stay as they are — binning reads them exactly — other types convert to
-    float64 as the JAX package converts them) or an already-binned
-    ``BinnedDataset``."""
+    float64 as the JAX package converts them), a ``Sequence`` or a list of
+    them (binned streamingly: boundaries from a sketch over every row), or
+    an already-binned ``BinnedDataset`` — a ``ShardedBinnedDataset`` among
+    them, which trains out of core."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, group=None, init_score=None,
@@ -75,18 +98,32 @@ class Dataset:
         if self._constructed is not None:
             return self._constructed
         if isinstance(self.data, BinnedDataset):
-            # an already-binned dataset (convert.dataset_from_numpy) passes
-            # through as it is
+            # an already-binned dataset (convert.dataset_from_numpy, a
+            # streamingly built ShardedBinnedDataset) passes through as it
+            # is, taking the label, weight and groups it lacks
             self._constructed = self.data
             md = self._constructed.metadata
+            if self.label is not None and md.label is None:
+                md.label = np.asarray(self.label, np.float32).reshape(-1)
+            if self.weight is not None and md.weight is None:
+                md.weight = np.asarray(self.weight, np.float32).reshape(-1)
             if self.group is not None and md.query_boundaries is None:
                 md.set_group(np.asarray(self.group))
             md.check(self._constructed.num_data)
             return self._constructed
         cfg = config or Config.from_params(self.params)
-        mat = np.asarray(self.data)
-        if mat.dtype not in (np.float32, np.float64):
-            mat = mat.astype(np.float64)
+        if _is_scipy_sparse(self.data):
+            raise NotImplementedError(
+                "a scipy sparse training matrix (its row-batch reader, "
+                "_CSRSequence) is not ported to lambdagap_tpu_torch yet "
+                "(ROADMAP.md, Queue 1: the loader); pass a dense matrix or "
+                "a Sequence")
+        seqs = None
+        if isinstance(self.data, Sequence):
+            seqs = [self.data]
+        elif (isinstance(self.data, list) and self.data
+              and all(isinstance(q, Sequence) for q in self.data)):
+            seqs = self.data
         names = ([str(n) for n in self.feature_name]
                  if isinstance(self.feature_name, (list, tuple)) else None)
         categorical: List[int] = []
@@ -98,6 +135,17 @@ class Dataset:
                     categorical.append(int(c))
         ref = (self.reference.construct(config)
                if self.reference is not None else None)
+        if seqs is not None:
+            self._constructed = BinnedDataset.from_sequences(
+                seqs, cfg, label=self.label, weight=self.weight,
+                group=self.group, init_score=self.init_score,
+                position=self.position, categorical_features=categorical,
+                feature_names=names, reference=ref)
+            self.data = None
+            return self._constructed
+        mat = np.asarray(self.data)
+        if mat.dtype not in (np.float32, np.float64):
+            mat = mat.astype(np.float64)
         self._constructed = BinnedDataset.from_matrix(
             mat, cfg, label=self.label, weight=self.weight,
             init_score=self.init_score, group=self.group,
@@ -300,6 +348,30 @@ class Booster:
         return self._booster.predict(mat, raw_score=raw_score,
                                      start_iteration=start_iteration,
                                      num_iteration=num_iteration)
+
+    def predict_stream(self, data, raw_score: bool = False,
+                       start_iteration: int = 0, num_iteration: int = -1,
+                       pred_contrib: bool = False, window_rows: int = 0,
+                       out: Optional[np.ndarray] = None, signal_source=None,
+                       stats_out: Optional[Dict[str, Any]] = None
+                       ) -> np.ndarray:
+        """Out-of-core batch scoring (``infer/stream.py``; the JAX
+        package's ``Booster.predict_stream``): ``data`` is a dense matrix,
+        an ``np.memmap`` or a ``ShardedBinnedDataset`` built with
+        ``reference=`` this model's training set. Scores are bit-equal to
+        :meth:`predict`; ``out`` (e.g. an ``np.memmap``) receives the rows
+        in place; ``signal_source`` arms the co-tenant throttle;
+        ``stats_out`` receives the run report. A data file raises until
+        the loader is ported."""
+        from .data.stream import ShardedBinnedDataset
+        if not isinstance(data, (np.ndarray, ShardedBinnedDataset,
+                                 str, os.PathLike)):
+            data = _to_matrix(data)
+        return self._booster.predict_stream(
+            data, start_iteration=start_iteration,
+            num_iteration=num_iteration, raw_score=raw_score,
+            pred_contrib=pred_contrib, window_rows=window_rows, out=out,
+            signal_source=signal_source, stats_out=stats_out)
 
     def save_model(self, filename: str, num_iteration: Optional[int] = None,
                    start_iteration: int = 0,

@@ -74,6 +74,17 @@
 //    on one stream never interleave them;
 //  - the dynamic shared-memory limit is raised once per device
 //    (lg_hist_setup), not on every launch.
+//
+// Accumulate mode (data_residency=stream): a streamed histogram spans
+// many windows of rows uploaded one after another. Rounding each window's
+// sums to f32 and adding those would make the result depend on the
+// windows, so lg_hist_rows_add adds a window's fixed-point sums into an
+// int64 accumulator the caller holds (not the per-stream workspace:
+// another histogram queued on the stream between two windows would land
+// in it), and lg_hist_finish rounds the total to f32 once. The scale is
+// the tree's own, from all N rows, so the no-overflow argument above
+// covers the windows together: the sum of any windows holds at most N
+// rows' values. The result is bit-equal to one launch over the same rows.
 
 #include "hist_common.cuh"
 
@@ -359,11 +370,50 @@ extern "C" int lg_hist_occupancy(int bin_bytes, int f_tile,
 // bins: u8/u16 [N, F] row-major; grad, hess: f32 [N]; mask: u8 [N] or null
 // (every row in the bag); rows: int32 [P] or null (P = N: a window, position
 // p is row offset + p); offset_ptr: one int32 on the device or null (0),
-// position p reads rows[offset + p] (or row offset + p); count: *count_ptr when non-null, else count_const;
-// scale_ptr: int32 [2] on the device, the fixed-point exponents (k_g, k_h);
-// acc: int64 [F, num_bins, 3] workspace, all zero on entry and left all
-// zero; out: f32 [F, num_bins, 3]. Returns 0 on success, -1 for an
-// unsupported bin width, otherwise the cudaError_t of the launches.
+// position p reads rows[offset + p] (or row offset + p); count: *count_ptr
+// when non-null, else count_const; scale_ptr: int32 [2] on the device, the
+// fixed-point exponents (k_g, k_h); acc: int64 [F, num_bins, 3]. Adds the
+// positions' fixed-point sums into acc (one launch). Returns 0 on success,
+// -1 for an unsupported bin width, otherwise the cudaError_t of the launch.
+extern "C" int lg_hist_rows_add(const void* bins, int bin_bytes, int64_t F,
+                                const float* grad, const float* hess,
+                                const uint8_t* mask, const int32_t* rows,
+                                const int32_t* offset_ptr, int64_t P,
+                                const int32_t* count_ptr,
+                                int64_t count_const,
+                                const int32_t* scale_ptr, int num_bins,
+                                int nblk, int f_tile, int min_rows,
+                                long long* acc, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ull* a = reinterpret_cast<ull*>(acc);
+  if (bin_bytes == 1)
+    return launch<uint8_t>(bins, F, grad, hess, mask, rows, offset_ptr, P,
+                           count_ptr, count_const, scale_ptr, num_bins, nblk,
+                           f_tile, min_rows, a, s);
+  if (bin_bytes == 2)
+    return launch<uint16_t>(bins, F, grad, hess, mask, rows, offset_ptr, P,
+                            count_ptr, count_const, scale_ptr, num_bins,
+                            nblk, f_tile, min_rows, a, s);
+  return -1;
+}
+
+// out: f32 [total] = float(double(acc) * 2^-k of its channel), total =
+// F * num_bins * 3; acc is left all zero. Returns the cudaError_t of the
+// launch.
+extern "C" int lg_hist_finish(long long* acc, int64_t total,
+                              const int32_t* scale_ptr, float* out,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t want = (total + 255) / 256;
+  const unsigned blocks = (unsigned)(want < 264 ? want : 264);
+  hist_finish_kernel<<<blocks, 256, 0, s>>>(reinterpret_cast<ull*>(acc),
+                                            total, scale_ptr, out);
+  return (int)cudaGetLastError();
+}
+
+// One histogram in one call: lg_hist_rows_add into acc (all zero on
+// entry), then lg_hist_finish, which leaves it all zero again; out: f32
+// [F, num_bins, 3].
 extern "C" int lg_hist_rows(const void* bins, int bin_bytes, int64_t F,
                             const float* grad, const float* hess,
                             const uint8_t* mask, const int32_t* rows,
@@ -372,24 +422,11 @@ extern "C" int lg_hist_rows(const void* bins, int bin_bytes, int64_t F,
                             const int32_t* scale_ptr, int num_bins, int nblk,
                             int f_tile, int min_rows, long long* acc,
                             float* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ull* a = reinterpret_cast<ull*>(acc);
-  int rc;
-  if (bin_bytes == 1) {
-    rc = launch<uint8_t>(bins, F, grad, hess, mask, rows, offset_ptr, P,
-                         count_ptr, count_const, scale_ptr, num_bins, nblk,
-                         f_tile, min_rows, a, s);
-  } else if (bin_bytes == 2) {
-    rc = launch<uint16_t>(bins, F, grad, hess, mask, rows, offset_ptr, P,
-                          count_ptr, count_const, scale_ptr, num_bins, nblk,
-                          f_tile, min_rows, a, s);
-  } else {
-    return -1;
-  }
+  const int rc = lg_hist_rows_add(bins, bin_bytes, F, grad, hess, mask, rows,
+                                  offset_ptr, P, count_ptr, count_const,
+                                  scale_ptr, num_bins, nblk, f_tile,
+                                  min_rows, acc, stream);
   if (rc != 0) return rc;
-  const int64_t total = F * (int64_t)num_bins * 3;
-  const int64_t want = (total + 255) / 256;
-  const unsigned blocks = (unsigned)(want < 264 ? want : 264);
-  hist_finish_kernel<<<blocks, 256, 0, s>>>(a, total, scale_ptr, out);
-  return (int)cudaGetLastError();
+  return lg_hist_finish(acc, F * (int64_t)num_bins * 3, scale_ptr, out,
+                        stream);
 }

@@ -9,7 +9,9 @@ categorical bins sorted by count.
 Host-side numpy, arithmetic unchanged, so bin boundaries equal the JAX
 package's exactly. The binned matrix is uploaded to the device by the
 learner; see :mod:`lambdagap_tpu_torch.data.dataset`. The streaming
-``QuantileSketch`` waits for the slice that ports streamed construction.
+:class:`QuantileSketch` (the JAX package's, :426) finds the same boundaries
+from row batches, exact below its budget and compacted above it with the
+same float64 numpy steps.
 """
 from __future__ import annotations
 
@@ -424,3 +426,116 @@ def _distinct_with_counts(sorted_vals: np.ndarray):
         return np.empty(0), np.empty(0, dtype=np.int64)
     distinct, counts = np.unique(sorted_vals, return_counts=True)
     return distinct, counts.astype(np.int64)
+
+
+class QuantileSketch:
+    """Bounded-memory incremental (distinct value, count) sketch for one
+    feature, feeding :meth:`BinMapper.find_bin_distinct`.
+
+    The streaming construction path (``BinnedDataset.from_sequences``,
+    ``ShardedBinnedDataset``) pushes row batches through one sketch per
+    feature, so bin boundaries are found without ever materializing the
+    raw float matrix ("Out-of-Core GPU Gradient Boosting",
+    arXiv:2005.09148 §3.1; GK-style summaries). Every step is the JAX
+    package's (``lambdagap_tpu/data/binning.py:426-561``), so the distinct
+    values, counts and mappers are equal to its own.
+
+    Exact while the number of distinct non-zero values stays within
+    ``budget`` (the common case for binned-feature workloads: the greedy
+    boundary search only ever wants ~8*max_bin groups). Beyond the budget,
+    adjacent distinct values merge into equal-count groups represented by
+    their largest member (:func:`_compress_distinct` — the same compaction
+    the in-memory path applies before its boundary search), so boundaries
+    shift by less than one group's count — a GK-flavored rank-error bound
+    of ~total/budget per boundary.
+    """
+
+    __slots__ = ("budget", "distinct", "counts", "na_cnt", "total",
+                 "_pend", "_pend_n")
+
+    def __init__(self, budget: int = 65536) -> None:
+        self.budget = max(int(budget), 256)
+        self.distinct = np.empty(0, np.float64)
+        self.counts = np.empty(0, np.int64)
+        self.na_cnt = 0
+        self.total = 0
+        self._pend: list = []
+        self._pend_n = 0
+
+    def push(self, values: np.ndarray) -> None:
+        """Absorb one row-block's raw column (zeros included — like the
+        sparse find_bin convention they are inferred from ``total`` rather
+        than stored)."""
+        v = np.asarray(values, np.float64).ravel()
+        self.total += len(v)
+        nan_mask = np.isnan(v)
+        self.na_cnt += int(nan_mask.sum())
+        # same non-zero convention as BinnedDataset._find_bins: exact 0.0
+        # is inferred, near-zeros are kept (K_ZERO_THRESHOLD banding
+        # happens inside the boundary search)
+        nz = v[~nan_mask]
+        nz = nz[nz != 0.0]
+        if nz.size:
+            self._pend.append(nz)
+            self._pend_n += nz.size
+        if self._pend_n >= self.budget * 4:
+            self._merge_pending()
+
+    def _absorb(self, distinct: np.ndarray, counts: np.ndarray) -> None:
+        """Union-merge an aggregated (distinct, counts) pair into this
+        sketch, compacting past the budget — the shared reduction step of
+        the pending-buffer flush and :meth:`merge`."""
+        d = np.concatenate([self.distinct, distinct])
+        c = np.concatenate([self.counts, counts])
+        order = np.argsort(d, kind="mergesort")
+        d, c = d[order], c[order]
+        du, inverse = np.unique(d, return_inverse=True)
+        cu = np.zeros(len(du), np.int64)
+        np.add.at(cu, inverse, c)
+        if len(du) > self.budget:
+            du, cu = _compress_distinct(du, cu, self.budget)
+        self.distinct, self.counts = du, cu
+
+    def _merge_pending(self) -> None:
+        if not self._pend:
+            return
+        pend, pcnt = _distinct_with_counts(
+            np.sort(np.concatenate([np.asarray(v, np.float64).ravel()
+                                    for v in self._pend])))
+        self._pend = []
+        self._pend_n = 0
+        self._absorb(pend, pcnt)
+
+    def merge(self, other: "QuantileSketch") -> "QuantileSketch":
+        """Absorb ``other`` (the psum-style sketch reduction): after the
+        merge this sketch summarizes the union of both input streams.
+
+        Exact when the union's distinct count fits the budget, so merging
+        per-shard sketches equals one sketch over all rows — which is why
+        sharded dataset construction (one sketch set per row shard, merged,
+        boundaries broadcast) bins identically to single-host construction
+        ("XGBoost: Scalable GPU Accelerated Learning", arXiv:1806.11248
+        §5 — only summaries cross the interconnect). Merge order must be
+        deterministic (rank order) so every host derives identical
+        boundaries once compaction kicks in.
+        """
+        other._merge_pending()
+        self._merge_pending()
+        self._absorb(other.distinct, other.counts)
+        self.na_cnt += other.na_cnt
+        self.total += other.total
+        return self
+
+    def to_mapper(self, max_bin: int, min_data_in_bin: int,
+                  bin_type: str = BIN_NUMERICAL, use_missing: bool = True,
+                  zero_as_missing: bool = False,
+                  forced_bounds: Sequence[float] = ()) -> BinMapper:
+        """Finalize into a BinMapper over everything pushed so far."""
+        self._merge_pending()
+        return BinMapper.find_bin_distinct(
+            self.distinct, self.counts,
+            nonzero_cnt=int(self.counts.sum()),
+            na_cnt=self.na_cnt, total_sample_cnt=self.total,
+            max_bin=max_bin, min_data_in_bin=min_data_in_bin,
+            bin_type=bin_type, use_missing=use_missing,
+            zero_as_missing=zero_as_missing, forced_bounds=forced_bounds)

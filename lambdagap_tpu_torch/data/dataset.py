@@ -11,8 +11,13 @@ matrix stays on the host here; the learner uploads it to its device once.
 The EFB bundled matrix is built on demand
 (:meth:`BinnedDataset.ensure_bundle`), as the JAX package builds it. The
 metadata carries query groups (as boundaries) and per-row positions for
-the ranking objectives and metrics. Streamed construction and the
-linear-tree raw matrix wait for later slices.
+the ranking objectives and metrics. Streamed construction
+(:meth:`BinnedDataset.from_sequences`) finds the boundaries over every row
+with one ``QuantileSketch`` per feature and pushes row batches straight
+into the binned matrix, as the JAX package does
+(``lambdagap_tpu/data/dataset.py:110-129,227-300``); the host-sharded
+``ShardedBinnedDataset`` is in :mod:`lambdagap_tpu_torch.data.stream`. The
+linear-tree raw matrix waits for a later slice.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import numpy as np
 from ..config import Config
 from ..utils import log
 from .binning import (BIN_CATEGORICAL, BIN_NUMERICAL, MISSING_NAN,
-                      MISSING_NONE, MISSING_ZERO, BinMapper)
+                      MISSING_NONE, MISSING_ZERO, BinMapper, QuantileSketch)
 
 MISSING_CODES = {MISSING_NONE: 0, MISSING_ZERO: 1, MISSING_NAN: 2}
 
@@ -101,6 +106,53 @@ def _load_forced_bounds(config: Config) -> Dict[int, List[float]]:
     return forced
 
 
+def _finish_bins(ds: "BinnedDataset") -> None:
+    """used_features, feature_num_bins and bin_offsets from freshly built
+    mappers (``lambdagap_tpu/data/dataset.py:93-107``)."""
+    ds.used_features = [j for j, m in enumerate(ds.mappers)
+                        if not m.is_trivial]
+    if not ds.used_features:
+        log.fatal("Cannot construct Dataset: all features are trivial "
+                  "(constant); check your input data")
+    ds.feature_num_bins = [ds.mappers[j].num_bin for j in ds.used_features]
+    ds.bin_offsets = [int(v) for v in np.concatenate(
+        [[0], np.cumsum(ds.feature_num_bins)[:-1]])]
+
+
+def _mappers_from_sketches(ds: "BinnedDataset", sketches, config: Config,
+                           categorical: set) -> None:
+    """Per-feature BinMappers from incremental quantile sketches, the
+    streaming analog of ``_find_bins`` (``lambdagap_tpu/data/dataset.py:
+    110-129``): boundaries over every row pushed, no row sample."""
+    forced = _load_forced_bounds(config)
+    ds.mappers = []
+    for j, sk in enumerate(sketches):
+        ds.mappers.append(sk.to_mapper(
+            max_bin=(config.max_bin_by_feature[j]
+                     if j < len(config.max_bin_by_feature)
+                     else config.max_bin),
+            min_data_in_bin=config.min_data_in_bin,
+            bin_type=(BIN_CATEGORICAL if j in categorical
+                      else BIN_NUMERICAL),
+            use_missing=config.use_missing,
+            zero_as_missing=config.zero_as_missing,
+            forced_bounds=forced.get(j, ())))
+    _finish_bins(ds)
+
+
+def bin_dtype(feature_num_bins) -> type:
+    """u8 bins while every feature has at most 256, else u16."""
+    return np.uint8 if max(feature_num_bins, default=2) <= 256 \
+        else np.uint16
+
+
+def _batches(seq, length: int, default: int):
+    """``seq``'s rows as float64 blocks of its ``batch_size`` rows."""
+    bs = max(int(getattr(seq, "batch_size", default)), 1)
+    for lo in range(0, length, bs):
+        yield lo, np.asarray(seq[lo:min(lo + bs, length)], np.float64)
+
+
 class BinnedDataset:
     """The constructed, immutable training matrix
     (reference analog: Dataset after ``Construct``, src/io/dataset.cpp).
@@ -152,15 +204,76 @@ class BinnedDataset:
                             [f"Column_{i}"
                              for i in range(ds.num_total_features)])
         if reference is not None:
-            # (reference: Dataset::CreateValid, src/io/dataset.cpp)
-            for k in ("mappers", "used_features", "feature_num_bins",
-                      "bin_offsets", "feature_names",
-                      "max_bin"):
-                setattr(ds, k, getattr(reference, k))
+            ds._adopt_reference(reference)
         else:
             ds._find_bins(data, config, set(categorical_features))
         ds._push_data(data)
-        md = ds.metadata
+        ds._attach_metadata(label, weight, group, init_score, position)
+        return ds
+
+    @classmethod
+    def from_sequences(cls, seqs, config: Config, label=None, weight=None,
+                       group=None, init_score=None, position=None,
+                       categorical_features: Sequence[int] = (),
+                       feature_names: Optional[Sequence[str]] = None,
+                       reference: Optional["BinnedDataset"] = None
+                       ) -> "BinnedDataset":
+        """Streaming construction from row-batch readers (``Sequence``s;
+        ``lambdagap_tpu/data/dataset.py:227-300``): one sketch pass over
+        every row finds the bin boundaries, a second pass pushes each batch
+        straight into the binned matrix, so the float matrix never exists
+        whole (reference: dataset.h:593 PushOneRow)."""
+        lens = [len(s) for s in seqs]
+        total = int(sum(lens))
+        if total == 0:
+            log.fatal("Cannot construct Dataset from empty sequences")
+        F = np.asarray(seqs[0][0:1], dtype=np.float64).shape[1]
+        ds = cls()
+        ds.num_data, ds.num_total_features = total, F
+        ds.max_bin = config.max_bin
+        ds.feature_names = (list(feature_names) if feature_names
+                            else [f"Column_{i}" for i in range(F)])
+        if reference is not None:
+            ds._adopt_reference(reference)
+        else:
+            sketches = [QuantileSketch(budget=config.stream_sketch_budget)
+                        for _ in range(F)]
+            for s, ln in zip(seqs, lens):
+                for _, blk in _batches(s, ln, 4096):
+                    for j in range(F):
+                        sketches[j].push(blk[:, j])
+            _mappers_from_sketches(ds, sketches, config,
+                                   set(categorical_features))
+        binned = np.empty((total, len(ds.used_features)),
+                          bin_dtype(ds.feature_num_bins))
+        row0 = 0
+        for s, ln in zip(seqs, lens):
+            for lo, blk in _batches(s, ln, 4096):
+                binned[row0 + lo:row0 + lo + len(blk)] = ds._bin_block(blk)
+            row0 += ln
+        ds.binned = binned
+        ds._attach_metadata(label, weight, group, init_score, position)
+        return ds
+
+    def _adopt_reference(self, reference: "BinnedDataset") -> None:
+        """A validation set's bins: the training set's mappers
+        (reference: Dataset::CreateValid, src/io/dataset.cpp)."""
+        for k in ("mappers", "used_features", "feature_num_bins",
+                  "bin_offsets", "feature_names", "max_bin"):
+            setattr(self, k, getattr(reference, k))
+
+    def _bin_block(self, blk: np.ndarray) -> np.ndarray:
+        """A float row block ``[n, num_total_features]`` binned to the
+        used features' columns."""
+        out = np.empty((blk.shape[0], len(self.used_features)),
+                       bin_dtype(self.feature_num_bins))
+        for k, j in enumerate(self.used_features):
+            out[:, k] = self.mappers[j].values_to_bins(blk[:, j])
+        return out
+
+    def _attach_metadata(self, label, weight, group, init_score,
+                         position) -> None:
+        md = self.metadata
         if label is not None:
             md.label = np.asarray(label, dtype=np.float32).reshape(-1)
         if weight is not None:
@@ -171,8 +284,7 @@ class BinnedDataset:
         if position is not None:
             md.position = np.asarray(position, dtype=np.int32).reshape(-1)
         md.set_group(group)
-        md.check(ds.num_data)
-        return ds
+        md.check(self.num_data)
 
     def _find_bins(self, data: np.ndarray, config: Config,
                    categorical: set) -> None:
@@ -204,21 +316,12 @@ class BinnedDataset:
                 use_missing=config.use_missing,
                 zero_as_missing=config.zero_as_missing,
                 forced_bounds=forced.get(j, ())))
-        self.used_features = [j for j, m in enumerate(self.mappers)
-                              if not m.is_trivial]
-        if not self.used_features:
-            log.fatal("Cannot construct Dataset: all features are trivial "
-                      "(constant); check your input data")
-        self.feature_num_bins = [self.mappers[j].num_bin
-                                 for j in self.used_features]
-        self.bin_offsets = [int(v) for v in np.concatenate(
-            [[0], np.cumsum(self.feature_num_bins)[:-1]])]
+        _finish_bins(self)
 
     def _push_data(self, data: np.ndarray) -> None:
         """Bin every row, one used feature (column) at a time."""
-        dtype = (np.uint8 if max(self.feature_num_bins, default=2) <= 256
-                 else np.uint16)
-        binned = np.empty((self.num_data, len(self.used_features)), dtype)
+        binned = np.empty((self.num_data, len(self.used_features)),
+                          bin_dtype(self.feature_num_bins))
         for k, j in enumerate(self.used_features):
             binned[:, k] = self.mappers[j].values_to_bins(data[:, j])
         self.binned = binned

@@ -72,10 +72,21 @@ port keeps the algorithm and the device residency, not the loop form:
   too, so ``row_leaf`` and the leaf renewal read through it as under
   gather, and the trees equal gather's bit for bit.
 
+* ``data_residency=stream`` (``lambdagap_tpu/models/fused_learner.py:
+  1588-2215``): the binned matrix stays in host shards and the layout is
+  ``ops/partition.StreamRows``; the loop is the one above. The split
+  column is gathered on the host and uploaded, the go-left flags come
+  back once a split (the learner's second host read of a step: the
+  smaller child's span and the host mirror need them), and every
+  histogram is a loop of uploaded windows into K1's accumulate mode, so
+  the trees equal resident training's. As in the JAX package, quantized
+  gradients, forced splits, interaction constraints, extra_trees, by-node
+  sampling, monotone constraints and ``feature_contri`` fall back to
+  ``hbm`` with its warning (K2 is never streamed), and EFB is not formed.
+
 CEGB and ``monotone_constraints_method=advanced`` train on the host-driven
 ``SerialTreeLearner`` (``models/learner.py``), where the booster routes
-them; streaming is refused where the booster is built
-(``models/gbdt.py``).
+them.
 """
 from __future__ import annotations
 
@@ -166,6 +177,35 @@ class FusedTreeLearner(SerialTreeLearner):
                                        LI_PARENT, LI_IS_LEFT, LI_THR,
                                        LI_CAT], device=device)
 
+    def _stream_blockers(self, config: Config) -> List[str]:
+        """Options the stream mode does not carry, from the config alone
+        (JAX ``fused_learner.py:1606-1625``): training falls back to hbm
+        with a warning."""
+        blockers = []
+        if config.use_quantized_grad:
+            blockers.append("use_quantized_grad")
+        if config.forcedsplits_filename:
+            blockers.append("forcedsplits_filename")
+        if config.interaction_constraints:
+            blockers.append("interaction_constraints")
+        if config.extra_trees:
+            blockers.append("extra_trees")
+        if config.feature_fraction_bynode < 1.0:
+            blockers.append("feature_fraction_bynode")
+        if config.monotone_constraints and any(
+                int(m) != 0 for m in config.monotone_constraints):
+            blockers.append("monotone_constraints")
+        if config.feature_contri:
+            blockers.append("feature_contri")
+        return blockers
+
+    def _estimate_residency_bytes(self) -> int:
+        """The JAX fused learner's estimate (``fused_learner.py:
+        1627-1634``): the packed rows with their channels, twice (the
+        layout's second copy)."""
+        item = 1 if int(self.meta_host["num_bins"].max()) <= 256 else 2
+        return 2 * self.num_data * (self.num_features * item + 9)
+
     def _upload_matrix(self) -> None:
         """The binned matrix on the device, row-major, bundled when EFB
         forms a bundle (the JAX learner, fused_learner.py:91-114: histograms
@@ -242,7 +282,8 @@ class FusedTreeLearner(SerialTreeLearner):
         cfg = self.config
         dev = self.device
         N, L, F = self.num_data, cfg.num_leaves, self.num_features
-        C, Bb = self.x_rows.shape[1], self.Bb
+        C = F if self.x_rows is None else self.x_rows.shape[1]
+        Bb = self.Bb
         NODES = max(L - 1, 1)
         p = self.params
         meta = self.meta_host
@@ -642,7 +683,7 @@ class FusedTreeLearner(SerialTreeLearner):
                     grad, hess, perm, leaf_f, leaf_i, node_f, num_leaves,
                     leaf_value)
             syncs += 1
-        self.host_syncs = syncs
+        self.host_syncs = syncs + lay.reads
         self.phase_ms = timer.totals_ms()
         return DeviceTree(
             node_feature=node_i[:, 0], node_threshold=node_i[:, 1],

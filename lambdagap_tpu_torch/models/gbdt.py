@@ -186,7 +186,7 @@ def _refuse_unported(cfg: Config) -> None:
     """Raise NotImplementedError, naming the knob, for every training option
     the port does not carry yet and for a non-default value of every knob
     of a layer it does not carry (telemetry, profiling, fault injection,
-    spilled streams, meshes): none is ignored silently. The serve knobs
+    meshes): none is ignored silently. The serve knobs
     refuse in ``Booster.as_server``."""
     def no(knob: str, where: str = _ROADMAP) -> None:
         raise NotImplementedError(
@@ -196,8 +196,6 @@ def _refuse_unported(cfg: Config) -> None:
         no(f"boosting={cfg.boosting}")
     if cfg.tree_learner != "serial":
         no(f"tree_learner={cfg.tree_learner}")
-    if cfg.data_residency == "stream":
-        no("data_residency=stream")
     if cfg.linear_tree:
         no("linear_tree")
     if cfg.snapshot_freq > 0:
@@ -213,8 +211,6 @@ def _refuse_unported(cfg: Config) -> None:
         no("telemetry_out (the JSONL run log)")
     if cfg.profile_start_iter >= 0:
         no("profile_start_iter (the profiler window)")
-    if cfg.stream_spill_dir:
-        no("stream_spill_dir")
     if cfg.mesh_shape:
         no("mesh_shape")
 
@@ -797,6 +793,27 @@ class GBDT:
             return phi[:, 0]
         return phi.reshape(N, K * (F_data + 1))
 
+    def predict_stream(self, data, start_iteration: int = 0,
+                       num_iteration: int = -1, raw_score: bool = False,
+                       pred_contrib: bool = False, window_rows: int = 0,
+                       out: Optional[np.ndarray] = None, signal_source=None,
+                       throttle=None, stats_out: Optional[dict] = None
+                       ) -> np.ndarray:
+        """Out-of-core batch scoring (``infer/stream.py``): row windows of a
+        matrix, an ``np.memmap`` or a ``ShardedBinnedDataset`` go up
+        through the H2D ring to the configured engine and the scores come
+        back through the D2H ring, equal to :meth:`predict_raw` /
+        :meth:`predict` bit for bit; ``out`` takes the rows in place;
+        ``signal_source`` / ``throttle`` arm the co-tenant throttle;
+        ``stats_out`` receives the run report."""
+        from ..infer.stream import predict_stream as _predict_stream
+        return _predict_stream(
+            self, data, start_iteration=start_iteration,
+            num_iteration=num_iteration, raw_score=raw_score,
+            pred_contrib=pred_contrib, window_rows=window_rows, out=out,
+            signal_source=signal_source, throttle=throttle,
+            stats_out=stats_out)
+
     def predict(self, data: np.ndarray, raw_score: bool = False,
                 start_iteration: int = 0, num_iteration: int = -1
                 ) -> np.ndarray:
@@ -889,9 +906,18 @@ class GBDT:
         self._refuse_linear(last)
         if self.train_set is not None:
             lr = self.learner
-            x_train = (lr.x_rows if lr.bundle is None else
-                       torch.from_numpy(np.ascontiguousarray(
-                           self.train_set.binned)).to(self.device))
+            if lr.sdata is not None:
+                # out of core: the host shards a window at a time
+                sd = lr.sdata
+                x_train = [(lo, torch.from_numpy(sd.row_block(
+                    lo, min(lo + sd.shard_rows, sd.num_data))).to(
+                        self.device))
+                    for lo in range(0, sd.num_data, sd.shard_rows)]
+            elif lr.bundle is None:
+                x_train = [(0, lr.x_rows)]
+            else:
+                x_train = [(0, torch.from_numpy(np.ascontiguousarray(
+                    self.train_set.binned)).to(self.device))]
             for k, i in enumerate(last):
                 tree = self.models[i]
                 arrs = tree_to_arrays(tree, feature_meta=lr.meta_host,
@@ -899,7 +925,9 @@ class GBDT:
                 arrs = arrs._replace(leaf_value=-arrs.leaf_value)
                 t = to_device_arrays(arrs, self.device)
                 depth = _round_depth(tree.max_depth + 1)
-                self.scores[k] += predict_tree_binned(x_train, t, depth)
+                for lo, xw in x_train:
+                    self.scores[k, lo:lo + xw.shape[0]] += \
+                        predict_tree_binned(xw, t, depth)
                 for vi in range(len(self.valid_sets)):
                     self.valid_scores[vi][k] += predict_tree_binned(
                         self.valid_binned[vi], t, depth)

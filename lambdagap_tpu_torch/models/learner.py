@@ -60,6 +60,16 @@ of rows that paid each feature's cost.
   permutation; a split marks its parent's in-bag rows, the last split of
   a tree included.
 
+* ``data_residency`` resolves as in the JAX package
+  (``lambdagap_tpu/models/learner.py:248-311``): ``stream`` (or ``auto``
+  with a ``ShardedBinnedDataset``, or ``auto`` above
+  ``stream_hbm_budget_mb``) keeps the binned matrix in host shards and
+  trains through ``ops/partition.StreamRows`` (every histogram a loop of
+  uploaded windows into K1's accumulate mode, the split column gathered
+  on the host, the go-left flags read back once a split), both layouts,
+  with the same trees as resident training; options a learner's stream
+  mode does not carry fall back to ``hbm`` with the JAX warning.
+
 ``host_syncs`` and ``hist_builds`` count the last tree's host reads and
 histograms, as the fused learner's do.
 """
@@ -76,7 +86,8 @@ from ..config import Config
 from ..data.dataset import BinnedDataset
 from ..ops.hist_cuda import hist_scale
 from ..ops.histogram import leaf_histogram, subtract_histogram
-from ..ops.partition import GatherRows, SortedRows, decision_go_left
+from ..ops.partition import (GatherRows, SortedRows, StreamRows,
+                             decision_go_left)
 from ..ops.split import (CAT_WORDS, SplitParams, best_split,
                          calculate_leaf_output, gather_threshold_split,
                          monotone_split_penalty)
@@ -392,12 +403,26 @@ class SerialTreeLearner:
         self.layout = self._resolve_layout(config)
         self._col_rng = np.random.RandomState(config.feature_fraction_seed)
         self._init_options(dataset, config)
-        self._upload_matrix()
-        # the layout's second copy of the rows: column-major for the gather
-        # partition, or leaf-ordered copies rebuilt each tree (then no
-        # column-major copy, JAX fused_learner.py:233-245)
-        self.row_layout = (SortedRows if self.layout == "sorted"
-                           else GatherRows)(self.x_rows)
+        self.residency = self._resolve_residency(config)
+        if self.residency == "stream":
+            # the binned matrix stays in host shards (JAX learner.py:95-104)
+            from ..data.stream import as_sharded
+            self.sdata = as_sharded(dataset, config)
+            self.bundle = None
+            self.Bb = self.B
+            self.x_rows = None
+            self.row_layout = StreamRows(
+                self.sdata, device, self.layout,
+                config.stream_prefetch_depth, self.sdata.shard_rows,
+                config.stream_goss_compact)
+        else:
+            self.sdata = None
+            self._upload_matrix()
+            # the layout's second copy of the rows: column-major for the
+            # gather partition, or leaf-ordered copies rebuilt each tree
+            # (then no column-major copy, JAX fused_learner.py:233-245)
+            self.row_layout = (SortedRows if self.layout == "sorted"
+                               else GatherRows)(self.x_rows)
         # the serial learner's state: extra_trees' numpy stream, CEGB, the
         # last tree's partition (for the score update and the L1 refit)
         self._extra_rng = np.random.RandomState(config.extra_seed)
@@ -464,8 +489,9 @@ class SerialTreeLearner:
         column-major copy; sorted: the leaf-ordered copies, their channels
         and the partition's scratch, as made so far) and lazy CEGB's
         paid-row mask; per-tree state is counted by the caller."""
-        return (self.x_rows.numel() * self.x_rows.element_size()
-                + self.row_layout.nbytes()
+        rows = (0 if self.x_rows is None
+                else self.x_rows.numel() * self.x_rows.element_size())
+        return (rows + self.row_layout.nbytes()
                 + (0 if self._paid is None else self._paid.numel()))
 
     def _init_options(self, dataset: BinnedDataset, config: Config) -> None:
@@ -558,6 +584,61 @@ class SerialTreeLearner:
     # both ported learners train either layout (the JAX package's parallel
     # learners opt out; they are not ported)
     supports_sorted_layout = True
+
+    # both ported learners can train with the binned matrix in host shards
+    # (the JAX package's distributed learners cannot; they are not ported)
+    supports_stream = True
+
+    def _stream_blockers(self, config: Config) -> List[str]:
+        """Options this learner's stream mode does not carry, from the
+        config alone (JAX ``learner.py:252-256``): none here."""
+        return []
+
+    def _estimate_residency_bytes(self) -> int:
+        """Approximate device bytes the hbm path would pin for the binned
+        matrix (``stream_hbm_budget_mb``'s input; JAX ``learner.py:
+        258-262``)."""
+        item = 1 if int(self.meta_host["num_bins"].max()) <= 256 else 2
+        return self.num_data * self.num_features * item
+
+    def _resolve_residency(self, config: Config) -> str:
+        """``data_residency`` as the JAX package resolves it
+        (``learner.py:264-311``): ``auto`` streams a
+        ``ShardedBinnedDataset``, and any dataset whose estimated
+        residency passes ``stream_hbm_budget_mb`` when that is set; options
+        the stream mode does not carry fall back to ``hbm`` with a warning
+        when streaming was asked for."""
+        from ..data.stream import ShardedBinnedDataset
+        mode = config.data_residency
+        sharded = isinstance(self.dataset, ShardedBinnedDataset)
+        if mode == "hbm":
+            return "hbm"
+        if not self.supports_stream:
+            if mode == "stream" or sharded:
+                log.warning("data_residency=stream is not supported with "
+                            "tree_learner=%s (%s keeps its device "
+                            "matrices resident); falling back to "
+                            "data_residency=hbm", config.tree_learner,
+                            type(self).__name__)
+            return "hbm"
+        blocker_knobs = self._stream_blockers(config)
+        if blocker_knobs:
+            if mode == "stream" or sharded:
+                log.warning("data_residency=stream does not support %s; "
+                            "training device-resident",
+                            ", ".join(blocker_knobs))
+            return "hbm"
+        if mode == "stream" or sharded:
+            return "stream"
+        if config.stream_hbm_budget_mb > 0 and (
+                self._estimate_residency_bytes()
+                > config.stream_hbm_budget_mb << 20):
+            log.info("data_residency=auto: estimated %.0f MB residency "
+                     "exceeds stream_hbm_budget_mb=%d; streaming",
+                     self._estimate_residency_bytes() / 2**20,
+                     config.stream_hbm_budget_mb)
+            return "stream"
+        return "hbm"
 
     def _resolve_layout(self, config: Config) -> str:
         """``tree_layout`` as the JAX package resolves it
@@ -1197,6 +1278,6 @@ class SerialTreeLearner:
         row_leaf = torch.empty(N, dtype=torch.int64, device=dev)
         row_leaf[perm.long()] = up[1][which]
         self.last_row_leaf = row_leaf
-        self.host_syncs = syncs
+        self.host_syncs = syncs + lay.reads
         self.phase_ms = timer.totals_ms()
         return tree

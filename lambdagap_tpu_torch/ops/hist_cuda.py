@@ -37,6 +37,15 @@ same training on both samples the same rows under GOSS and bagging, which
 turn a 1-ulp difference in a histogram into another sample. A fixed-point
 sum of m values is within m * 2^-(k+1) of the exact sum (``csrc/hist.cu``
 states the bound).
+
+K1's accumulate mode serves ``data_residency=stream``, where a histogram
+spans many uploaded windows of rows: :func:`hist_acc` makes an int64
+accumulator the caller holds, :func:`hist_rows_add` adds a window's
+fixed-point sums into it (one launch, no rounding) and :func:`hist_finish`
+rounds the total to f32 once. With the tree's own scale the result is
+bit-equal to one :func:`hist_rows` over the same rows; the plain versions
+(:func:`_hist_add_reference`, :func:`_hist_finish_reference`) make the same
+split.
 """
 from __future__ import annotations
 
@@ -58,6 +67,10 @@ HIST_Q_LAUNCHES = LaunchCounter()
 # themselves: a root, or a leaf of tree_layout=sorted), also counted above
 HIST_WINDOW_LAUNCHES = LaunchCounter()
 HIST_Q_WINDOW_LAUNCHES = LaunchCounter()
+# K1's accumulate mode: the launches of hist_rows_add (one a streamed
+# window) and of hist_finish (one a streamed histogram), not counted above
+HIST_STREAM_LAUNCHES = LaunchCounter()
+HIST_FINISH_LAUNCHES = LaunchCounter()
 
 # each block takes at least this many live rows, so its fixed cost (zeroing
 # and flushing its shared histogram) is spread over enough adds; a small
@@ -125,16 +138,18 @@ def _declare(lib: ctypes.CDLL, source: str) -> None:
     getattr(lib, f"{pre}_setup").argtypes = []
     getattr(lib, f"{pre}_setup").restype = ctypes.c_int
     if source == HIST_SOURCE:
-        lib.lg_hist_rows.argtypes = [
-            p, i32, i64,            # bins, bin_bytes, F
-            p, p, p,                # grad, hess, mask (or null)
-            p, p, i64,              # rows (or null), offset (or null), P
-            p, i64,                 # count_ptr (or null), count_const
-            p,                      # scale (k_g, k_h)
-            i32, i32, i32,          # num_bins, row blocks, feature tile
-            i32,                    # min rows per block
-            p, p, p]                # workspace, out, stream
-        lib.lg_hist_rows.restype = ctypes.c_int
+        head = [p, i32, i64,        # bins, bin_bytes, F
+                p, p, p,            # grad, hess, mask (or null)
+                p, p, i64,          # rows (or null), offset (or null), P
+                p, i64,             # count_ptr (or null), count_const
+                p,                  # scale (k_g, k_h)
+                i32, i32, i32,      # num_bins, row blocks, feature tile
+                i32]                # min rows per block
+        lib.lg_hist_rows.argtypes = head + [p, p, p]  # workspace, out, stream
+        lib.lg_hist_rows_add.argtypes = head + [p, p]  # acc, stream
+        lib.lg_hist_finish.argtypes = [p, i64, p, p, p]
+        for name in ("lg_hist_rows", "lg_hist_rows_add", "lg_hist_finish"):
+            getattr(lib, name).restype = ctypes.c_int
     else:
         lib.lg_hist_rows_q.argtypes = [
             p, i32, i64,            # bins, bin_bytes, F
@@ -258,20 +273,13 @@ def _scatter(bins, r, vals, num_bins, dtype) -> torch.Tensor:
     return out.reshape(F, num_bins, 3)
 
 
-def _hist_reference(bins: torch.Tensor, grad: torch.Tensor,
-                    hess: torch.Tensor, rows: Optional[torch.Tensor],
-                    count: Count, num_bins: int,
-                    mask: Optional[torch.Tensor] = None,
-                    offset: Optional[torch.Tensor] = None,
-                    scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The plain version of :func:`hist_rows` in torch ops: the same
-    fixed-point integers (``round_half_even(v * 2^k)``), summed exactly in
-    int64 with ``index_add_``, each sum rounded to f32 once as
-    ``float(double(S) * 2^-k)``. Positions past ``count`` are replaced by
-    row 0 before anything is read through them; their channels, and those
-    of out-of-bag rows, are zeroed."""
-    if scale is None:
-        scale = hist_scale(grad, hess)
+def _hist_sums(bins, grad, hess, rows, count, num_bins, mask, offset,
+               scale) -> torch.Tensor:
+    """The fixed-point sums of the plain versions, int64 ``[F, B, 3]``:
+    ``round_half_even(v * 2^k)`` summed exactly with ``index_add_``.
+    Positions past ``count`` are replaced by row 0 before anything is read
+    through them; their channels, and those of out-of-bag rows, are
+    zeroed."""
     r, valid = _live(bins, rows, count, mask, offset)
     sc = _exp2(scale)
     zero = torch.zeros((), dtype=torch.int64, device=bins.device)
@@ -279,10 +287,45 @@ def _hist_reference(bins: torch.Tensor, grad: torch.Tensor,
         torch.where(valid, torch.round(grad[r].double() * sc[0]).long(), zero),
         torch.where(valid, torch.round(hess[r].double() * sc[1]).long(), zero),
         valid.long()], dim=1)                                 # [P, 3]
-    sums = _scatter(bins, r, ch, num_bins, torch.int64)
+    return _scatter(bins, r, ch, num_bins, torch.int64)
+
+
+def _hist_finish_reference(acc: torch.Tensor,
+                           scale: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`hist_finish`: each int64 sum rounded to
+    f32 once as ``float(double(S) * 2^-k)``; ``acc`` is left all zero."""
     inv = torch.cat([_exp2(-scale), torch.ones(1, dtype=torch.float64,
-                                               device=bins.device)])
-    return (sums.double() * inv).float()
+                                               device=acc.device)])
+    out = (acc.double() * inv).float()
+    acc.zero_()
+    return out
+
+
+def _hist_reference(bins: torch.Tensor, grad: torch.Tensor,
+                    hess: torch.Tensor, rows: Optional[torch.Tensor],
+                    count: Count, num_bins: int,
+                    mask: Optional[torch.Tensor] = None,
+                    offset: Optional[torch.Tensor] = None,
+                    scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of :func:`hist_rows` in torch ops: the fixed-point
+    sums (:func:`_hist_sums`) rounded once (:func:`_hist_finish_reference`)."""
+    if scale is None:
+        scale = hist_scale(grad, hess)
+    return _hist_finish_reference(_hist_sums(
+        bins, grad, hess, rows, count, num_bins, mask, offset, scale), scale)
+
+
+def _hist_add_reference(acc: torch.Tensor, bins: torch.Tensor,
+                        grad: torch.Tensor, hess: torch.Tensor,
+                        rows: Optional[torch.Tensor], count: Count,
+                        num_bins: int, mask: Optional[torch.Tensor],
+                        offset: Optional[torch.Tensor],
+                        scale: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`hist_rows_add`: ``acc`` += the
+    positions' fixed-point sums."""
+    acc += _hist_sums(bins, grad, hess, rows, count, num_bins, mask, offset,
+                      scale)
+    return acc
 
 
 def _hist_q_reference(bins: torch.Tensor, gq: torch.Tensor,
@@ -415,6 +458,99 @@ def hist_rows(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     HIST_LAUNCHES.add()
     if rows is None:
         HIST_WINDOW_LAUNCHES.add()
+    return out
+
+
+def hist_acc(num_features: int, num_bins: int,
+             device: torch.device) -> torch.Tensor:
+    """A zeroed int64 ``[F, num_bins, 3]`` accumulator for
+    :func:`hist_rows_add` (the caller holds it across windows)."""
+    return torch.zeros((num_features, num_bins, 3), dtype=torch.int64,
+                       device=device)
+
+
+def _check_acc(name: str, acc: torch.Tensor, dev: torch.device, F: int,
+               num_bins: int) -> None:
+    if acc.dtype != torch.int64 or acc.shape != (F, num_bins, 3) \
+            or acc.device != dev or not acc.is_contiguous():
+        raise TypeError(f"{name}: acc must be a contiguous int64 [{F}, "
+                        f"{num_bins}, 3] on {dev}, got {acc.dtype} "
+                        f"{tuple(acc.shape)} on {acc.device}")
+
+
+def hist_rows_add(acc: torch.Tensor, bins: torch.Tensor, grad: torch.Tensor,
+                  hess: torch.Tensor, rows: Optional[torch.Tensor],
+                  count: Count, num_bins: int, scale: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1's accumulate mode: add the fixed-point sums of a window of rows
+    into ``acc`` (:func:`hist_acc`), with no rounding; returns ``acc``.
+
+    bins, grad, hess, rows, count, mask and offset as for
+    :func:`hist_rows`; ``scale`` is required: the tree's exponents from
+    :func:`hist_scale` over the whole dataset's gradients, so that the
+    sums over every window stay exact. On a CUDA tensor this launches K1
+    once on the current stream (one launch counted in
+    ``HIST_STREAM_LAUNCHES``) or raises; on a CPU tensor it runs the plain
+    version."""
+    _check("hist_rows_add", bins, (("grad", grad, torch.float32),
+                                   ("hess", hess, torch.float32)),
+           rows, count, num_bins, mask, offset, scale)
+    if not isinstance(scale, torch.Tensor):
+        raise TypeError("hist_rows_add: scale is the tree's hist_scale "
+                        "tensor")
+    _check_acc("hist_rows_add", acc, bins.device, bins.shape[1], num_bins)
+    if bins.device.type == "cpu":
+        return _hist_add_reference(acc, bins, grad, hess, rows, count,
+                                   num_bins, mask, offset, scale)
+    if bins.device.type != "cuda":
+        raise ValueError(f"hist_rows_add runs on cuda or cpu, not "
+                         f"{bins.device}")
+    dev = bins.device
+    lib = _kernel_lib(HIST_SOURCE, dev)
+    P = _positions(bins, rows)
+    nblk, f_tile = _grid(HIST_SOURCE, lib, dev, bins, P, num_bins)
+    cptr, cconst = _count_args(count)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.lg_hist_rows_add(
+            bins.data_ptr(), bins.element_size(), bins.shape[1],
+            grad.data_ptr(), hess.data_ptr(), _ptr(mask), _ptr(rows),
+            _ptr(offset), P, cptr, cconst, scale.data_ptr(), num_bins, nblk,
+            f_tile, _MIN_BLOCK_ROWS, acc.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"histogram kernel launch failed (code {rc})")
+    HIST_STREAM_LAUNCHES.add()
+    return acc
+
+
+def hist_finish(acc: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The f32 ``[F, B, 3]`` histogram of an accumulator: each int64 sum
+    rounded once as ``float(double(S) * 2^-k)``; ``acc`` is left all zero.
+    On a CUDA tensor one launch of K1's finishing kernel (counted in
+    ``HIST_FINISH_LAUNCHES``) or a raise; on a CPU tensor the plain
+    version."""
+    if not isinstance(scale, torch.Tensor) or scale.dtype != torch.int32 \
+            or scale.numel() != 2 or scale.device != acc.device:
+        raise TypeError("hist_finish: scale must be the int32 [2] "
+                        "hist_scale tensor on the accumulator's device")
+    _check_acc("hist_finish", acc, acc.device, acc.shape[0], acc.shape[1])
+    if acc.device.type == "cpu":
+        return _hist_finish_reference(acc, scale)
+    if acc.device.type != "cuda":
+        raise ValueError(f"hist_finish runs on cuda or cpu, not "
+                         f"{acc.device}")
+    dev = acc.device
+    lib = _kernel_lib(HIST_SOURCE, dev)
+    out = torch.empty(acc.shape, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.lg_hist_finish(acc.data_ptr(), acc.numel(),
+                                scale.contiguous().data_ptr(),
+                                out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"histogram finish launch failed (code {rc})")
+    HIST_FINISH_LAUNCHES.add()
     return out
 
 

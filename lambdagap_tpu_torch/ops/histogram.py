@@ -8,8 +8,9 @@ smaller side with :func:`~lambdagap_tpu_torch.ops.hist_cuda.hist_rows` (or
 ``hist_rows_q``) — and the EFB un-bundling of a histogram over bundled
 columns back to per-feature space. The XLA one-hot contraction of the JAX
 package (its non-Pallas path) is not ported: every histogram of the port
-comes from a kernel, through :func:`leaf_histogram` in either row
-layout.
+comes from a kernel, through :func:`leaf_histogram` in any row layout
+(under ``data_residency=stream`` a loop over uploaded windows into K1's
+accumulate mode, ``ops/partition.StreamRows.histogram``).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 
 from ..data.bundling import KIND_COPY, KIND_DEFAULT
 from .hist_cuda import hist_rows, hist_rows_q
-from .partition import GatherRows, SortedRows
+from .partition import GatherRows, SortedRows, StreamRows
 
 
 def subtract_histogram(parent_hist: torch.Tensor,
@@ -52,7 +53,7 @@ def unbundle_hist(hist_b: torch.Tensor, src: torch.Tensor,
                        out)
 
 
-def leaf_histogram(layout: Union[GatherRows, SortedRows],
+def leaf_histogram(layout: Union[GatherRows, SortedRows, StreamRows],
                    perm: torch.Tensor, begin: int, count: int,
                    num_bins: int, live: Optional[torch.Tensor] = None,
                    offset: Optional[torch.Tensor] = None,
@@ -68,7 +69,14 @@ def leaf_histogram(layout: Union[GatherRows, SortedRows],
     first ``live`` positions from ``offset`` on — a child inside its
     parent's slice or window; None: the whole leaf. Both layouts give the
     kernel the same rows in the same order and the sums are exact
-    integers, so the histograms are equal bit for bit."""
+    integers, so the histograms are equal bit for bit. Under
+    ``data_residency=stream`` (:class:`StreamRows`) a child is the smaller
+    child of the split just made, whose span the layout read with the
+    split's go-left flags, so ``live`` and ``offset`` are not read."""
+    if isinstance(layout, StreamRows):
+        if live is not None:
+            begin, count = layout.child(begin, count)
+        return layout.histogram(perm, begin, count, num_bins, scale)
     bins, a, b, rows, mask = layout.kernel_inputs(perm, begin, count,
                                                   live is None)
     live = count if live is None else live

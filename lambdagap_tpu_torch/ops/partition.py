@@ -14,12 +14,19 @@ slice of the permutation; :class:`SortedRows` (``tree_layout=sorted``,
 :func:`split_partition_sorted`) applies the same stable partition to the
 rows themselves — leaf-ordered copies of the binned matrix and of the
 per-row channels — so that a leaf is a contiguous window the histogram
-kernels read without a row list.
+kernels read without a row list. :class:`StreamRows`
+(``data_residency=stream``) keeps the binned matrix in host shards
+(``data.stream.ShardedBinnedDataset``) and the rest on the device: the
+split column is gathered on the host and uploaded, a split reads its
+go-left flags back to keep the host's mirror of the permutation (or, under
+sorted, the host's leaf-ordered rows) in step, and a histogram is a loop
+over uploaded windows (:meth:`StreamRows.histogram`).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .split import MT_NAN, MT_ZERO
@@ -106,7 +113,7 @@ def _words(rows: torch.Tensor) -> torch.Tensor:
     return _bits(rows)
 
 
-def split_partition_sorted(perm: torch.Tensor, rows: torch.Tensor,
+def split_partition_sorted(perm: torch.Tensor, rows: Optional[torch.Tensor],
                            chans: Sequence[torch.Tensor],
                            scratch: Dict[tuple, torch.Tensor], begin: int,
                            count: int, go_left: torch.Tensor):
@@ -119,11 +126,14 @@ def split_partition_sorted(perm: torch.Tensor, rows: torch.Tensor,
     windows. Each buffer's window is scattered into a persistent scratch
     buffer of its shape (``scratch``, filled on first use; the JAX
     learner's double buffer, ``fused_learner.py:1622-1631``) and copied
-    back: no allocation of a window a split. Returns the left count, a 0-d
+    back: no allocation of a window a split. ``rows`` None: the rows are
+    not on the device (:class:`StreamRows`). Returns the left count, a 0-d
     int64 tensor on the device (no host read)."""
     dest, left_count = _stable_dest(go_left)
-    for t, dim in ((_words(rows), 0), *((_bits(c), -1)
-                                        for c in (perm, *chans))):
+    moves = [(_bits(c), -1) for c in (perm, *chans)]
+    if rows is not None:
+        moves.insert(0, (_words(rows), 0))
+    for t, dim in moves:
         key = (tuple(t.shape), t.dtype, t.device)
         if key not in scratch:
             scratch[key] = torch.empty_like(t)
@@ -148,6 +158,9 @@ class GatherRows:
         cols = x_rows.T.contiguous()
         self.x_cols = cols if cols.dtype == torch.uint8 else cols.int()
         self.a = self.b = self.mask = None
+
+    # host reads the layout made for the last tree (StreamRows makes some)
+    reads = 0
 
     def nbytes(self) -> int:
         """Device bytes of the column-major copy."""
@@ -207,6 +220,8 @@ class SortedRows:
         self.ch: Optional[torch.Tensor] = None
         self.mask: Optional[torch.Tensor] = None
 
+    reads = 0
+
     def nbytes(self) -> int:
         """Device bytes of the copies and the scratch made so far."""
         ts = [self.x, *self.scratch.values(), *self._bufs.values()]
@@ -256,3 +271,202 @@ class SortedRows:
         chans = [self.ch] + ([] if self.mask is None else [self.mask])
         return split_partition_sorted(perm, self.x, chans, self.scratch,
                                       begin, count, go_left)
+
+
+class StreamRows:
+    """``data_residency=stream``: the binned matrix stays in host shards
+    (``data.stream.ShardedBinnedDataset``); the device holds the tree's
+    channels, the mask and the permutation, as under the resident
+    layouts, with :class:`GatherRows`'s methods (the JAX package's stream
+    mode, ``lambdagap_tpu/models/learner.py:577-760`` and
+    ``fused_learner.py:2038-2215``).
+
+    * ``tree_layout=gather``: the host keeps a mirror of the permutation
+      (``perm_host``). A window of a leaf is its rows gathered from the
+      shards on the host; on the device its channels and mask are gathered
+      into window order through the device permutation's same slice, and
+      K1 reads the window with no row list.
+    * ``tree_layout=sorted``: the host keeps a leaf-ordered copy of the
+      binned rows (``payload``, the JAX learner's ``_x_sorted_host``) and
+      the device leaf-ordered channels and mask (as :class:`SortedRows`
+      keeps them); a window of a leaf is a contiguous slice of each.
+
+    :meth:`column` gathers the split column's bins on the host and uploads
+    them; :meth:`split` partitions the device permutation (and, under
+    sorted, the channels and mask) stably as the resident layouts do, reads
+    the go-left flags back (one host read a split) and reorders the host
+    mirror the same way. ``clock`` adds up the host wall of ``host_read``
+    (those reads) and ``host_mirror`` (the reorders) beside the ring's
+    phases. :meth:`histogram` pumps the leaf's windows
+    through the H2D ring (``data.stream.ShardRing``, ``depth`` slots) and
+    adds each into one int64 accumulator with K1's accumulate mode
+    (``ops.hist_cuda.hist_rows_add``), rounded once at the end: integer
+    sums of the same rows at the tree's scale, so the histogram equals the
+    resident one bit for bit, whatever the windows.
+
+    With an in-bag mask and ``compact`` (``stream_goss_compact``) the mask
+    is read to the host once a tree and a window carries only its in-bag
+    rows (their bins, and their row ids or lanes for the device gathers):
+    the out-of-bag rows would add exact zeros.
+    """
+
+    def __init__(self, sdata, device: torch.device, layout: str, depth: int,
+                 window_rows: int, compact: bool) -> None:
+        from ..data.stream import PhaseClock, ShardRing
+        self.sdata = sdata
+        self.device = device
+        self.sorted = layout == "sorted"
+        self.window = max(int(window_rows), 1)
+        self.compact = bool(compact)
+        self.clock = PhaseClock()
+        self.ring = ShardRing(device, depth, self.clock)
+        self.reads = 0
+        self.a = self.b = self.mask = None
+        self.ch: Optional[torch.Tensor] = None
+        self.perm_host: Optional[np.ndarray] = None
+        self.payload: Optional[np.ndarray] = None
+        self.mask_host: Optional[np.ndarray] = None
+        self.scratch: Dict[tuple, torch.Tensor] = {}
+        self._last = (-1, -1, 0)
+
+    def nbytes(self) -> int:
+        """Device bytes of the ring's slots, the sorted channels and the
+        partition's scratch."""
+        ts = [*self.scratch.values()]
+        if self.sorted:
+            ts += [t for t in (self.ch, self.mask) if t is not None]
+        return self.ring.nbytes() + sum(t.numel() * t.element_size()
+                                        for t in ts)
+
+    def rebuild(self, a: torch.Tensor, b: torch.Tensor,
+                mask: Optional[torch.Tensor]) -> None:
+        """The tree's channels and mask, and the host mirror at the
+        identity permutation; under compaction, the mask read once."""
+        self.reads = 0
+        N = self.sdata.num_data
+        if self.sorted:
+            self.payload = self.sdata.dataset_order_copy()
+            self.ch = torch.stack([a, b])
+            self.mask = None if mask is None else mask.clone()
+        else:
+            self.perm_host = np.arange(N, dtype=np.int64)
+            self.a, self.b, self.mask = a, b, mask
+        self.mask_host = None
+        if mask is not None and self.compact:
+            with self.clock.phase("host_read"):
+                self.mask_host = mask.cpu().numpy().astype(bool)
+            self.reads += 1
+
+    def column(self, perm: torch.Tensor, begin: int, count: int,
+               col: int) -> torch.Tensor:
+        """Column ``col`` of the leaf's rows, from the host, uploaded."""
+        with self.clock.phase("h2d_prefetch"):
+            if self.sorted:
+                vals = self.payload[begin:begin + count, col]
+            else:
+                vals = self.sdata.gather_col(
+                    col, self.perm_host[begin:begin + count])
+            if vals.dtype == np.uint16:
+                vals = vals.astype(np.int32)
+            return torch.from_numpy(np.ascontiguousarray(vals)).to(
+                self.device)
+
+    def split(self, perm: torch.Tensor, begin: int, count: int,
+              go_left: torch.Tensor):
+        """The resident layouts' stable partition on the device, then the
+        go-left flags read back (one host read) and the host mirror moved
+        the same way. Returns the left count (device)."""
+        if self.sorted:
+            chans = [self.ch] + ([] if self.mask is None else [self.mask])
+            lc = split_partition_sorted(perm, None, chans, self.scratch,
+                                        begin, count, go_left)
+        else:
+            lc = split_partition(perm, begin, count, go_left)
+        from ..data.stream import row_view, take_rows
+        with self.clock.phase("host_read"):
+            gl = go_left.cpu().numpy()
+        self.reads += 1
+        with self.clock.phase("host_mirror"):
+            order = np.concatenate([np.flatnonzero(gl),
+                                    np.flatnonzero(~gl)])
+            mirrors = ([row_view(self.payload)] if self.sorted
+                       else [self.perm_host])
+            if self.mask_host is not None and self.sorted:
+                mirrors.append(self.mask_host)
+            for m in mirrors:
+                m[begin:begin + count] = take_rows(m[begin:begin + count],
+                                                   order)
+        self._last = (begin, count, int(gl.sum()))
+        return lc
+
+    def child(self, begin: int, count: int):
+        """(begin, count) of the smaller child of the leaf ``[begin, begin
+        + count)``, which must be the last leaf :meth:`split` split: both
+        learners build exactly that child's histogram after a split (the
+        device ``live`` / ``offset`` they pass name it too)."""
+        b, c, lc = self._last
+        if (b, c) != (begin, count):
+            raise RuntimeError("StreamRows: a child histogram of a leaf "
+                               "that was not the last split")
+        return (begin, lc) if lc <= count - lc else (begin + lc, count - lc)
+
+    def _fetch(self, lo: int, live: int):
+        """Host buffers of positions [lo, lo + live): the bins and, when
+        compacted, the in-bag rows' row ids (gather) or lanes (sorted)."""
+        from ..data.stream import row_view, take_rows
+        C = self.sdata.num_features
+        if self.sorted:
+            if self.mask_host is None:
+                return (self.payload[lo:lo + live],)
+            lanes = np.flatnonzero(self.mask_host[lo:lo + live])
+            rows = take_rows(row_view(self.payload), lo + lanes)
+            return (rows.view(self.payload.dtype).reshape(-1, C),
+                    lanes.astype(np.int32))
+        rows = self.perm_host[lo:lo + live]
+        if self.mask_host is not None:
+            rows = rows[self.mask_host[rows]]
+            out = np.empty((len(rows), C), dtype=self.sdata.dtype)
+            return (self.sdata.gather_rows(rows, out=out),
+                    rows.astype(np.int32))
+        return (self.sdata.gather_rows(rows),)
+
+    def histogram(self, perm: torch.Tensor, begin: int, count: int,
+                  num_bins: int, scale: torch.Tensor) -> torch.Tensor:
+        """f32 ``[F, num_bins, 3]`` histogram of the leaf ``[begin, begin +
+        count)``, its windows pumped through the ring into K1's accumulate
+        mode (``scale``: the tree's exponents over all rows)."""
+        from ..data.stream import WindowPump
+        from .hist_cuda import hist_acc, hist_finish, hist_rows_add
+        acc = hist_acc(self.sdata.num_features, num_bins, self.device)
+        W = self.window
+        spans = [(lo, min(W, begin + count - lo))
+                 for lo in range(begin, begin + count, W)]
+
+        def windows():
+            for lo, live in spans:
+                with self.clock.phase("h2d_prefetch"):
+                    bufs = self._fetch(lo, live)
+                yield (lo, live), bufs
+
+        for (lo, live), bufs in WindowPump(windows(), self.ring):
+            bins = bufs[0]
+            n = bins.shape[0]
+            if n == 0:
+                continue
+            m = None
+            if len(bufs) == 2:            # compacted: in-bag rows only
+                idx = bufs[1].long()
+                if self.sorted:
+                    idx = idx + lo
+                    g, h = self.ch[0][idx], self.ch[1][idx]
+                else:
+                    g, h = self.a[idx], self.b[idx]
+            elif self.sorted:
+                g, h = self.ch[0, lo:lo + n], self.ch[1, lo:lo + n]
+                m = None if self.mask is None else self.mask[lo:lo + n]
+            else:
+                rows = perm[lo:lo + n].long()
+                g, h = self.a[rows], self.b[rows]
+                m = None if self.mask is None else self.mask[rows]
+            hist_rows_add(acc, bins, g, h, None, n, num_bins, scale, m)
+        return hist_finish(acc, scale)

@@ -6,7 +6,8 @@
 a JAX-saved model, predicts and serves on the CPU (the registry, a swap
 and a delta frame included), then trains quantized and bagged over EFB
 bundles (the threefry draws, the samplers, the int8 histograms and the
-bundling included). Asking for the card where there is none raises
+bundling included), and trains and scores out of core (a streamed
+``ShardedBinnedDataset``, ``predict_stream``). Asking for the card where there is none raises
 instead of quietly running on the CPU.
 """
 import torch_cpu_threads  # noqa: F401  (first: one torch thread)
@@ -57,6 +58,17 @@ trained = lgt.train({{"device_type": "cpu", "objective": "binary",
                      "bagging_freq": 1}}, lgt.Dataset(Xt, label=yt), 3)
 assert trained._booster.learner.bundle is not None
 assert np.isfinite(trained.predict(Xt)).all()
+cfg = lgt.Config.from_params({{"device_type": "cpu"}})
+sds = lgt.ShardedBinnedDataset.from_matrix(Xt, cfg, shard_rows=1024,
+                                           label=yt)
+streamed = lgt.train({{"device_type": "cpu", "objective": "binary",
+                      "verbose": -1, "num_leaves": 7,
+                      "bagging_fraction": 0.8, "bagging_freq": 1}},
+                     lgt.Dataset(sds), 3)
+assert streamed._booster.learner.residency == "stream"
+st = {{}}
+scores = streamed.predict_stream(Xt, window_rows=128, stats_out=st)
+assert np.array_equal(scores, streamed.predict(Xt)) and st["windows"] == 4
 bad = sorted(m for m in sys.modules
              if (m == "jax" or m.startswith("jax.")
                  or m == "lambdagap_tpu" or m.startswith("lambdagap_tpu."))
@@ -121,6 +133,24 @@ def test_cuda_default_without_a_card_raises():
         lgt.Booster(model_str=b.model_to_string(), params={})
     with pytest.raises(RuntimeError, match="device_type=cpu"):
         lgt.Booster(model_str=b.model_to_string())
+
+
+def test_stream_kernels_and_rings_never_fall_back_to_the_cpu():
+    """K1's accumulate mode and the rings on a non-CPU, non-CUDA tensor or
+    device raise: no path quietly takes the plain version."""
+    from lambdagap_tpu_torch.data.stream import ShardRing
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    meta = torch.device("meta")
+    bins = torch.zeros((8, 3), dtype=torch.uint8, device=meta)
+    g = torch.zeros(8, device=meta)
+    scale = torch.zeros(2, dtype=torch.int32, device=meta)
+    acc = hc.hist_acc(3, 4, meta)
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        hc.hist_rows_add(acc, bins, g, g, None, 8, 4, scale)
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        hc.hist_finish(acc, scale)
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        ShardRing(meta, 2)
 
 
 def test_cuda_tensor_never_reaches_the_plain_traversal():

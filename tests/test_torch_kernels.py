@@ -1209,3 +1209,204 @@ def test_tensor_engine_on_card_serves_the_scan_oracle(cuda_device):
     assert np.array_equal(bst.predict(X, raw_score=True), ref)
     with bst.as_server(raw_score=True) as server:
         assert np.array_equal(server.predict(X), ref)
+
+
+# ---------------------------------------------------------------------------
+# data_residency=stream: K1's accumulate mode, the rings, stream training
+# and predict_stream on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("windows", [1, 3, 7])
+@pytest.mark.parametrize("case", ["root", "masked", "u16", "rows"])
+def test_hist_accumulate_mode_on_card(case, windows, cuda_device):
+    """K1 added over ``windows`` ragged windows of rows into one int64
+    accumulator and finished once is ``torch.equal`` to one launch over
+    the same rows, to the plain version of both, and to the plain
+    accumulate mode; each window is one launch of the accumulate mode and
+    the finish one more. ``rows``: each window read through its own slice
+    of a permutation; otherwise the window's channels are its own (window
+    mode, the stream layout's gathered channels)."""
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    dev = cuda_device
+    bins, grad, hess, _, _, nb = _hist_case(
+        "u16" if case == "u16" else "skewed", dev)
+    n = bins.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(20 + windows)
+    mask = (torch.rand(n, generator=gen, device=dev) < 0.7
+            if case == "masked" else None)
+    scale = hc.hist_scale(grad, hess)
+    cuts = sorted(np.random.RandomState(windows).randint(
+        1, n, windows - 1).tolist())
+    edges = [0] + cuts + [n]
+    perm = torch.randperm(n, generator=gen, device=dev).int()
+    acc = hc.hist_acc(bins.shape[1], nb, dev)
+    ref_acc = hc.hist_acc(bins.shape[1], nb, dev)
+    before = (hc.HIST_STREAM_LAUNCHES.launches,
+              hc.HIST_FINISH_LAUNCHES.launches, hc.HIST_LAUNCHES.launches)
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        if case == "rows":
+            args = (bins, grad, hess, perm[lo:hi], hi - lo, nb)
+            m = None
+        else:
+            args = (bins[lo:hi], grad[lo:hi], hess[lo:hi], None, hi - lo, nb)
+            m = None if mask is None else mask[lo:hi]
+        hc.hist_rows_add(acc, *args, scale, m)
+        hc._hist_add_reference(ref_acc, *args, m, None, scale)
+    got = hc.hist_finish(acc, scale)
+    after = (hc.HIST_STREAM_LAUNCHES.launches,
+             hc.HIST_FINISH_LAUNCHES.launches, hc.HIST_LAUNCHES.launches)
+    assert after[0] - before[0] == windows
+    assert after[1] - before[1] == 1
+    assert after[2] == before[2]
+    assert int(acc.abs().sum()) == 0            # finish leaves it zero
+    rows = perm if case == "rows" else None
+    one = hc.hist_rows(bins, grad, hess, rows, n, nb, mask, scale=scale)
+    plain = hc._hist_reference(bins, grad, hess, rows, n, nb, mask,
+                               scale=scale)
+    assert torch.equal(got, one)
+    assert torch.equal(got, plain)
+    assert torch.equal(hc._hist_finish_reference(ref_acc, scale), got)
+
+
+class _SlowCopy:
+    """A consumer that copies each window into its place in an output
+    buffer after a spin on the card, so the ring's next copies run while
+    earlier windows are still being read."""
+
+    def __init__(self, n: int, cols: int, dev) -> None:
+        self.out = torch.zeros((n, cols), dtype=torch.uint8, device=dev)
+        self.idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
+
+    def __call__(self, lo: int, bins, lanes) -> None:
+        torch.cuda._sleep(20_000)
+        self.out[lo:lo + bins.shape[0]] = bins
+        self.idx[lo:lo + lanes.shape[0]] = lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_shard_ring_on_card_reproduces_its_inputs(depth, cuda_device):
+    """Many small windows of two buffers each (u8 bins and int32 lanes, a
+    few empty) pumped through the H2D ring at ``depth`` slots, each read
+    on the card behind a spin: every byte lands where it belongs. Then the
+    D2H score ring at the same depth brings f32 and f64 tiles back equal."""
+    from lambdagap_tpu_torch.data.stream import ShardRing, WindowPump
+    from lambdagap_tpu_torch.infer.stream import ScoreRing
+    dev = cuda_device
+    rng = np.random.RandomState(depth)
+    sizes = rng.randint(0, 3000, 60)
+    sizes[::17] = 0
+    n = int(sizes.sum())
+    bins = rng.randint(0, 256, (n, 28)).astype(np.uint8)
+    lanes = rng.randint(0, 2 ** 31 - 1, n).astype(np.int32)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    ring = ShardRing(dev, depth)
+    sink = _SlowCopy(n, 28, dev)
+
+    def windows():
+        for lo, w in zip(starts, sizes):
+            yield int(lo), (bins[lo:lo + w], lanes[lo:lo + w])
+
+    for lo, (b, la) in WindowPump(windows(), ring):
+        sink(lo, b, la)
+    torch.cuda.synchronize()
+    assert np.array_equal(sink.out.cpu().numpy(), bins)
+    assert np.array_equal(sink.idx.cpu().numpy(), lanes)
+    assert ring.windows == len(sizes)
+
+    sring = ScoreRing(dev, depth)
+    tiles = [torch.randn((3, int(w)), dtype=dt, device=dev)
+             for w, dt in zip(sizes, [torch.float32, torch.float64] * 30)]
+    back = []
+
+    def drain():
+        k, h = sring.wait_ready()      # a view of the slot: copy it out
+        back.append((k, h.copy()))
+
+    for k, t in enumerate(tiles):
+        torch.cuda._sleep(20_000)
+        sring.put(k, t * 2)
+        if sring.full:
+            drain()
+    while len(sring):
+        drain()
+    assert [k for k, _ in back] == list(range(len(tiles)))
+    for (k, h), t in zip(back, tiles):
+        assert np.array_equal(h, (t * 2).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    {}, {"tree_layout": "sorted"}, {"tpu_fused_learner": "0"},
+    {"tpu_fused_learner": "0", "tree_layout": "sorted"},
+    {"data_sample_strategy": "goss", "learning_rate": 0.3},
+    {"data_sample_strategy": "goss", "learning_rate": 0.3,
+     "stream_goss_compact": False, "tree_layout": "sorted"},
+    {"bagging_fraction": 0.7, "bagging_freq": 1, "stream_prefetch_depth": 1},
+    {"bagging_fraction": 0.7, "bagging_freq": 1, "stream_prefetch_depth": 4,
+     "tree_layout": "sorted"}])
+def test_stream_training_on_card_equals_resident(extra, cuda_device):
+    """data_residency=stream on the card (ragged 1,024-row shards) grows
+    the resident model byte for byte up to ``end of trees``; every
+    histogram of the stream run comes from K1's accumulate mode (windows
+    and finishes counted), none from the resident launch."""
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    rng = np.random.RandomState(13)
+    X = rng.randn(9000, 10)
+    X[:, 9] = rng.randint(0, 6, 9000)
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + (X[:, 9] == 3) > 0.3) \
+        .astype(float)
+    params = {"objective": "binary", "num_leaves": 31, "verbose": -1,
+              "stream_shard_rows": 1024, **extra}
+    texts = {}
+    for mode in ("hbm", "stream"):
+        counts = [hc.HIST_LAUNCHES.launches,
+                  hc.HIST_STREAM_LAUNCHES.launches,
+                  hc.HIST_FINISH_LAUNCHES.launches]
+        bst = lgt.train({**params, "data_residency": mode},
+                        lgt.Dataset(X, label=y, categorical_feature=[9]), 6)
+        texts[mode] = bst.model_to_string().split("end of trees")[0]
+        lr = bst._booster.learner
+        resident, windows, finishes = (
+            c.launches - b for c, b in zip(
+                (hc.HIST_LAUNCHES, hc.HIST_STREAM_LAUNCHES,
+                 hc.HIST_FINISH_LAUNCHES), counts))
+        assert lr.residency == mode
+        if mode == "stream":
+            assert resident == 0
+            assert finishes > 0 and windows >= finishes
+            assert lr.x_rows is None
+        else:
+            assert windows == 0 and finishes == 0 and resident > 0
+    assert texts["stream"] == texts["hbm"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["compiled", "tensor", "scan"])
+def test_predict_stream_on_card_equals_predict(engine, cuda_device):
+    """predict_stream on the card at several windows and ring depths
+    (ragged tails, a binned source) equals ``predict`` bit for bit; under
+    ``compiled`` each window is one launch of the fused kernel."""
+    rng = np.random.RandomState(14)
+    X = rng.randn(5000, 8)
+    y = (X[:, 0] - X[:, 3] > 0).astype(float)
+    tr = lgt.Dataset(X, label=y)
+    bst = lgt.train({"objective": "binary", "num_leaves": 31, "verbose": -1,
+                     "predict_engine": engine}, tr, 8)
+    Xv = rng.randn(3001, 8)
+    want = bst.predict(Xv, raw_score=True)
+    for window, depth in ((4096, 2), (512, 1), (333, 4)):
+        bst._booster.config.predict_stream_depth = depth
+        eng.PREDICT_LAUNCHES.reset()
+        st = {}
+        got = bst.predict_stream(Xv, raw_score=True, window_rows=window,
+                                 stats_out=st)
+        assert np.array_equal(got, want)
+        if engine == "compiled":
+            assert eng.PREDICT_LAUNCHES.launches == st["windows"]
+    assert np.array_equal(bst.predict_stream(Xv, window_rows=700),
+                          bst.predict(Xv))
+    sv = lgt.ShardedBinnedDataset.from_matrix(
+        Xv, bst._booster.config, shard_rows=1024, reference=tr.construct())
+    assert np.array_equal(bst.predict_stream(sv, raw_score=True,
+                                             window_rows=1000), want)

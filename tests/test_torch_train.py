@@ -271,10 +271,10 @@ def test_saturated_max_delta_step_differs_from_jax_only_at_a_tie():
     {"timetag": True},
     {"telemetry_out": "run.jsonl"},
     {"profile_start_iter": 1},
-    {"stream_spill_dir": "spill"},
+    {"objective": "none"},
     {"mesh_shape": "2x1"},
     {"linear_tree": True},
-    {"data_residency": "stream"},
+    {"enable_telemetry": True},
     {"tree_learner": "data"},
     {"boosting": "dart"},
     {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
@@ -290,7 +290,8 @@ def test_unported_options_refuse_loudly(params, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported") as err:
         lgt.train({"verbose": -1, **CPU, **params},
                   lgt.Dataset(X, label=y), 2)
-    name = {"timetag": "telemetry"}.get(knob, knob)
+    name = {"timetag": "telemetry", "enable_telemetry": "telemetry"}.get(
+        knob, knob)
     assert name in str(err.value)
 
 
