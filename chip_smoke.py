@@ -3,7 +3,7 @@
 CUDA card and check them.
 
     python3 chip_smoke.py [--seed N] [--rows N]
-                          [--only kernels|rank|objectives|predict|shap|options|serial|layout|registry|stream]
+                          [--only kernels|rank|objectives|predict|shap|options|serial|layout|registry|stream|api]
 
 Run from the root of a checkout. Phases, each fatal on failure:
 
@@ -51,7 +51,7 @@ T18. the multi-model registry on phase 3's forest as ``default``, a
    entries' own bytes so that any two fit, 8 round-robin requests:
    evictions and readmissions, generations kept, resident bytes within the
    budget (the members' artifacts admitted from (a), no second compile);
-   (c) on (a)'s server, 10 swaps of default between the forest and its
+   (c) on (a)'s server, 6 swaps of default between the forest and its
    first 400 trees while 4 threads submit, each answer its generation's
    oracle, none failed; (d) the delta swap from the 400-tree base back to
    the forest (the frame's bytes beside the full text's), two stale deltas
@@ -90,11 +90,11 @@ T3. the training path: ``lgt.train`` on the card, binary, HIGGS width (28
    kernel-only device time summed over its launches;
 T6. T3's configuration and Datasets with ``use_quantized_grad`` (4
    levels, stochastic rounding, ``quant_train_renew_leaf``) and bagging
-   0.8/1, 6 rounds: the K2 launches equal the leaf histograms built, no K1 launch,
+   0.8/1, 4 rounds: the K2 launches equal the leaf histograms built, no K1 launch,
    the validation logloss falls; one tree's phases and K2's kernel-only
    time, the threefry draw's time, peak memory; the model served back
    against the scan oracle;
-T4. the example shape (16,000 x 20, 63 leaves, 20 rounds, validation set,
+T4. the example shape (16,000 x 20, 63 leaves, 10 rounds, validation set,
    early stopping) trained on the card and on the CPU, f32, quantized (16
    levels, renew), GOSS and bagging 0.7/1: predictions on the training
    rows within rtol 1e-4 / atol 1e-5, ``best_iteration`` equal; the
@@ -104,7 +104,7 @@ T5. the T3 model through ``model_to_string`` -> ``Booster(model_str=)`` ->
    the scan oracle on the card, one fused launch per dispatch;
 T7. EFB: 200,000 rows of 8 dense features and 4 groups of 6 mutually
    exclusive sparse columns (bundles form, fewer columns than features),
-   f32 and quantized, 6 rounds, on the card and on the CPU at T4's bar, K1
+   f32 and quantized, 4 rounds, on the card and on the CPU at T4's bar, K1
    and K2 launched;
 T8. ranking at MSLR-WEB30K width: seeded synthetic query sets of Fold 1's
    shape (18,919 queries, ~2.27M documents x 136 features, query lengths
@@ -122,7 +122,7 @@ T2 at 136 features: K1 against its plain version (``torch.equal``) on the
    T8 matrix with T8's lambdas at the root, at a T8 leaf read at an offset,
    and at the 1,251-document query with lambdas taken without
    ``lambdarank_norm``; times and bound at the root and the leaf;
-T9. 200 queries x 25 documents x 20 features, 63 leaves, 12 rounds on the
+T9. 200 queries x 25 documents x 20 features, 63 leaves, 6 rounds on the
    card and on the CPU: ndcg, lambdagap-s, lambdagap-x-plus-plus,
    rank_xendcg, positions with by-query bagging, predictions on the
    training rows within rtol 1e-4 / atol 1e-5;
@@ -151,7 +151,7 @@ T11-serve. T11a's 7-class model served on the card, early stop off and on
    (a margin that stops some rows): each [rows, 7] answer ``array_equal``
    to the scan oracle, converted outputs its softmax at rtol 1e-6, one
    fused launch per dispatch;
-T12. 16,000 x 20 with a 12-category column, 31 leaves, 6 rounds with a
+T12. 16,000 x 20 with a 12-category column, 31 leaves, 3 rounds with a
    validation set and early stopping, on the card and on the CPU:
    multiclass, multiclassova, multiclass + GOSS, regression_l1 (also with
    bagging 0.7/1), huber, fair, poisson, quantile, mape, gamma, tweedie,
@@ -200,7 +200,7 @@ T15. the tree options on T3's Datasets at HIGGS width, 2 rounds each
    the scan oracle; the round walls, host syncs per tree and one tree's
    device-stream phases (histogram, split scan, partition, the monotone
    propagation and re-scans as ``constraints``);
-T15b. (a)-(h) at 16,000 x 20, 31 leaves, 10 rounds, on the card and on
+T15b. (a)-(h) at 16,000 x 20, 31 leaves, 8 rounds, on the card and on
    the CPU: training-row predictions within rtol 1e-4 / atol 1e-5,
    best_iteration equal; the non-finite guard on the card: a NaN label
    raises ``NonFiniteError`` under ``raise``, ``skip_tree`` keeps the
@@ -224,7 +224,7 @@ T16. the host-driven serial learner (``tpu_fused_learner=0``) on T3's
    host syncs of a tree and one more tree's phases (its advanced bounds and
    re-scans as ``constraints``);
 T16b. (s), (c), (r), (l), (v), 3-class softmax and regression_l1 on the
-   serial learner at 16,000 x 20, 31 leaves, 10 rounds, on the card and
+   serial learner at 16,000 x 20, 31 leaves, 8 rounds, on the card and
    on the CPU: training-row predictions within rtol 1e-4 / atol 1e-5,
    best_iteration equal, the card's leaves a tree (``--only serial`` runs phases 1-2, T3, T16 and
    T16b);
@@ -265,6 +265,30 @@ T19. out of core: (a) T3's training set re-sharded into host
    (c) ``pred_contrib`` of 4,096 rows in windows of 1,024, one S call a
    window, ``array_equal`` to ``predict(pred_contrib=True)``
    (``--only stream`` runs phases 1-2, T3 and T19);
+T20. the training API on T3's Datasets (no second binning), the K1 and K2
+   counts zeroed just before each run and read just after: K1 launches ==
+   the histograms built and no K2 launch, in every variant: (a)
+   ``objective=none`` with a numpy binary-logloss fobj through
+   ``Booster.update``, 2 rounds: the feval validation logloss falls and
+   equals the built-in binary_logloss of the same scores at rtol 1e-6; (b)
+   T3's model continued 2 rounds with ``init_model``: the replayed
+   training and validation scores within rtol 1e-6 / atol 1e-6 of T3's
+   own, 7 trees, validation logloss below T3's, a late ``add_valid``
+   replaying to the same validation scores, the replay's wall; (c) DART
+   (drop_rate 0.5, skip_drop 0) and (d) RF (bagging 0.5/1), 3 rounds
+   each: ``predict(raw_score=True)`` on the validation rows == the
+   booster's own validation scores at rtol 1e-5 / atol 1e-6, the served
+   model == the scan oracle with one fused launch a dispatch; (e) ``cv``
+   with nfold=3, 2 rounds, on T3's first 2^20 rows under
+   ``free_raw_data=False``: the mean history == the mean of the
+   CVBooster's folds' own evaluations, the folds' binning seconds; (f)
+   ``reset_parameter(learning_rate=[0.1, 0.05])``, 2 rounds: the model
+   text's shrinkage lines follow it; each variant's median round beside
+   T3's;
+T20b. fobj, init_model (5 + 5 rounds), DART, RF and reset_parameter at
+   16,000 x 20, 31 leaves, 10 rounds, on the card and on the CPU:
+   training-row predictions within rtol 1e-4 / atol 1e-5, best_iteration
+   equal (``--only api`` runs phases 1-2, T3, T20 and T20b);
 6. the kernels line (one JSON object, twelve entries; each entry's
    ``max_abs_err`` the largest of its kernel's comparisons, T13's K1 in
    ``hist_rows@covtype`` and T11c's K2 in ``hist_rows_q``; the fused
@@ -275,7 +299,7 @@ T19. out of core: (a) T3's training set re-sharded into host
    ``hist_rows@stream`` the accumulate-mode launches of T19 (a)'s streamed
    runs) and, last, the device line.
 
-The card-vs-CPU phases (T4, T7, T9, T12, T15b, T16b) train their CPU
+The card-vs-CPU phases (T4, T7, T9, T12, T15b, T16b, T20b) train their CPU
 sides in ``CPU_WORKERS`` spawned worker processes beside the card's runs;
 each phase stops its processes when it ends.
 
@@ -318,24 +342,26 @@ HIGGS_ROWS = 10_500_000         # HIGGS's training rows (bench.py)
 VALID_ROWS = 500_000
 MAX_BIN = 255
 ROUNDS = 5                      # T3 (cut from 10: the script's time)
-QUANT_ROUNDS = 6                # T6 (cut from 10: the script's time)
-EFB_ROUNDS = 6                  # T7 (cut from 10: the script's time)
+QUANT_ROUNDS = 4                # T6 (cut from 10, from 6 for T20: the script's time)
+EFB_ROUNDS = 4                  # T7 (cut from 10, from 6 for T20: the script's time)
 MSLR_F = 136                    # MSLR-WEB30K features
 MSLR_QUERIES = 18_919           # MSLR-WEB30K Fold 1's training queries
 MSLR_VALID_QUERIES = 2_000
 MSLR_MAX_DOCS = 1_251           # its longest query
 RANK_ROUNDS = 3                 # T8 (cut from 10: the script's time)
-RANK_CPU_ROUNDS = 12            # T9 (cut from 20: the script's time)
+RANK_CPU_ROUNDS = 6             # T9 (cut from 20, from 12 for T20: the script's time)
 RANK_SHORT_ROUNDS = 3
 LAYOUT_ROUNDS = 2               # T17 (a)-(c) (cut from 3 for T19)
 STREAM_ROUNDS = 2               # T19 (a)
-CARD_CPU_ROUNDS = 20            # T4 (cut from 30 for T19: the script's time)
-OBJ_CPU_ROUNDS = 6              # T12 (cut from 10 for T19: the script's time)
+CARD_CPU_ROUNDS = 10            # T4 (cut from 30 for T19, from 20 for T20: the script's time)
+OBJ_CPU_ROUNDS = 3              # T12 (cut from 10 for T19, from 6 for T20: the script's time)
 STREAM_SHARD_ROWS = 1 << 20     # T19: host shards of 2^20 rows
 STREAM_WINDOWS = (65_536, 4_096)   # T19 (b): predict_stream window rows
 STREAM_DEPTHS = (1, 2, 4)       # T19 (b): ring depths
 STREAM_CONTRIB_ROWS = 4096      # T19 (c)
 LAYOUT_RANK_ROUNDS = 2          # T17 (d)
+API_CV_ROWS = 1 << 20           # T20 (e): cv on T3's first 2^20 rows
+API_CPU_ROUNDS = 10             # T20b
 # UCI Covertype: 581,012 rows split 80/20, 54 features (10 continuous, 4
 # wilderness and 40 soil one-hot columns), 7 cover types with these shares
 COV_TRAIN, COV_VALID = 464_809, 116_203
@@ -1115,6 +1141,8 @@ def train_phase(args, smi: str):
     tr.construct(cfg)
     va.construct(cfg)
     build_s = time.perf_counter() - t0
+    # T20 (e) cross-validates the first 2^20 raw rows
+    head = (Xtr[:API_CV_ROWS].copy(), ytr[:API_CV_ROWS].copy())
     del Xtr
     print(f"T3 data: {args.rows} x {F} train + {VALID_ROWS} valid rows made "
           f"in {gen_s:.1f} s; Dataset construction (binning) {build_s:.1f} s")
@@ -1191,9 +1219,10 @@ def train_phase(args, smi: str):
           f"{k_calls} kernel launches ({lr.hist_builds} histograms, each the "
           f"main kernel and its f32 pass; torch.profiler), "
           f"{100 * k_ms / tree_ms:.1f}% of the tree's host wall [{smi}]")
-    return {"bst": bst, "Xva": Xva, "launches": launches, "train": tr,
-            "valid": va, "params": params, "auc": auc[-1],
-            "median_ms": statistics.median(walls)}
+    return {"bst": bst, "Xva": Xva, "launches": launches,
+            "train": tr, "valid": va, "params": params, "auc": auc[-1],
+            "logloss": ll[-1], "median_ms": statistics.median(walls),
+            "head": head}
 
 
 def quant_phase(t3: dict, smi: str):
@@ -1480,6 +1509,8 @@ def serve_trained_phase(bst, Xva, dev, smi: str, tag: str = "T5") -> None:
     forest, depth = forest_to_arrays(gb.models, device=dev)
     oracle = predict_forest(torch.from_numpy(data).to(dev), forest,
                             [0] * len(gb.models), 1, depth)[0].cpu().numpy()
+    if gb.average_output:                   # RF: the mean of the trees
+        oracle = oracle / np.float32(len(gb.models))
     check_answers(answers, plan, oracle)
     print(f"{tag} served the trained model ({len(gb.models)} trees, "
           f"{len(text) / 1e6:.2f} MB of text): {REQUESTS} requests in "
@@ -1785,7 +1816,7 @@ def hist_mslr_phase(dev, t8: dict, smi: str) -> dict:
 
 
 def rank_card_vs_cpu_phase(smi: str) -> None:
-    """T9: 200 queries x 25 documents x 20 features, 63 leaves, 12 rounds,
+    """T9: 200 queries x 25 documents x 20 features, 63 leaves, 6 rounds,
     trained on the card and on the CPU: ndcg, lambdagap-s,
     lambdagap-x-plus-plus, rank_xendcg, and positions with by-query
     bagging; predictions on the training rows within rtol 1e-4 / atol
@@ -2276,7 +2307,7 @@ def covtype_serve_phase(t11: dict, dev, smi: str) -> None:
 
 def objectives_card_vs_cpu_phase(smi: str) -> None:
     """T12: 16,000 rows x 20 features, one 12-category column, 31 leaves,
-    6 rounds with a validation set and early stopping, every objective
+    3 rounds with a validation set and early stopping, every objective
     this slice adds, each on the card and on the CPU: training-row
     predictions within rtol 1e-4 / atol 1e-5, the same best_iteration."""
     import lambdagap_tpu_torch as lgt
@@ -2727,7 +2758,7 @@ T15_FORCED = {"feature": 3, "threshold": 0.0,
               "right": {"feature": 4, "threshold": 0.0}}
 T15_FORCED_BFS = [3, 1, 4, 2]     # the forced nodes' features, step order
 OPTION_ROUNDS = 2                 # T15 (cut from 3: the script's time)
-OPTION_CPU_ROUNDS = 10            # T15b: early_stopping(5) can fire
+OPTION_CPU_ROUNDS = 8             # T15b: early_stopping(5) can fire (cut from 10 for T20)
 
 
 def option_variants(f: int, forced_path: str, mono: dict, groups: list,
@@ -2960,7 +2991,7 @@ def options_phases(t3: dict, dev, smi: str) -> dict:
 # T16-T16b: the host-driven serial learner at HIGGS width; card against CPU
 # ---------------------------------------------------------------------------
 SERIAL_ROUNDS = 2                 # T16 (cut from 3: the script's time)
-SERIAL_CPU_ROUNDS = 10          # T16b: early_stopping(5) can fire
+SERIAL_CPU_ROUNDS = 8           # T16b: early_stopping(5) can fire (cut from 10 for T20)
 # eight features with a coupled cost, six of them ones the label depends on
 T16_COUPLED = (1, 2, 3, 4, 5, 9, 13, 17)
 # (r)'s split penalty, paid a row of the split leaf: (c)'s 0.1 a row
@@ -3069,7 +3100,7 @@ def serial_phase(t3: dict, dev, smi: str) -> dict:
 
 def serial_card_vs_cpu_phase(smi: str) -> None:
     """T16b: (s), (c), (r), (l), (v), softmax and regression_l1 on the
-    serial learner at 16,000 x 20, 31 leaves, 10 rounds, on the card and
+    serial learner at 16,000 x 20, 31 leaves, 8 rounds, on the card and
     on the CPU."""
     rng = np.random.RandomState(0)
     X = rng.randn(20_000, 20)
@@ -3325,7 +3356,7 @@ def layout_phases(t3: dict, t8: dict, dev, seed: int, smi: str) -> dict:
 # cross-model packing (the fused kernel's packed mode)
 # ---------------------------------------------------------------------------
 REG_REQUESTS = 240              # T18 (a): mixed requests over the members
-REG_SWAPS = 10                  # T18 (c): swaps of default under load
+REG_SWAPS = 6                   # T18 (c): swaps of default under load (cut from 10 for T20)
 REG_BASE_TREES = 400            # T18 (c)-(d): the delta's base
 PACK_ROWS = 4096                # T18 (e): the packed launch timed
 
@@ -3517,7 +3548,7 @@ def registry_phase(seed: int, dev, smi: str, text: str) -> dict:
           f"{snapb['cache']['compiles_shared']} "
           f"({time.perf_counter() - t0:.1f} s) [{smi}]")
 
-    # (c) on (a)'s server: 10 swaps of default between the full forest and
+    # (c) on (a)'s server: 6 swaps of default between the full forest and
     # its first 400 trees while 4 threads submit; (d) the delta swap back
     # to the full forest, a stale delta, the breaker
     t0 = time.perf_counter()
@@ -3987,6 +4018,425 @@ def stream_phases(t3: dict, smi: str) -> dict:
     return t19
 
 
+# ---------------------------------------------------------------------------
+# T20: the training API on T3's Datasets: fobj and feval, init_model, DART,
+# RF, cv, reset_parameter; T20b the same at 16,000 x 20, card against CPU
+# ---------------------------------------------------------------------------
+def binary_fobj(preds, train_data):
+    """Binary logloss gradients in numpy (sigmoid 1), flat."""
+    y = train_data.metadata.label
+    p = 1.0 / (1.0 + np.exp(-preds.astype(np.float64)))
+    return (p - y).astype(np.float32), (p * (1.0 - p)).astype(np.float32)
+
+
+def raw_logloss(raw, label) -> float:
+    """Binary logloss of raw scores (``feval`` of an ``objective=none``
+    booster, whose converted scores are its raw ones)."""
+    p = np.clip(1.0 / (1.0 + np.exp(-np.asarray(raw, np.float64))),
+                1e-15, 1 - 1e-15)
+    y = np.asarray(label, np.float64)
+    return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+
+
+class _Walls:
+    """Each round's wall: from the round's start (``callbacks()``' first,
+    a before-iteration callback, starts the clock as round 1 begins,
+    after the booster is built and any model replayed) or the last
+    round's end, to the round's end."""
+
+    def __init__(self) -> None:
+        self.walls = []
+        self.t_last = time.perf_counter()
+
+    def start(self) -> None:
+        self.t_last = time.perf_counter()
+
+    def __call__(self, env=None) -> None:
+        now = time.perf_counter()
+        self.walls.append((now - self.t_last) * 1e3)
+        self.t_last = now
+
+    def callbacks(self) -> list:
+        def begin(env) -> None:
+            if env.iteration == 0:
+                self.start()
+        begin.before_iteration = True
+        return [begin, self]
+
+
+def k1_counted(tag: str, run, built) -> tuple:
+    """``run()`` with the K1 and K2 counts zeroed just before and read just
+    after: K1 launches must equal ``built(result)``, the histograms the run
+    built, and K2 must stay unlaunched. Returns (result, K1 launches)."""
+    import torch
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    torch.cuda.synchronize()
+    hc.HIST_LAUNCHES.reset()
+    hc.HIST_Q_LAUNCHES.reset()
+    out = run()
+    torch.cuda.synchronize()
+    k1, k2 = hc.HIST_LAUNCHES.launches, hc.HIST_Q_LAUNCHES.launches
+    want = built(out)
+    check(k1 > 0 and k1 == want, f"{tag}: K1 launches {k1} != leaf "
+          f"histograms built {want}")
+    check(k2 == 0, f"{tag}: launched K2 {k2} times")
+    return out, k1
+
+
+def leaves_from(bst, first: int = 0) -> int:
+    """The leaf histograms the fused learner built for the trees from
+    index ``first`` on (one a leaf: the root's, then the smaller child's
+    at each split)."""
+    return sum(t.num_leaves for t in bst._booster.host_models[first:])
+
+
+def valid_equals_predict(tag: str, bst, Xva, rtol: float = 1e-5,
+                         atol: float = 1e-6) -> float:
+    """``predict(raw_score=True)`` on the validation rows equals the
+    booster's own validation scores (the forest replays, the in-place
+    renormalizations and the predict caches agree)."""
+    got = bst.predict(Xva, raw_score=True)
+    own = bst._booster.valid_scores[0][0].cpu().numpy()
+    d = float(np.abs(got - own).max())
+    check(np.allclose(got, own, rtol=rtol, atol=atol),
+          f"{tag}: predict(raw_score=True) != the booster's validation "
+          f"scores (max |diff| {d})")
+    return d
+
+
+def api_fobj_phase(t3: dict, smi: str) -> dict:
+    """T20 (a): ``objective=none`` on T3's Datasets, a numpy
+    binary-logloss fobj through ``Booster.update``, 2 rounds, a feval of
+    the validation logloss."""
+    import torch
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.metrics import create_metrics
+    va_ds = t3["valid"].construct()
+    yva = va_ds.metadata.label
+    builtin = create_metrics(lgt.Config.from_params(
+        {"objective": "binary", "metric": "binary_logloss"}),
+        va_ds.metadata, va_ds.num_data)[0]
+
+    def run():
+        bst = lgt.Booster(params={**t3["params"], "objective": "none"},
+                          train_set=t3["train"])
+        bst.add_valid(t3["valid"], "valid_0")
+        walls, fev = _Walls(), []
+        walls.start()
+        for _ in range(2):
+            bst.update(fobj=binary_fobj)
+            torch.cuda.synchronize()
+            walls()
+            fev.append(raw_logloss(bst._booster.valid_scores[0][0].cpu()
+                                   .numpy(), yva))
+        return bst, walls.walls, fev
+
+    (bst, walls, fev), k1 = k1_counted("T20(a)", run,
+                                       lambda o: leaves_from(o[0]))
+    gb = bst._booster
+    check(gb.scores.is_cuda and gb.objective is None,
+          "T20(a): not an objective=none booster on the card")
+    check(fev[-1] < fev[0], f"T20(a): the feval logloss did not fall: "
+          f"{fev}")
+    raw = gb.valid_scores[0]
+    conv = (1.0 / (1.0 + torch.exp(-raw))).cpu().numpy().astype(np.float64)
+    (_, ll), = builtin.eval(conv[0])
+    check(np.isclose(fev[-1], ll, rtol=1e-6, atol=0), f"T20(a): feval "
+          f"{fev[-1]} != binary_logloss {ll} of the same scores")
+    print(f"T20(a) [fobj + feval]: rounds (ms) "
+          f"{', '.join(f'{w:.1f}' for w in walls)}; K1 launches {k1} == "
+          f"histograms built; feval valid logloss {fev[0]:.5f} -> "
+          f"{fev[-1]:.5f} (== binary_logloss {ll:.5f}) [{smi}]")
+    del bst
+    return {"walls": walls}
+
+
+def api_init_model_phase(t3: dict, smi: str) -> dict:
+    """T20 (b): T3's 5-round model continued 2 rounds with ``init_model``;
+    the replayed scores against T3's own, a late ``add_valid``."""
+    import torch
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.models.gbdt import GBDT
+    g3 = t3["bst"]._booster
+    seen, replay = {}, []
+    orig = GBDT.resume_from
+
+    def timed(gb, trees):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig(gb, trees)
+        torch.cuda.synchronize()
+        replay.append((time.perf_counter() - t0) * 1e3)
+
+    def first(env):
+        if "scores" not in seen:
+            gb = env.model._booster
+            seen["scores"] = gb.scores.clone()
+            seen["valid"] = gb.valid_scores[0].clone()
+    first.before_iteration = True
+    walls, ev = _Walls(), {}
+
+    def run():
+        GBDT.resume_from = timed
+        try:
+            return lgt.train(t3["params"], t3["train"], 2,
+                             valid_sets=[t3["valid"]],
+                             init_model=t3["bst"],
+                             callbacks=[first, lgt.record_evaluation(ev)]
+                             + walls.callbacks())
+        finally:
+            GBDT.resume_from = orig
+
+    bst, k1 = k1_counted("T20(b)", run, lambda b: leaves_from(b, ROUNDS))
+    check(bst.num_trees() == ROUNDS + 2,
+          f"T20(b): {bst.num_trees()} trees, not {ROUNDS + 2}")
+    for what, got, want in (("training", seen["scores"], g3.scores),
+                            ("validation", seen["valid"],
+                             g3.valid_scores[0])):
+        d = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=1e-6, atol=1e-6),
+              f"T20(b): replayed {what} scores part from T3's (max |diff| "
+              f"{d})")
+        print(f"T20(b): replayed {what} scores == T3's final ones (max "
+              f"|diff| {d:.3g})")
+    ll = ev["valid_0"]["binary_logloss"]
+    check(ll[-1] < t3["logloss"], f"T20(b): valid logloss {ll[-1]} not "
+          f"below T3's {t3['logloss']}")
+    gb = bst._booster
+    bst.add_valid(t3["valid"], "late")
+    d = float((gb.valid_scores[1] - gb.valid_scores[0]).abs().max())
+    check(torch.allclose(gb.valid_scores[1], gb.valid_scores[0],
+                         rtol=1e-6, atol=1e-6),
+          f"T20(b): the late validation set's replay != the scores "
+          f"built round by round (max |diff| {d})")
+    print(f"T20(b) [init_model]: replay of {ROUNDS} trees over "
+          f"{gb.num_data} + {t3['valid'].num_data()} rows {replay[0]:.1f} "
+          f"ms; rounds (ms) {', '.join(f'{w:.1f}' for w in walls.walls)};"
+          f" K1 launches {k1} == histograms built; {bst.num_trees()} "
+          f"trees; valid logloss {t3['logloss']:.5f} (T3) -> {ll[-1]:.5f};"
+          f" a late add_valid == the incremental scores (max |diff| "
+          f"{d:.3g}) [{smi}]")
+    del bst, gb
+    return {"walls": walls.walls, "replay_ms": replay[0]}
+
+
+def api_boosting_phase(t3: dict, dev, smi: str, tag: str, extra: dict
+                       ) -> dict:
+    """T20 (c) DART / (d) RF on T3's Datasets, 3 rounds: K1 launches ==
+    histograms built, the booster's validation scores == its
+    ``predict(raw_score=True)``, the served model == the scan oracle."""
+    import lambdagap_tpu_torch as lgt
+    walls = _Walls()
+
+    def run():
+        return lgt.train({**t3["params"], **extra}, t3["train"], 3,
+                         valid_sets=[t3["valid"]],
+                         callbacks=walls.callbacks())
+
+    bst, k1 = k1_counted(tag, run, leaves_from)
+    gb = bst._booster
+    check(type(gb).__name__ == {"dart": "DART", "rf": "RF"}[
+        extra["boosting"]], f"{tag}: booster {type(gb).__name__}")
+    d = valid_equals_predict(tag, bst, t3["Xva"])
+    note = ""
+    if extra["boosting"] == "dart":
+        check(len(gb.tree_weight) == 3, f"{tag}: tree weights "
+              f"{gb.tree_weight}")
+        note = f"; tree weights {[round(w, 5) for w in gb.tree_weight]}"
+    else:
+        check(gb.average_output, f"{tag}: not averaged")
+    print(f"{tag}: rounds (ms) {', '.join(f'{w:.1f}' for w in walls.walls)}"
+          f"; K1 launches {k1} == histograms built; trees of "
+          f"{[t.num_leaves for t in gb.host_models]} leaves; "
+          f"predict(raw) == validation scores (max |diff| {d:.3g}){note} "
+          f"[{smi}]")
+    serve_trained_phase(bst, t3["Xva"], dev, smi, tag=tag)
+    del bst, gb
+    return {"walls": walls.walls}
+
+
+def api_cv_phase(t3: dict, smi: str) -> dict:
+    """T20 (e): ``cv`` with nfold=3, 2 rounds, on T3's first 2^20 rows
+    under ``free_raw_data=False``."""
+    import lambdagap_tpu_torch as lgt
+    X, y = t3["head"]
+    binning = [0.0]
+    orig = lgt.Dataset.construct
+
+    def timed(ds, config=None):
+        t0 = time.perf_counter()
+        fresh = ds._constructed is None
+        out = orig(ds, config)
+        if fresh and ds.used_indices is not None:
+            binning[0] += time.perf_counter() - t0
+        return out
+
+    def run():
+        lgt.Dataset.construct = timed
+        try:
+            t0 = time.perf_counter()
+            res = lgt.cv(t3["params"], lgt.Dataset(X, label=y,
+                                                   free_raw_data=False), 2,
+                         nfold=3, return_cvbooster=True)
+            return res, time.perf_counter() - t0
+        finally:
+            lgt.Dataset.construct = orig
+
+    (res, secs), k1 = k1_counted(
+        "T20(e)", run, lambda o: sum(leaves_from(b)
+                                     for b in o[0]["cvbooster"].boosters))
+    cvb = res["cvbooster"]
+    folds = [dict((m, v) for _, m, v, _ in ev) for ev in cvb.eval_valid()]
+    mean = res["valid binary_logloss-mean"][-1]
+    want = float(np.mean([f["binary_logloss"] for f in folds]))
+    check(len(cvb.boosters) == 3 and np.isclose(mean, want, rtol=1e-12),
+          f"T20(e): valid binary_logloss-mean {mean} != the folds' mean "
+          f"{want}")
+    check(all(b._booster.scores.is_cuda for b in cvb.boosters),
+          "T20(e): a fold did not train on the card")
+    print(f"T20(e) [cv, nfold=3, {len(y)} rows]: {secs:.1f} s, of which "
+          f"the folds' binning {binning[0]:.1f} s; K1 launches {k1} == "
+          f"histograms built; valid binary_logloss-mean "
+          f"{res['valid binary_logloss-mean'][0]:.5f} -> {mean:.5f} (== "
+          f"the folds' mean), stdv {res['valid binary_logloss-stdv'][-1]:.2g}"
+          f"; valid auc-mean {res['valid auc-mean'][-1]:.5f} [{smi}]")
+    return {"secs": secs, "binning": binning[0]}
+
+
+def api_reset_phase(t3: dict, smi: str) -> dict:
+    """T20 (f): ``reset_parameter(learning_rate=[0.1, 0.05])`` over 2
+    rounds; the model text's shrinkage lines follow the schedule."""
+    import lambdagap_tpu_torch as lgt
+    walls = _Walls()
+    schedule = [0.1, 0.05]
+
+    def run():
+        return lgt.train(t3["params"], t3["train"], 2,
+                         valid_sets=[t3["valid"]],
+                         callbacks=[lgt.reset_parameter(
+                             learning_rate=schedule)] + walls.callbacks())
+
+    bst, k1 = k1_counted("T20(f)", run, leaves_from)
+    shrink = [float(ln.split("=", 1)[1])
+              for ln in bst.model_to_string().splitlines()
+              if ln.startswith("shrinkage=")]
+    check(shrink == schedule, f"T20(f): shrinkage lines {shrink}, not "
+          f"{schedule}")
+    print(f"T20(f) [reset_parameter]: rounds (ms) "
+          f"{', '.join(f'{w:.1f}' for w in walls.walls)}; K1 launches {k1} "
+          f"== histograms built; shrinkage lines {shrink} [{smi}]")
+    del bst
+    return {"walls": walls.walls}
+
+
+def api_train(params: dict, rounds: int, data: dict, api: str) -> dict:
+    """One T20b run (on the card, or with ``device_type=cpu`` in a CPU
+    worker): ``fobj`` (``objective=none`` through ``Booster.update``; the
+    best round the one of least validation logloss), ``init_model`` (a
+    5-round model continued), or ``train`` (with the params' boosting and
+    any ``reset_parameter`` schedule in ``data``), early stopping after 5
+    rounds. Returns the training-row predictions, best_iteration and the
+    seconds."""
+    import lambdagap_tpu_torch as lgt
+    X, y, Xv, yv = data["X"], data["y"], data["Xv"], data["yv"]
+    tr = lgt.Dataset(X, label=y)
+    va = lgt.Dataset(Xv, label=yv, reference=tr)
+    t0 = time.perf_counter()
+    if api == "fobj":
+        bst = lgt.Booster(params={**params, "objective": "none"},
+                          train_set=tr)
+        bst.add_valid(va, "valid_0")
+        hist = []
+        for _ in range(rounds):
+            bst.update(fobj=binary_fobj)
+            hist.append(raw_logloss(bst._booster.valid_scores[0][0].cpu()
+                                    .numpy(), yv))
+        best = int(np.argmin(hist)) + 1
+    else:
+        kw = {}
+        if api == "init_model":
+            kw["init_model"] = lgt.train(params, tr, 5)
+            rounds -= 5
+        cbs = [lgt.early_stopping(5, verbose=False)]
+        if data.get("schedule"):
+            cbs.append(lgt.reset_parameter(learning_rate=data["schedule"]))
+        bst = lgt.train(params, tr, rounds, valid_sets=[va], callbacks=cbs,
+                        **kw)
+        best = bst.best_iteration
+    return {"pred": bst.predict(X), "best": best,
+            "secs": time.perf_counter() - t0}
+
+
+def api_card_vs_cpu_phase(smi: str) -> None:
+    """T20b: fobj, init_model, DART, RF and reset_parameter at 16,000 x 20,
+    31 leaves, 10 rounds, on the card and on the CPU."""
+    rng = np.random.RandomState(0)
+    X = rng.randn(20_000, 20)
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + 0.3 * rng.randn(20_000) > 0
+         ).astype(np.float64)
+    data = {"X": X[:16_000], "y": y[:16_000], "Xv": X[16_000:],
+            "yv": y[16_000:]}
+    base = {"objective": "binary", "metric": ["binary_logloss", "auc"],
+            "num_leaves": 31, "learning_rate": 0.1, "verbose": -1}
+    runs = [
+        ("fobj", base, "fobj", {}),
+        ("init_model (5 + 5 rounds)", base, "init_model", {}),
+        ("DART 0.5", {**base, "boosting": "dart", "drop_rate": 0.5,
+                      "skip_drop": 0.0}, "train", {}),
+        ("RF 0.5/1", {**base, "boosting": "rf", "bagging_fraction": 0.5,
+                      "bagging_freq": 1}, "train", {}),
+        ("reset_parameter", base, "train",
+         {"schedule": [0.2 - 0.015 * i for i in range(API_CPU_ROUNDS)]}),
+    ]
+    with CpuSide() as cpu:
+        futs = [cpu.pool.submit(api_train, {**p, "device_type": "cpu"},
+                                API_CPU_ROUNDS, {**data, **d}, api)
+                for _, p, api, d in runs]
+        cards = [api_train(p, API_CPU_ROUNDS, {**data, **d}, api)
+                 for _, p, api, d in runs]
+        cpus = [f.result() for f in futs]
+    for (what, *_), c, p in zip(runs, cards, cpus):
+        d = float(np.abs(c["pred"] - p["pred"]).max())
+        check(np.allclose(c["pred"], p["pred"], rtol=1e-4, atol=1e-5),
+              f"T20b [{what}]: card != CPU predictions (max |diff| {d})")
+        check(c["best"] == p["best"], f"T20b [{what}]: best_iteration card "
+              f"{c['best']} != CPU {p['best']}")
+        print(f"T20b card == CPU [{what}]: predictions max |diff| {d:.3g}, "
+              f"best_iteration {c['best']}; train {c['secs']:.1f} s on the "
+              f"card, {p['secs']:.1f} s on the CPU [{smi}]")
+
+
+def api_phases(t3: dict, dev, smi: str) -> None:
+    """T20 (a)-(f) on T3's Datasets, then T20b."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"T3": t3["median_ms"]}
+    variants = [
+        ("(a) fobj", lambda: api_fobj_phase(t3, smi)),
+        ("(b) init_model", lambda: api_init_model_phase(t3, smi)),
+        ("(c) DART", lambda: api_boosting_phase(
+            t3, dev, smi, "T20(c) [DART 0.5, skip_drop 0]",
+            {"boosting": "dart", "drop_rate": 0.5, "skip_drop": 0.0})),
+        ("(d) RF", lambda: api_boosting_phase(
+            t3, dev, smi, "T20(d) [RF, bagging 0.5/1]",
+            {"boosting": "rf", "bagging_fraction": 0.5,
+             "bagging_freq": 1})),
+        ("(e) cv", lambda: api_cv_phase(t3, smi)),
+        ("(f) reset_parameter", lambda: api_reset_phase(t3, smi)),
+    ]
+    for name, run in variants:
+        out[name] = run()
+        torch.cuda.empty_cache()
+    print("T20 median round (ms): " + "; ".join(
+        f"{name} {statistics.median(r['walls']):.1f}"
+        for name, r in out.items() if isinstance(r, dict) and "walls" in r)
+        + f"; T3 {t3['median_ms']:.1f} [{smi}]")
+    print(f"T20: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    api_card_vs_cpu_phase(smi)
+    print(f"T20b: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3995,7 +4445,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("all", "kernels", "rank",
                                        "objectives", "predict", "shap",
                                        "options", "serial", "layout",
-                                       "registry", "stream"),
+                                       "registry", "stream", "api"),
                     default="all",
                     help="kernels: phases 1-4 (with the SASS check), T2 and "
                     "T2q; rank: phases 1-2, T8, T2 at 136 features, T9 and "
@@ -4006,7 +4456,8 @@ def main() -> int:
                     "T3, T15 and T15b; serial: phases 1-2, T3, T16 and "
                     "T16b; layout: phases 1-2, T3, T8's data and T17; "
                     "registry: phases 1-3 and T18; stream: phases 1-2, T3 "
-                    "and T19; each then stops without a result line")
+                    "and T19; api: phases 1-2, T3, T20 and T20b; each then "
+                    "stops without a result line")
     args = ap.parse_args()
 
     import torch
@@ -4086,6 +4537,13 @@ def main() -> int:
         stream_phases(t3, smi)
         print(f"chip_smoke: stream phases passed in "
               f"{time.perf_counter() - t_start:.1f} s (--only stream: no "
+              "result)")
+        return 0
+    if args.only == "api":
+        t3 = train_phase(args, smi)
+        api_phases(t3, dev, smi)
+        print(f"chip_smoke: training-API phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--only api: no "
               "result)")
         return 0
     if args.only == "objectives":
@@ -4247,6 +4705,9 @@ def main() -> int:
 
     # -- T19. out of core: stream training, predict_stream, pred_contrib ----
     t19 = stream_phases(t3, smi)
+
+    # -- T20. the training API on T3's Datasets; T20b card vs CPU -----------
+    api_phases(t3, dev, smi)
 
     # -- T17. sorted against gather on T3's and T8's Datasets; windows -------
     t17 = layout_phases(t3, t8, dev, args.seed + 17, smi)

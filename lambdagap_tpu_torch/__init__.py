@@ -11,6 +11,8 @@ serves it::
     bst = lgt.train({"objective": "binary", "metric": ["auc"]}, train,
                     100, valid_sets=[valid],
                     callbacks=[lgt.early_stopping(10)])  # CUDA histograms
+    more = lgt.train(params, train, 20, init_model=bst)  # continued
+    res = lgt.cv(params, lgt.Dataset(X, label=y, free_raw_data=False), 50)
     server = lgt.Booster(model_str=bst.model_to_string()).as_server()
     y = server.predict(rows)                     # CUDA traversal
     server.add_model("b", "model_b.txt")         # a multi-model registry
@@ -27,8 +29,10 @@ K}`` (or ``multiclassova``), K trees a round, ``multi_logloss`` /
 A Booster also answers ``predict(..., pred_leaf=True)`` (the traversal
 kernel's carry under the default ``compiled`` engine) and
 ``predict(..., pred_contrib=True)`` (TreeSHAP on a CUDA kernel), refits,
-rolls back, dumps its JSON and pickles; ``predict_engine`` is ``compiled``,
-``tensor`` or ``scan``, all bit-identical. ``LGBMRegressor`` /
+rolls back, dumps its JSON and pickles; it trains on custom gradients
+(``update(fobj=)``, ``objective=none``), takes ``reset_parameter`` and
+``feval``, and boosts as ``gbdt``, ``dart`` or ``rf``. ``predict_engine``
+is ``compiled``, ``tensor`` or ``scan``, all bit-identical. ``LGBMRegressor`` /
 ``LGBMClassifier`` / ``LGBMRanker`` wrap ``train`` for scikit-learn users.
 
 Out of core, the binned matrix stays in host row shards and the learners
@@ -44,15 +48,41 @@ CPU runs every kernel's plain PyTorch version. See README.md ("The PyTorch
 port") for what is ported and ROADMAP.md for what is not yet.
 """
 from .basic import Booster, Dataset, Sequence
-from .callback import early_stopping, log_evaluation, record_evaluation
+from .callback import (EarlyStopException, early_stopping, log_evaluation,
+                       record_evaluation, reset_parameter)
 from .config import Config
+from .data.dataset import BinnedDataset, Metadata
 from .data.stream import ShardedBinnedDataset
-from .engine import train
-from .serve import ForestServer
+from .engine import CVBooster, cv, train
+from .models.gbdt import GBDT
+from .models.tree import Tree
+from .serve import ForestServer, ServeResult
 from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
+from .utils.log import register_logger
 
-__all__ = ["Booster", "Config", "Dataset", "ForestServer", "LGBMClassifier",
-           "LGBMModel", "LGBMRanker", "LGBMRegressor", "Sequence",
-           "ShardedBinnedDataset", "early_stopping",
-           "log_evaluation", "record_evaluation", "train"]
+__all__ = ["BinnedDataset", "Booster", "CVBooster", "Config", "Dataset",
+           "EarlyStopException", "ForestServer", "GBDT", "LGBMClassifier",
+           "LGBMModel", "LGBMRanker", "LGBMRegressor", "Metadata",
+           "Sequence", "ServeResult", "ShardedBinnedDataset", "Tree", "cv",
+           "early_stopping", "log_evaluation", "record_evaluation",
+           "register_logger", "reset_parameter", "train"]
 __version__ = "0.2.0"
+
+# names the JAX package exports from layers the port does not carry yet:
+# asking for one raises, naming it, instead of an AttributeError
+_UNPORTED = {
+    "train_cluster": "multi-process training (ROADMAP.md, Queue 1 item 8)",
+    "plot_importance": "plotting (ROADMAP.md, Queue 1 item 7)",
+    "plot_metric": "plotting (ROADMAP.md, Queue 1 item 7)",
+    "plot_split_value_histogram": "plotting (ROADMAP.md, Queue 1 item 7)",
+    "plot_tree": "plotting (ROADMAP.md, Queue 1 item 7)",
+    "create_tree_digraph": "plotting (ROADMAP.md, Queue 1 item 7)",
+}
+
+
+def __getattr__(name):
+    if name in _UNPORTED:
+        raise NotImplementedError(
+            f"{name} is not ported to lambdagap_tpu_torch yet: "
+            f"{_UNPORTED[name]}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

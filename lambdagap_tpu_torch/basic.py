@@ -12,8 +12,13 @@ serve (``as_server``), save, dump, refit, roll back, and answer the JAX
 model string. Entry points run on the card by default
 (``device_type="cuda"``, raising where there is none);
 ``params={"device_type": "cpu"}`` runs every kernel's plain version on the
-CPU. A scipy sparse matrix is predicted one dense window of 65,536 rows at
-a time. A ``Sequence`` (or a list of them) is binned streamingly
+CPU. ``Booster.update(fobj=)`` trains on custom gradients,
+``Booster.reset_parameter`` changes parameters mid-run, and a Booster is
+built through ``models.dart.create_boosting`` (``boosting=gbdt|dart|rf``).
+A ``Dataset`` keeps its raw matrix under ``free_raw_data=False``, which
+``subset`` (cv's folds) needs; ``set_label`` / ``set_weight`` /
+``set_init_score`` reach the binned dataset once it is built. A scipy
+sparse matrix is predicted one dense window of 65,536 rows at a time. A ``Sequence`` (or a list of them) is binned streamingly
 (``BinnedDataset.from_sequences``), and an already-built
 ``ShardedBinnedDataset`` passes through to out-of-core training;
 ``Booster.predict_stream`` scores out of core (``infer/stream.py``).
@@ -26,6 +31,7 @@ import os
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
 from .config import Config
 from .data.dataset import BinnedDataset
@@ -60,6 +66,19 @@ class Sequence:
         raise NotImplementedError("Sequence.__len__")
 
 
+def _fobj_tensor(a, what: str, K: int, N: int, device):
+    """A custom gradient or hessian as [K, N] float32 on the booster's
+    device. Only a flat class-major array is taken: the JAX package reads
+    it with ``reshape(K, -1)``, which would scramble the classes of the
+    [N, K] matrix LightGBM 4 takes (ROADMAP.md, Queue 3)."""
+    a = np.asarray(a, np.float32)
+    if a.ndim != 1 or a.size != K * N:
+        raise ValueError(
+            f"fobj returned a {what} of shape {a.shape}; give a flat "
+            f"class-major array of {K} x {N} = {K * N} values")
+    return torch.from_numpy(np.ascontiguousarray(a.reshape(K, N))).to(device)
+
+
 def _refuse_file(data) -> None:
     if isinstance(data, (str, os.PathLike)):
         raise NotImplementedError(
@@ -81,7 +100,7 @@ class Dataset:
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None,
-                 position=None) -> None:
+                 free_raw_data: bool = True, position=None) -> None:
         self.data = data
         self.label = label
         self.reference = reference
@@ -92,7 +111,9 @@ class Dataset:
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = dict(params) if params else {}
+        self.free_raw_data = free_raw_data
         self._constructed: Optional[BinnedDataset] = None
+        self.used_indices: Optional[np.ndarray] = None
 
     def construct(self, config: Optional[Config] = None) -> BinnedDataset:
         if self._constructed is not None:
@@ -141,7 +162,8 @@ class Dataset:
                 group=self.group, init_score=self.init_score,
                 position=self.position, categorical_features=categorical,
                 feature_names=names, reference=ref)
-            self.data = None
+            if self.free_raw_data:
+                self.data = None
             return self._constructed
         mat = np.asarray(self.data)
         if mat.dtype not in (np.float32, np.float64):
@@ -151,7 +173,8 @@ class Dataset:
             init_score=self.init_score, group=self.group,
             position=self.position, categorical_features=categorical,
             feature_names=names, reference=ref)
-        self.data = None
+        if self.free_raw_data:
+            self.data = None
         return self._constructed
 
     def num_data(self) -> int:
@@ -169,6 +192,58 @@ class Dataset:
                        group=group, init_score=init_score, params=params,
                        position=position, feature_name=self.feature_name,
                        categorical_feature=self.categorical_feature)
+
+    # -- the lightgbm-compatible setters (lambdagap_tpu/basic.py:326-367) --
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._constructed is not None:
+            self._constructed.metadata.label = \
+                np.asarray(label, np.float32).reshape(-1)
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._constructed is not None and weight is not None:
+            self._constructed.metadata.weight = \
+                np.asarray(weight, np.float32).reshape(-1)
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        if self._constructed is not None and init_score is not None:
+            self._constructed.metadata.init_score = \
+                np.asarray(init_score, np.float64).reshape(-1)
+        return self
+
+    def get_weight(self):
+        if self._constructed is not None:
+            return self._constructed.metadata.weight
+        return self.weight
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """A row subset binned with this dataset's mappers (cv's folds).
+        Like the JAX package's, it carries the label and the weight, not
+        the groups, init scores or positions (ROADMAP.md, Queue 3)."""
+        if self.data is None:
+            log.fatal("Cannot subset: raw data freed "
+                      "(set free_raw_data=False)")
+        if isinstance(self.data, (BinnedDataset, Sequence)) or (
+                isinstance(self.data, list) and self.data
+                and isinstance(self.data[0], Sequence)):
+            log.fatal("Cannot subset a %s: subset takes rows of a raw "
+                      "matrix", type(self.data).__name__)
+        idx = np.asarray(used_indices)
+        sub = Dataset(
+            np.asarray(self.data)[idx],
+            label=None if self.label is None else np.asarray(self.label)[idx],
+            reference=self,
+            weight=None if self.weight is None
+            else np.asarray(self.weight)[idx],
+            feature_name=self.feature_name,
+            categorical_feature=self.categorical_feature,
+            params=params or self.params, free_raw_data=self.free_raw_data)
+        sub.used_indices = idx
+        return sub
 
     def set_group(self, group) -> "Dataset":
         self.group = group
@@ -208,9 +283,11 @@ class Booster:
         self.params = params
         self.best_iteration = -1
         self.best_score: Dict[str, Dict[str, float]] = {}
+        self.train_set = train_set
         if train_set is not None:
+            from .models.dart import create_boosting
             cfg = Config.from_params(params)
-            self._booster = GBDT(cfg, train_set.construct(cfg))
+            self._booster = create_boosting(cfg, train_set.construct(cfg))
         elif model_file is not None:
             self._booster = GBDT.from_model_file(model_file,
                                                  Config.from_params(params))
@@ -228,6 +305,7 @@ class Booster:
         b.params = dict(params or {})
         b.best_iteration = -1
         b.best_score = {}
+        b.train_set = None
         b._booster = gbdt
         b.config = gbdt.config
         return b
@@ -239,10 +317,50 @@ class Booster:
         self._booster.add_valid_set(data.construct(self.config), name)
         return self
 
-    def update(self) -> bool:
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj=None) -> bool:
         """One boosting iteration; returns True if training should stop
-        (reference: basic.py:4050 Booster.update)."""
-        return self._booster.train_one_iter()
+        (reference: basic.py:4050 Booster.update). ``fobj(preds,
+        train_data)`` gives custom gradients: ``preds`` are the raw training
+        scores ([N], or [N, K] for K classes), ``train_data`` the binned
+        training set, and the gradient and hessian come back flat and
+        class-major (K*N values, class k's at ``k*N:(k+1)*N``), as the JAX
+        package reads them."""
+        if train_set is not None and train_set is not self.train_set:
+            raise NotImplementedError(
+                "Booster.update(train_set=) with another dataset is not "
+                "ported to lambdagap_tpu_torch (the JAX package ignores it); "
+                "train a new Booster on it")
+        gb = self._booster
+        if fobj is None:
+            return gb.train_one_iter()
+        K = gb.num_tree_per_iteration
+        raw = gb.scores.cpu().numpy()
+        grad, hess = fobj(raw[0] if K == 1 else raw.T, gb.train_set)
+        return gb.train_one_iter(
+            _fobj_tensor(grad, "grad", K, gb.num_data, gb.device),
+            _fobj_tensor(hess, "hess", K, gb.num_data, gb.device))
+
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """Update training parameters mid-run (reference:
+        Booster.reset_parameter -> LGBM_BoosterResetParameter; the JAX
+        package's ``basic.py:732-743``): the shared config takes them, and
+        a new ``learning_rate`` becomes the shrinkage (never under RF).
+        The learners copy their split parameters when they are built, in
+        both packages, so a change of e.g. ``lambda_l2`` does not reach the
+        trees of a running booster."""
+        self.config.update(params)
+        has_lr = any(Config.canonical_name(k) == "learning_rate"
+                     for k in params)
+        if has_lr and self.config.boosting != "rf":
+            self._booster.shrinkage_rate = float(self.config.learning_rate)
+        return self
+
+    @property
+    def telemetry(self):
+        raise NotImplementedError(
+            "Booster.telemetry is not ported to lambdagap_tpu_torch yet (the "
+            "obs layer: ROADMAP.md, Queue 1 item 5)")
 
     def refit(self, data, label, weight=None, group=None,
               decay_rate: float = 0.9, **kwargs) -> "Booster":
@@ -522,6 +640,7 @@ class Booster:
         state = self.__dict__.copy()
         state["_booster"] = None
         state["config"] = None
+        state["train_set"] = None
         state["_pickled_model"] = self.model_to_string()
         return state
 

@@ -1,6 +1,8 @@
 """Training callbacks (reference: python-package/lightgbm/callback.py —
-log_evaluation, record_evaluation, early_stopping). The port of
-``lambdagap_tpu/callback.py``; ``reset_parameter`` waits for a later slice.
+log_evaluation, record_evaluation, reset_parameter, early_stopping). The
+port of ``lambdagap_tpu/callback.py``. A callback with
+``before_iteration = True`` (``reset_parameter``) runs before each
+round's update, the others after it.
 """
 from __future__ import annotations
 
@@ -45,6 +47,26 @@ def record_evaluation(eval_result: Dict[str, Dict[str, List[float]]]
             eval_result.setdefault(data_name, {}).setdefault(
                 metric_name, []).append(value)
     _callback.order = 20
+    return _callback
+
+
+def reset_parameter(**kwargs) -> Callable:
+    """Reset parameters (e.g. ``learning_rate``) before each round: a
+    value is a list indexed by the round, a function of the round, or a
+    constant."""
+    def _callback(env: CallbackEnv) -> None:
+        new_params = {}
+        for key, value in kwargs.items():
+            if callable(value):
+                new_params[key] = value(env.iteration - env.begin_iteration)
+            elif isinstance(value, (list, tuple)):
+                new_params[key] = value[env.iteration - env.begin_iteration]
+            else:
+                new_params[key] = value
+        if new_params:
+            env.model.reset_parameter(new_params)
+    _callback.before_iteration = True
+    _callback.order = 10
     return _callback
 
 

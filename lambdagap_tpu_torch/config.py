@@ -372,7 +372,7 @@ class Config:
     infer_prune: bool = True             # drop branches no input can reach (exact path-interval analysis)
     infer_merge_trees: bool = True       # trees with identical pruned structure share one traversal
     infer_node_block_kb: int = 512       # node-table bytes per breadth-first block (the traversal kernel's VMEM working set)
-    infer_row_block: int = 256           # rows per traversal-kernel grid step; 0 = default
+    infer_row_block: int = 256           # kept for parity with the JAX package's config (its traversal kernel's rows per grid step); the port reads it nowhere: its kernels size their own tiles
     serve_pack_models: bool = False      # pack resident compiled models into ONE executable; mixed per-tenant batches dispatch once
 
     # -- serve (task=serve / Booster.as_server; docs/serving.md) ----------
@@ -425,7 +425,7 @@ class Config:
     # -- guard (lambdagap_tpu.guard; docs/robustness.md) ------------------
     guard_nonfinite: str = "raise"       # non-finite grad/hess/score policy: raise / skip_tree / clip / off
     guard_clip: float = 1e30             # clip bound for guard_nonfinite=clip
-    resume: str = ""                     # "auto": continue from the latest valid training snapshot
+    resume: str = ""                     # "auto" (continue from the latest valid training snapshot) is refused by name until the snapshots are ported
     guard_snapshot_keep: int = 0         # keep only the newest K snapshots, pruning after each write (the newest VALID one always survives); 0 = keep all
     guard_faults: str = ""               # fault-injection spec (testing; merges over LAMBDAGAP_FAULTS)
 
@@ -492,7 +492,7 @@ class Config:
     num_gpu: int = 1
 
     # TPU-specific knobs (no reference analog; tuning surface for XLA/Pallas)
-    tpu_rows_per_block: int = 4096
+    tpu_rows_per_block: int = 4096           # kept for parity with the JAX package's config (its histogram tiles' rows); the port reads it nowhere: its kernels size their own tiles
     tpu_hist_impl: str = "auto"               # kept for parity with the JAX package's config; the port reads it nowhere: every histogram comes from ops/hist_cuda.hist_rows (the CUDA kernel on the card, its plain version on the CPU)
     # physical row layout during training, in both ported learners:
     #   gather — rows stay in dataset order; the histogram kernels read a
@@ -542,12 +542,11 @@ class Config:
     predict_stream_backoff_s: float = 0.05    # first co-tenant backoff delay (doubles per pressured check, bounded below)
     predict_stream_backoff_max_s: float = 2.0  # backoff delay hard cap
 
-    # gradient operand precision for the MXU histogram contraction:
-    #   split — two-term bf16 (hi + residual) decomposition, ~f32-accurate
-    #           at one extra matmul row-block (default; the reference
-    #           accumulates f32/double histograms, src/io/bin.h reducers)
-    #   bf16  — raw bf16 cast (~2^-9 relative error on grad/hess; fastest)
-    #   f32   — full float32 matmul (slowest, exact)
+    # the JAX package's gradient operand precision for its one-hot MXU
+    # histograms (split: a two-term bf16 decomposition, bf16: a raw bf16
+    # cast, f32: full float32). The port's histograms come from K1, whose
+    # sums are exact: "split" (the default) and "f32" both give them;
+    # "bf16" would round the gradients first and is refused by name
     tpu_hist_precision: str = "split"
 
     # unknown/passthrough params preserved verbatim

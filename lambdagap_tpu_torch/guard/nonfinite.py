@@ -76,6 +76,9 @@ class TrainGuard:
         self._prev: Optional[Dict[str, Any]] = None
         # a round updated the scores and nothing has read them since
         self._unchecked = False
+        # this round's restore point is taken (DART takes it before its
+        # dropout, and the base round's call is then a no-op)
+        self._captured = False
 
     @classmethod
     def from_config(cls, config) -> "TrainGuard":
@@ -87,8 +90,9 @@ class TrainGuard:
 
     # ------------------------------------------------------------------
     def begin_iteration(self, gbdt) -> None:
-        if self.policy == "skip_tree":
+        if self.policy == "skip_tree" and not self._captured:
             self._prev, self._cur = self._cur, gbdt._guard_state_capture()
+            self._captured = True
 
     def admit_gradients(self, gbdt, grad, hess):
         if self.policy == "clip":
@@ -134,6 +138,7 @@ class TrainGuard:
         rng = self._cur["rng"]
         gbdt._guard_state_restore(self._prev, rng)
         self._cur = self._prev = None
+        self._captured = False
         log.warning("guard: non-finite scores after iteration %d — its "
                     "trees dropped, scores restored "
                     "(guard_nonfinite=skip_tree)", it)
@@ -147,6 +152,7 @@ class TrainGuard:
         ok_grad, ok_scores = self._flags(gbdt)
         self._flag = self._read = None
         self._unchecked = True
+        self._captured = False
         if ok_grad and ok_scores:
             return False
         it = gbdt.iter_ - 1

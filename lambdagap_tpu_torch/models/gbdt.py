@@ -28,6 +28,14 @@ in float64, and the scores updated with ``f32(leaf_value)[row_leaf]``
 permutation, the JAX package's ``_add_tree_score``). That path stops when
 no class's tree splits, as the JAX package's does.
 
+``train_one_iter(grad, hess)`` trains on the caller's gradients (custom
+objectives, ``objective=none``; no boost-from-average then).
+``resume_from`` continues from a loaded model's trees, rebound to the
+training set's binning and replayed onto the scores; a validation set
+added after training began is replayed the same way (one binned-forest
+dispatch). DART and RF (``models/dart.py``) drive the host-tree path
+through ``_one_iter``, ``_grow_host_tree`` and ``_add_tree_scores``.
+
 Validation scores take each tree's leaf values as the training scores
 take them; the boost-from-average init score is added to them once, before
 the first tree. (The JAX package's fast path adds that init score a second
@@ -78,6 +86,9 @@ from .tree import Tree
 
 K_EPSILON = 1e-15
 _ROADMAP = "(ROADMAP.md, Queue 1)"
+# rows a forest replay over the training matrix takes at a time: bounds the
+# tensor engine's [rows, trees] working set at HIGGS scale
+_REPLAY_ROWS = 1 << 20
 
 
 def use_fused_learner(cfg: Config) -> bool:
@@ -140,13 +151,6 @@ def dispatch_forest_leaf(cfg: Config, x: torch.Tensor, forest,
     return predict_forest_leaf(x, forest, max_depth, binned, blocks=blocks)
 
 
-def _apply_shrinkage(tree: Tree, rate: float) -> None:
-    """(reference: tree.h Shrinkage) in float64."""
-    tree.leaf_value[:tree.num_leaves] *= rate
-    tree.internal_value = [v * rate for v in tree.internal_value]
-    tree.shrinkage *= rate
-
-
 def _add_bias(tree: Tree, bias: float) -> None:
     """Fold the boost-from-average init score into a tree (reference:
     Tree::AddBias via gbdt.cpp:421)."""
@@ -163,10 +167,17 @@ def _finalize_tree(tree: Tree, shrinkage: float, bias: float) -> Tree:
     by an ulp."""
     lv32 = (tree.leaf_value[:tree.num_leaves].astype(np.float32)
             * np.float32(shrinkage)).astype(np.float32)
-    _apply_shrinkage(tree, shrinkage)
+    tree.apply_shrinkage(shrinkage)
     tree.leaf_value[:tree.num_leaves] = lv32.astype(np.float64)
     _add_bias(tree, bias)
     return tree
+
+
+def _refuse_linear_trees(trees) -> None:
+    if any(getattr(t, "is_linear", False) for t in trees):
+        raise NotImplementedError(
+            "linear-leaf forests are not ported to lambdagap_tpu_torch "
+            "yet (ROADMAP.md, port queue: linear leaves)")
 
 
 class _LazyTree:
@@ -186,22 +197,25 @@ def _refuse_unported(cfg: Config) -> None:
     """Raise NotImplementedError, naming the knob, for every training option
     the port does not carry yet and for a non-default value of every knob
     of a layer it does not carry (telemetry, profiling, fault injection,
-    meshes): none is ignored silently. The serve knobs
-    refuse in ``Booster.as_server``."""
+    meshes, crash-safe snapshots): none is ignored silently. The serve
+    knobs refuse in ``Booster.as_server``."""
     def no(knob: str, where: str = _ROADMAP) -> None:
         raise NotImplementedError(
             f"{knob} is not ported to lambdagap_tpu_torch yet {where}")
 
-    if cfg.boosting != "gbdt":
-        no(f"boosting={cfg.boosting}")
     if cfg.tree_learner != "serial":
         no(f"tree_learner={cfg.tree_learner}")
     if cfg.linear_tree:
         no("linear_tree")
     if cfg.snapshot_freq > 0:
         no("snapshot_freq (crash-safe snapshots)")
-    if cfg.objective == "none":
-        no("training without an objective (custom gradients, fobj)")
+    if cfg.resume == "auto":
+        no("resume=auto (resuming from a crash-safe snapshot)")
+    if cfg.tpu_hist_precision == "bf16":
+        # K1 sums f32 gradients exactly; the JAX package's bf16 rounding
+        # lives on its one-hot path only (ops/histogram.py:32-69)
+        no("tpu_hist_precision=bf16 (histograms of bf16-rounded gradients;"
+           " 'split' and 'f32' both give K1's exact f32 sums)")
     # knobs of layers the port does not carry (ROADMAP.md, Queue 1 item 5)
     if cfg.guard_faults:
         no("guard_faults (fault injection)")
@@ -266,10 +280,22 @@ class GBDT:
         self.guard = TrainGuard.from_config(cfg)
         self.num_data = ds.num_data
         self.max_feature_idx = ds.num_total_features - 1
-        self.objective.init(ds.metadata, ds.num_data, self.device)
+        if self.objective is not None:
+            self.objective.init(ds.metadata, ds.num_data, self.device)
         self.serial = not use_fused_learner(cfg)
         self.learner = (SerialTreeLearner if self.serial
                         else FusedTreeLearner)(ds, cfg, self.device)
+        if cfg.boosting != "gbdt" and self.learner.residency == "stream":
+            # the JAX package's DART and RF replay trees over the learner's
+            # resident matrix, which a streamed learner does not hold
+            # (lambdagap_tpu/models/learner.py:102; ROADMAP.md, Queue 3)
+            raise NotImplementedError(
+                f"boosting={cfg.boosting} with data_residency=stream is not "
+                "ported to lambdagap_tpu_torch: it replays trees over the "
+                "resident binned matrix (ROADMAP.md, Queue 3)")
+        # the per-feature binned matrix on the device when the learner
+        # holds EFB bundle columns, uploaded at the first replay
+        self._x_binned: Optional[torch.Tensor] = None
         self.sample_strategy = create_sample_strategy(
             cfg, ds.num_data, label=ds.metadata.label,
             query_boundaries=ds.metadata.query_boundaries)
@@ -289,10 +315,9 @@ class GBDT:
         return torch.from_numpy(np.ascontiguousarray(s)).to(self.device)
 
     def add_valid_set(self, ds, name: str) -> None:
-        if self.models:
-            raise NotImplementedError(
-                "adding a validation set after training began is not "
-                f"ported to lambdagap_tpu_torch yet {_ROADMAP}")
+        """A validation set; one added after training began takes the
+        existing trees' scores in one batched binned-forest dispatch
+        (JAX ``gbdt.py:465-495``)."""
         self.valid_sets.append((name, ds))
         self.valid_binned.append(torch.from_numpy(
             np.ascontiguousarray(ds.binned)).to(self.device))
@@ -300,45 +325,109 @@ class GBDT:
                                                  ds.num_data))
         self.valid_scores.append(self._init_scores(ds.metadata.init_score,
                                                    ds.num_data))
+        if self.models:
+            replay = self._replayer(self.host_models)
+            self.valid_scores[-1] += replay(self.valid_binned[-1])
+
+    def _replayer(self, trees: List[Tree]):
+        """A function of a binned matrix giving ``trees``' raw scores over
+        it, [K, rows] f32, through the configured engine
+        (:func:`dispatch_forest_predict`), as the JAX package replays a
+        forest when it resumes or attaches a validation set late."""
+        K = self.num_tree_per_iteration
+        _refuse_linear_trees(trees)
+        forest, depth = forest_to_arrays(
+            trees, feature_meta=self.learner.meta_host,
+            use_inner_feature=True, device=self.device)
+        tree_class = [i % K for i in range(len(trees))]
+        return lambda x: dispatch_forest_predict(
+            self.config, x, forest, tree_class, K, depth, binned=True)
+
+    def _train_windows(self):
+        """The per-feature binned training matrix on the device in row
+        windows ``(first row, rows)`` of at most ``_REPLAY_ROWS``, for the
+        replays over the training rows: views of the learner's resident
+        matrix; the dataset's matrix, uploaded once, when the learner holds
+        EFB bundle columns; the host shards a window at a time under
+        stream residency. (A row's replay does not depend on the window
+        it lies in.)"""
+        lr = self.learner
+        if lr.sdata is not None:
+            sd = lr.sdata
+            for lo in range(0, sd.num_data, sd.shard_rows):
+                yield lo, torch.from_numpy(sd.row_block(
+                    lo, min(lo + sd.shard_rows, sd.num_data))).to(
+                        self.device)
+            return
+        x = lr.x_rows
+        if lr.bundle is not None:
+            if self._x_binned is None:
+                self._x_binned = torch.from_numpy(np.ascontiguousarray(
+                    self.train_set.binned)).to(self.device)
+            x = self._x_binned
+        for lo in range(0, x.shape[0], _REPLAY_ROWS):
+            yield lo, x[lo:lo + _REPLAY_ROWS]
 
     def boosting(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Gradients at the current scores (reference: GBDT::Boosting,
         gbdt.cpp:222-237)."""
         return self.objective.get_gradients_fast(self.scores)
 
-    def train_one_iter(self) -> bool:
-        """One boosting iteration. Returns True when training should stop.
-        The fast path never does: like the JAX package's, a converged run
-        appends constant trees instead of paying a sync to stop. The
+    def train_one_iter(self, grad: Optional[torch.Tensor] = None,
+                       hess: Optional[torch.Tensor] = None) -> bool:
+        """One boosting iteration, on the objective's gradients or on the
+        caller's (``grad`` / ``hess``, [K, N] f32 on the booster's device:
+        custom gradients, ``fobj``). Returns True when training should
+        stop. The fast path never does: like the JAX package's, a converged
+        run appends constant trees instead of paying a sync to stop. The
         non-finite guard hooks in where the JAX package's does
-        (lambdagap_tpu/models/gbdt.py:537,572,610)."""
+        (lambdagap_tpu/models/gbdt.py:537,572,610); a round the guard drops
+        late is grown again, on the same gradients when the caller gave
+        them."""
+        while True:
+            stop = self._one_iter(grad, hess)
+            if stop is not None:
+                return stop
+
+    def _one_iter(self, grad, hess) -> Optional[bool]:
+        """The round of :meth:`train_one_iter`; None when the guard found
+        the previous round's scores non-finite and restored the state from
+        before it (the round is grown again). Subclasses (DART, RF) wrap or
+        replace it."""
         cfg = self.config
         K = self.num_tree_per_iteration
         guard = self.guard
         guard.begin_iteration(self)
         self.last_iteration_skipped = False
         init_scores = [0.0] * K
-        if not self.models and not self.has_init_score \
-                and cfg.boost_from_average:
-            for k in range(K):
-                init = self.objective.boost_from_score(k)
-                if abs(init) > K_EPSILON:
-                    init_scores[k] = init
-                    self.scores[k] += init
-                    for vs in self.valid_scores:
-                        vs[k] += init
-                    log.info("Start training from score %f", init)
-        grad, hess = self.boosting()
+        if grad is None or hess is None:
+            if self.objective is None:
+                log.fatal("No objective and no custom gradients provided")
+            # boost from average once, before the first gradients; custom
+            # gradients skip it (JAX gbdt.py:540-541)
+            if not self.models and not self.has_init_score \
+                    and cfg.boost_from_average:
+                for k in range(K):
+                    init = self.objective.boost_from_score(k)
+                    if abs(init) > K_EPSILON:
+                        init_scores[k] = init
+                        self.scores[k] += init
+                        for vs in self.valid_scores:
+                            vs[k] += init
+                        log.info("Start training from score %f", init)
+            grad, hess = self.boosting()
         grad, hess = guard.admit_gradients(self, grad, hess)
         grad, hess, mask = self.sample_strategy.sample(self.iter_, grad,
                                                        hess)
         self.tree_ms, self.renew_ms = [], []
-        if self.serial or self.objective.is_renew_tree_output:
+        if (self.serial or type(self) is not GBDT
+                or (self.objective is not None
+                    and self.objective.is_renew_tree_output)):
             return self._train_host_trees(grad, hess, mask, init_scores)
         for k in range(K):
             rec = self._grow(grad[k], hess[k], mask)
             if k == 0 and guard.after_first_tree(self):
-                return self.train_one_iter()
+                return None
             lv = rec.leaf_value * self.shrinkage_rate
             self.scores[k] += lv[rec.row_leaf]
             self._add_valid_tree_score(rec, lv, k)
@@ -361,8 +450,8 @@ class GBDT:
                 "shrinkage": self.shrinkage_rate, "rng": self._rng_state()}
 
     def _guard_state_restore(self, st: dict, rng=None) -> None:
-        """Back to a restore point; the random streams to ``rng`` (the
-        point's own when None)."""
+        """Back to a restore point; the random streams to ``rng`` (left as
+        they are when None)."""
         self.scores = st["scores"].clone()
         self.valid_scores[:] = [v.clone() for v in st["valid_scores"]]
         del self.models[st["n_models"]:]
@@ -393,9 +482,12 @@ class GBDT:
         when training ends; True when that round was dropped."""
         return self.guard.finish(self)
 
-    def _train_host_trees(self, grad, hess, mask, init_scores) -> bool:
+    def _train_host_trees(self, grad, hess, mask,
+                          init_scores) -> Optional[bool]:
         """The JAX package's host-tree path (gbdt.py:612-660) for the
-        serial learner and the L1 family: each class's tree a host Tree; a
+        serial learner, the L1 family and a subclass's rounds (DART, as
+        the JAX package's fast path is GBDT's own): each class's tree a
+        host Tree; a
         split tree's leaves refit (L1 family), shrunk in float64, its
         ``f32(leaf_value)`` added to the scores, the init score folded in;
         an unsplit first tree holds the init score. Stops when no class's
@@ -405,39 +497,35 @@ class GBDT:
         K = self.num_tree_per_iteration
         should_continue = False
         for k in range(K):
-            grown = self._grow(grad[k], hess[k], mask)
-            if self.serial:
-                tree, rec = grown, None
-                row_leaf = self.learner.last_row_leaf
-            else:
-                rec, row_leaf = grown, grown.row_leaf
-            if k == 0 and self.guard.after_first_tree(self):
-                return self.train_one_iter()
-            if rec is not None:
-                tree = self.learner.materialize(rec)
+            grown = self._grow_host_tree(grad[k], hess[k], mask, k)
+            if grown is None:
+                return None
+            tree, rec, row_leaf = grown
             if tree.num_leaves > 1:
                 should_continue = True
-                if self.objective.is_renew_tree_output:
-                    t0 = time.perf_counter()
+                if self.objective is not None \
+                        and self.objective.is_renew_tree_output:
                     self._renew_tree_output(tree, k, row_leaf, mask)
-                    self.renew_ms.append((time.perf_counter() - t0) * 1e3)
-                _apply_shrinkage(tree, self.shrinkage_rate)
-                lv = torch.from_numpy(
-                    tree.leaf_value.astype(np.float32)).to(self.device)
-                self.scores[k] += lv[row_leaf]
-                if rec is not None:
-                    self._add_valid_tree_score(rec, lv, k)
-                else:
-                    self._add_valid_host_tree_score(tree, lv, k)
+                tree.apply_shrinkage(self.shrinkage_rate)
+                self._add_tree_scores(tree, rec, row_leaf, k)
                 _add_bias(tree, init_scores[k])
             elif len(self.models) < K:
-                if not cfg.boost_from_average and not self.has_init_score:
+                if self.objective is not None and not cfg.boost_from_average \
+                        and not self.has_init_score:
                     init_scores[k] = self.objective.boost_from_score(k)
                     self.scores[k] += init_scores[k]
                     for vs in self.valid_scores:
                         vs[k] += init_scores[k]
                 tree.leaf_value[0] = init_scores[k]
             self.models.append(tree)
+        return self._end_host_round(should_continue)
+
+    def _end_host_round(self, should_continue: bool,
+                        keep_first: bool = True) -> bool:
+        """The end of a host-tree round: the guard's check, or the stop
+        when no class's tree split (dropping the round's trees, unless
+        they are the first and ``keep_first``)."""
+        K = self.num_tree_per_iteration
         if not should_continue:
             if self.guard.end_iteration(self):
                 # non-finite gradients made every leaf unsplittable: a
@@ -446,12 +534,41 @@ class GBDT:
                 return False
             log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
-            if len(self.models) > K:
+            if len(self.models) > K or not keep_first:
                 del self.models[-K:]
             return True
         self.iter_ += 1
         self.last_iteration_skipped = self.guard.end_iteration(self)
         return False
+
+    def _grow_host_tree(self, grad, hess, mask, k: int):
+        """One class's tree of a host-tree round: (host Tree, the fused
+        learner's device record or None, row -> leaf on the device); None
+        when the round's first tree found the previous round's scores
+        non-finite and the guard restored the state before it."""
+        grown = self._grow(grad, hess, mask)
+        if self.serial:
+            tree, rec = grown, None
+            row_leaf = self.learner.last_row_leaf
+        else:
+            rec, row_leaf = grown, grown.row_leaf
+        if k == 0 and self.guard.after_first_tree(self):
+            return None
+        if rec is not None:
+            tree = self.learner.materialize(rec)
+        return tree, rec, row_leaf
+
+    def _add_tree_scores(self, tree: Tree, rec, row_leaf,
+                         k: int) -> None:
+        """Add a host tree's ``f32(leaf_value)`` to class k's training
+        scores (by ``row_leaf``) and to every validation set's."""
+        lv = torch.from_numpy(
+            tree.leaf_value.astype(np.float32)).to(self.device)
+        self.scores[k] += lv[row_leaf]
+        if rec is not None:
+            self._add_valid_tree_score(rec, lv, k)
+        else:
+            self._add_valid_host_tree_score(tree, lv, k)
 
     def _grow(self, grad, hess, mask):
         """One tree: the serial learner's host Tree, or the fused learner's
@@ -463,7 +580,8 @@ class GBDT:
         return grown
 
     def _renew_tree_output(self, tree: Tree, k: int, row_leaf: torch.Tensor,
-                           mask: Optional[torch.Tensor]) -> None:
+                           mask: Optional[torch.Tensor],
+                           score: Optional[np.ndarray] = None) -> None:
         """The L1-family leaf refit (reference: RenewTreeOutput,
         gbdt.cpp:412): each leaf's value becomes the objective's weighted
         percentile of ``label - score`` over the leaf's in-bag rows. Under
@@ -472,8 +590,11 @@ class GBDT:
         rows at once); under the serial learner in the order of its final
         permutation's slices, as the JAX package reads them
         (``gbdt.py:855-875``). The scores, the rows and the mask are read
-        to the host once."""
-        score = self.scores[k].cpu().numpy()
+        to the host once. ``score`` replaces class k's scores (RF's
+        constant init score)."""
+        t0 = time.perf_counter()
+        if score is None:
+            score = self.scores[k].cpu().numpy()
         mask_np = None if mask is None else mask.cpu().numpy()
         if self.serial:
             lr = self.learner
@@ -492,6 +613,7 @@ class GBDT:
             if len(rows):
                 tree.leaf_value[leaf] = self.objective.renew_tree_output(
                     rows, score)
+        self.renew_ms.append((time.perf_counter() - t0) * 1e3)
 
     def _add_valid_host_tree_score(self, tree: Tree, leaf_values,
                                    k: int) -> None:
@@ -640,10 +762,7 @@ class GBDT:
                                             "multiclassova") else 0)
 
     def _refuse_linear(self, idx) -> None:
-        if any(getattr(self._tree(i), "is_linear", False) for i in idx):
-            raise NotImplementedError(
-                "linear-leaf forests are not ported to lambdagap_tpu_torch "
-                "yet (ROADMAP.md, port queue: linear leaves)")
+        _refuse_linear_trees(self._tree(i) for i in idx)
 
     def _device_forest(self, idx):
         """Stacked tensor forest on the booster's device for the tensor and
@@ -827,8 +946,39 @@ class GBDT:
         return conv[0] if self.num_tree_per_iteration == 1 else conv.T
 
     # ------------------------------------------------------------------
-    # refit and rollback
+    # continued training, refit and rollback
     # ------------------------------------------------------------------
+    def resume_from(self, trees: List[Tree]) -> None:
+        """Continue training from a loaded model's trees (JAX
+        ``gbdt.py:881-938``; reference: GBDT::ResetTrainingData after
+        LoadModelFromString): deep copies of them, rebound to this
+        dataset's binning, become the model, and their scores are replayed
+        onto the training and validation scores in one batched
+        binned-forest dispatch per row window."""
+        import copy
+        from .tree import rebind_to_dataset
+        K = self.num_tree_per_iteration
+        if len(trees) % K != 0:
+            log.fatal("init_model has %d trees, not a multiple of "
+                      "num_tree_per_iteration=%d", len(trees), K)
+        if self.train_set is None:
+            log.fatal("resume_from needs a training dataset")
+        # rebinding rewrites bin-space (and for a missing-type mismatch
+        # raw-space) fields: the caller's trees stay as they are
+        trees = [copy.deepcopy(t) for t in trees]
+        for t in trees:
+            rebind_to_dataset(t, self.train_set)
+        self.models = list(trees)
+        self.iter_ = len(trees) // K
+        self.invalidate_predict_cache()
+        if not trees:
+            return
+        replay = self._replayer(trees)
+        for lo, xw in self._train_windows():
+            self.scores[:, lo:lo + xw.shape[0]] += replay(xw)
+        for vi in range(len(self.valid_sets)):
+            self.valid_scores[vi] += replay(self.valid_binned[vi])
+
     def refit(self, data: np.ndarray, label: np.ndarray, weight=None,
               group=None, decay_rate: Optional[float] = None) -> None:
         """Refit the leaf values of the existing trees on new data,
@@ -906,18 +1056,6 @@ class GBDT:
         self._refuse_linear(last)
         if self.train_set is not None:
             lr = self.learner
-            if lr.sdata is not None:
-                # out of core: the host shards a window at a time
-                sd = lr.sdata
-                x_train = [(lo, torch.from_numpy(sd.row_block(
-                    lo, min(lo + sd.shard_rows, sd.num_data))).to(
-                        self.device))
-                    for lo in range(0, sd.num_data, sd.shard_rows)]
-            elif lr.bundle is None:
-                x_train = [(0, lr.x_rows)]
-            else:
-                x_train = [(0, torch.from_numpy(np.ascontiguousarray(
-                    self.train_set.binned)).to(self.device))]
             for k, i in enumerate(last):
                 tree = self.models[i]
                 arrs = tree_to_arrays(tree, feature_meta=lr.meta_host,
@@ -925,7 +1063,7 @@ class GBDT:
                 arrs = arrs._replace(leaf_value=-arrs.leaf_value)
                 t = to_device_arrays(arrs, self.device)
                 depth = _round_depth(tree.max_depth + 1)
-                for lo, xw in x_train:
+                for lo, xw in self._train_windows():
                     self.scores[k, lo:lo + xw.shape[0]] += \
                         predict_tree_binned(xw, t, depth)
                 for vi in range(len(self.valid_sets)):

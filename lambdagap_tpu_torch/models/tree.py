@@ -19,6 +19,8 @@ from typing import List, Optional
 import numpy as np
 
 MISSING_NONE_C, MISSING_ZERO_C, MISSING_NAN_C = 0, 1, 2
+_FORCE_LEFT_BIN = 1 << 30      # threshold_bin sentinel: every bin goes left
+_FORCE_RIGHT_BIN = -1          # threshold_bin sentinel: every bin goes right
 
 
 @dataclass
@@ -125,6 +127,12 @@ class Tree:
         self.num_leaves += 1
         return new_leaf
 
+    def apply_shrinkage(self, rate: float) -> None:
+        """(reference: tree.h Shrinkage) in float64."""
+        self.leaf_value[:self.num_leaves] *= rate
+        self.internal_value = [v * rate for v in self.internal_value]
+        self.shrinkage *= rate
+
     @property
     def max_depth(self) -> int:
         return int(self.leaf_depth[:self.num_leaves].max()) if self.num_leaves > 1 else 0
@@ -167,3 +175,86 @@ class Tree:
             else:
                 go_left = fval <= self.threshold_real[node]
         return self.left_child[node] if go_left else self.right_child[node]
+
+
+def rebind_to_dataset(tree: Tree, ds) -> None:
+    """Fill a loaded tree's bin-space fields from a dataset's mappers (the
+    JAX package's ``rebind_to_dataset``, ``models/tree.py:185-263``).
+
+    A loaded model carries only raw-space decisions (real thresholds, raw
+    category bitsets). Continued training replays its trees over the
+    binned matrix, which needs ``split_feature_inner`` / ``threshold_bin``
+    / the bin-space ``cat_bitset`` of THIS dataset's binning. A feature
+    that is trivial (constant) in the dataset has no binned column: its
+    nodes are folded to route every row the way the constant goes."""
+    from ..data.binning import (BIN_CATEGORICAL, MISSING_NAN, MISSING_NONE,
+                                MISSING_ZERO)
+    from ..utils import log
+    mt_code = {MISSING_NONE: MISSING_NONE_C, MISSING_ZERO: MISSING_ZERO_C,
+               MISSING_NAN: MISSING_NAN_C}
+    inner_of = {j: k for k, j in enumerate(ds.used_features)}
+    n = tree.num_internal
+    tree.split_feature_inner = list(tree.split_feature)
+    tree.threshold_bin = [0] * n
+    for i in range(n):
+        f = tree.split_feature[i]
+        if f >= len(ds.mappers):
+            log.fatal("Model uses feature %d but dataset has only %d features",
+                      f, len(ds.mappers))
+        m = ds.mappers[f]
+        if f not in inner_of:
+            # constant feature in this data: fold the decision
+            tree.split_feature_inner[i] = 0
+            if tree.is_categorical[i]:
+                cat = int(m.min_val) if not np.isnan(m.min_val) else -1
+                bits = tree.cat_bitset_real[i]
+                go_left = (0 <= cat < len(bits) * 32
+                           and bool((bits[cat // 32] >> (cat % 32)) & 1))
+                tree.cat_bitset[i] = (np.full(8, 0xFFFFFFFF, np.uint32)
+                                      if go_left else np.zeros(8, np.uint32))
+            else:
+                v = m.min_val
+                mt = tree.missing_type[i]
+                if (mt == MISSING_NAN_C and np.isnan(v)) or \
+                   (mt == MISSING_ZERO_C and abs(v) <= 1e-35):
+                    go_left = tree.default_left[i]
+                else:
+                    go_left = ((0.0 if np.isnan(v) else v)
+                               <= tree.threshold_real[i])
+                tree.threshold_bin[i] = (_FORCE_LEFT_BIN if go_left
+                                         else _FORCE_RIGHT_BIN)
+                tree.default_left[i] = bool(go_left)
+            continue
+        tree.split_feature_inner[i] = inner_of[f]
+        ds_mt = mt_code[m.missing_type]
+        if tree.is_categorical[i]:
+            if m.bin_type != BIN_CATEGORICAL:
+                log.fatal("Model splits categorically on feature %d but the "
+                          "dataset binned it as numerical", f)
+            bits = np.zeros(8, dtype=np.uint32)
+            real = np.asarray(tree.cat_bitset_real[i], dtype=np.uint32)
+            width = len(real) * 32
+            for cat, b in m.categorical_2_bin.items():
+                if 0 <= cat < width and (real[cat // 32] >> (cat % 32)) & 1:
+                    if b < 256:
+                        bits[b // 32] |= np.uint32(1 << (b % 32))
+                    else:
+                        log.warning("Categorical bin %d of feature %d exceeds "
+                                    "the 256-bin bitset; dropped in replay",
+                                    b, f)
+            tree.cat_bitset[i] = bits
+        else:
+            tree.threshold_bin[i] = int(
+                m.values_to_bins(np.asarray([tree.threshold_real[i]]))[0])
+            # the binned traversal takes the NaN bin from the dataset, so a
+            # node whose stored missing type disagrees is adjusted to route
+            # NaN rows as the raw-space decision would
+            mt = tree.missing_type[i]
+            if mt == MISSING_NONE_C and ds_mt == MISSING_NAN_C:
+                # a raw decision turns NaN into 0.0 under MissingType::None
+                tree.missing_type[i] = MISSING_NAN_C
+                tree.default_left[i] = bool(0.0 <= tree.threshold_real[i])
+            elif mt == MISSING_NAN_C and ds_mt != MISSING_NAN_C:
+                log.debug("Feature %d: model expects NaN missing but dataset "
+                          "has none; NaN handling folded away", f)
+                tree.missing_type[i] = MISSING_NONE_C

@@ -265,9 +265,13 @@ class CompiledForestCache:
 def finish_scores(out: torch.Tensor, raw_score: bool, average_output: bool,
                   n_iters: int, objective) -> torch.Tensor:
     """Averaging and the objective's conversion of raw scores
-    [num_class, B]: the tail of every serving dispatch."""
+    [num_class, B]: the tail of every serving dispatch. The average
+    divides by a device tensor: CUDA multiplies by the reciprocal of a
+    Python scalar divisor, which is not ``Booster.predict``'s host
+    division to the last bit."""
     if average_output:
-        out = out / n_iters
+        out = out / torch.tensor(float(n_iters), dtype=out.dtype,
+                                 device=out.device)
     if not raw_score and objective is not None:
         out = objective.convert_output(out)
     return out

@@ -5,9 +5,11 @@ python-package/lightgbm/sklearn.py — LGBMModel, LGBMClassifier,
 LGBMRegressor, LGBMRanker). Names keep the LGBM prefix so a user switches
 imports without code changes. Estimators train on the card unless
 ``device_type="cpu"`` is passed (it rides ``**kwargs`` into the params).
-A callable ``objective`` or ``eval_metric`` needs ``fobj`` / ``feval`` in
-``train``, which are not ported: both raise NotImplementedError naming
-the knob.
+A callable ``objective`` or ``eval_metric`` raises NotImplementedError
+naming the knob: the JAX package's wrappers have no such path (custom
+gradients and metrics go through ``Booster.update(fobj=)`` and
+``train(feval=)``). ``fit(init_model=)`` (a Booster or a model file)
+continues training.
 """
 from __future__ import annotations
 
@@ -82,8 +84,9 @@ class LGBMModel:
     def _train_params(self) -> Dict[str, Any]:
         if callable(self.objective):
             raise NotImplementedError(
-                "a callable objective (custom gradients, fobj) is not "
-                "ported to lambdagap_tpu_torch yet (ROADMAP.md, Queue 1)")
+                "a callable objective is not supported by the wrappers, as "
+                "in the JAX package; train custom gradients with "
+                "Booster.update(fobj=)")
         p = {
             "boosting": self.boosting_type,
             "num_leaves": self.num_leaves,
@@ -132,8 +135,9 @@ class LGBMModel:
                     isinstance(eval_metric, (list, tuple))
                     and any(callable(m) for m in eval_metric)):
                 raise NotImplementedError(
-                    "a callable eval_metric (feval) is not ported to "
-                    "lambdagap_tpu_torch yet (ROADMAP.md, Queue 1)")
+                    "a callable eval_metric is not supported by the "
+                    "wrappers, as in the JAX package; pass feval= to "
+                    "lgt.train")
             params["metric"] = eval_metric
         y = np.asarray(y)
         sample_weight = self._sample_weight(y, sample_weight)

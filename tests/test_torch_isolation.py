@@ -7,7 +7,9 @@ a JAX-saved model, predicts and serves on the CPU (the registry, a swap
 and a delta frame included), then trains quantized and bagged over EFB
 bundles (the threefry draws, the samplers, the int8 histograms and the
 bundling included), and trains and scores out of core (a streamed
-``ShardedBinnedDataset``, ``predict_stream``). Asking for the card where there is none raises
+``ShardedBinnedDataset``, ``predict_stream``), then trains DART under a
+``reset_parameter`` schedule, continues it with ``init_model`` and
+cross-validates (``cv``). Asking for the card where there is none raises
 instead of quietly running on the CPU.
 """
 import torch_cpu_threads  # noqa: F401  (first: one torch thread)
@@ -69,6 +71,19 @@ assert streamed._booster.learner.residency == "stream"
 st = {{}}
 scores = streamed.predict_stream(Xt, window_rows=128, stats_out=st)
 assert np.array_equal(scores, streamed.predict(Xt)) and st["windows"] == 4
+from lambdagap_tpu_torch.models import dart
+api = {{"device_type": "cpu", "objective": "binary", "verbose": -1,
+       "num_leaves": 7}}
+dart_bst = lgt.train({{**api, "boosting": "dart", "drop_rate": 0.5,
+                      "skip_drop": 0.0}}, lgt.Dataset(Xt, label=yt), 3,
+                     callbacks=[lgt.reset_parameter(learning_rate=[0.1, 0.2,
+                                                                   0.1])])
+assert isinstance(dart_bst._booster, dart.DART)
+more = lgt.train(api, lgt.Dataset(Xt, label=yt), 1, init_model=dart_bst)
+assert more.num_trees() == 4
+res = lgt.cv(api, lgt.Dataset(Xt, label=yt, free_raw_data=False), 2,
+             nfold=2, return_cvbooster=True)
+assert isinstance(res["cvbooster"], lgt.CVBooster)
 bad = sorted(m for m in sys.modules
              if (m == "jax" or m.startswith("jax.")
                  or m == "lambdagap_tpu" or m.startswith("lambdagap_tpu."))

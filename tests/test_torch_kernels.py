@@ -60,7 +60,10 @@ in one pass or several; S's division by a reciprocal equals ``/`` bit for
 bit on every divisor of its table and on arbitrary ones;
 ``pred_leaf`` under the compiled engine on the card is one traversal
 launch and equals the tensor engine's leaves; ``predict_engine=tensor`` on
-the card serves the scan oracle's scores.
+the card serves the scan oracle's scores. A DART round on the card builds
+each histogram in one K1 launch, ``torch.equal`` to the plain version on
+the round's own inputs, and a served DART model is one fused launch a
+dispatch, ``torch.equal`` to the fused kernel's plain version.
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -1410,3 +1413,83 @@ def test_predict_stream_on_card_equals_predict(engine, cuda_device):
         Xv, bst._booster.config, shard_rows=1024, reference=tr.construct())
     assert np.array_equal(bst.predict_stream(sv, raw_score=True,
                                              window_rows=1000), want)
+
+
+# ---------------------------------------------------------------------------
+# the training API's boosting modes on the card: DART's histograms and its
+# served model
+# ---------------------------------------------------------------------------
+def _dart_booster(rounds: int, device_params: dict, capture=None):
+    """A DART booster (drop rate 0.9, every round drops) on 20,000 x 10;
+    ``capture`` (a list) receives the inputs and output of the last
+    round's first K1 launch."""
+    from lambdagap_tpu_torch.ops import histogram as hmod
+    rng = np.random.RandomState(8)
+    X = rng.randn(20_000, 10)
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + 0.3 * rng.randn(20_000) > 0
+         ).astype(np.float64)
+    bst = lgt.Booster(params={"objective": "binary", "num_leaves": 31,
+                              "verbose": -1, "boosting": "dart",
+                              "drop_rate": 0.9, "skip_drop": 0.0,
+                              **device_params},
+                      train_set=lgt.Dataset(X, label=y))
+    for _ in range(rounds - 1):
+        bst.update()
+    orig = hmod.hist_rows
+
+    def spy(*args):
+        out = orig(*args)
+        if capture is not None and not capture:
+            capture.append((args, out.clone()))
+        return out
+    hmod.hist_rows = spy
+    try:
+        bst.update()
+    finally:
+        hmod.hist_rows = orig
+    return bst, X
+
+
+@pytest.mark.cuda
+def test_dart_round_histogram_equals_plain_version_on_card(cuda_device):
+    """A DART round on the card, after its dropout changed the scores: the
+    round's first leaf histogram (K1) is ``torch.equal`` to the plain
+    version on the same inputs, every histogram of the run is one K1
+    launch, and the booster's scores equal its trees' raw predictions."""
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    captured = []
+    before = hc.HIST_LAUNCHES.launches
+    bst, X = _dart_booster(4, {}, captured)
+    gb = bst._booster
+    assert gb.learner.x_rows.is_cuda and gb.tree_weight
+    built = sum(t.num_leaves for t in gb.host_models)
+    assert hc.HIST_LAUNCHES.launches - before == built
+    (args, got), = captured
+    assert args[0].is_cuda
+    torch.cuda.synchronize()
+    assert torch.equal(got, hc._hist_reference(*args))
+    np.testing.assert_allclose(gb.scores[0].cpu().numpy(),
+                               bst.predict(X, raw_score=True), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_served_dart_model_fused_launch_equals_plain_version(cuda_device):
+    """A DART model trained on the card and served from it: one fused
+    launch a dispatch, ``torch.equal`` to the fused kernel's plain version
+    on the compiled tables, and the answers equal the CPU scan oracle's."""
+    bst, X = _dart_booster(4, {})
+    x = torch.from_numpy(np.ascontiguousarray(X[:4096], np.float32)).to(
+        cuda_device)
+    cf = bst._booster._compiled_forest(0, -1)
+    eng.PREDICT_LAUNCHES.reset()
+    got = cf.predict(x)
+    assert eng.PREDICT_LAUNCHES.launches == 1
+    assert torch.equal(got, _plain(cf, x))
+    ref = lgt.Booster(model_str=bst.model_to_string(),
+                      params={**CPU, "predict_engine": "scan"})
+    with bst.as_server(raw_score=True) as server:
+        served = server.predict(X[:4096])
+    np.testing.assert_array_equal(served, got[0].cpu().numpy())
+    np.testing.assert_allclose(served, ref.predict(X[:4096], raw_score=True),
+                               rtol=1e-6, atol=1e-6)

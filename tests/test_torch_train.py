@@ -265,27 +265,58 @@ def test_saturated_max_delta_step_differs_from_jax_only_at_a_tie():
             assert side[k][2] < noise, (k, side[k])
 
 
+def _cv_with(knob: str, value):
+    """A refused cv argument."""
+    def run(X, y):
+        lgt.cv({"verbose": -1, **CPU},
+               lgt.Dataset(X, label=y, free_raw_data=False), 2, nfold=2,
+               **{knob: value})
+    return run
+
+
+def _fobj_n_by_k(X, y):
+    """A 3-class fobj returning LightGBM 4's [N, K] gradient matrix."""
+    bst = lgt.Booster(params={"verbose": -1, **CPU, "objective": "none",
+                              "num_class": 3},
+                      train_set=lgt.Dataset(X, label=np.round(y) % 3))
+    bst.update(fobj=lambda p, d: (np.zeros((len(y), 3)),
+                                  np.ones((len(y), 3))))
+
+
 @pytest.mark.parametrize("params", [
     {"guard_faults": "nan_grad@2"},
     {"telemetry": True},
     {"timetag": True},
     {"telemetry_out": "run.jsonl"},
     {"profile_start_iter": 1},
-    {"objective": "none"},
+    {"resume": "auto"},
     {"mesh_shape": "2x1"},
     {"linear_tree": True},
     {"enable_telemetry": True},
     {"tree_learner": "data"},
-    {"boosting": "dart"},
-    {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
+    {"boosting": "dart", "data_residency": "stream"},
+    {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1,
+     "data_residency": "stream"},
     {"tree_learner": "feature"},
     {"tree_learner": "voting"},
     {"snapshot_freq": 1},
+    ("cv callbacks", _cv_with("callbacks", [lambda env: None]),
+     NotImplementedError, "callbacks"),
+    ("cv feval", _cv_with("feval", lambda p, d: ("m", 0.0, False)),
+     NotImplementedError, "feval"),
+    ("fobj [N, K]", _fobj_n_by_k, ValueError, r"shape \(\d+, 3\)"),
 ])
 def test_unported_options_refuse_loudly(params, tmp_path):
     """Every option the port does not train, and a non-default value of
-    every knob of a layer it does not carry, refuses by name."""
+    every knob of a layer it does not carry, refuses by name; so do cv's
+    arguments that the JAX package's cv ignores and a custom gradient in
+    the [N, K] layout the JAX package would scramble."""
     X, y = _fused_data(seed=15)
+    if isinstance(params, tuple):
+        _, run, exc, name = params
+        with pytest.raises(exc, match=name):
+            run(X, y)
+        return
     knob = next(iter(params))
     with pytest.raises(NotImplementedError, match="not ported") as err:
         lgt.train({"verbose": -1, **CPU, **params},
@@ -293,6 +324,85 @@ def test_unported_options_refuse_loudly(params, tmp_path):
     name = {"timetag": "telemetry", "enable_telemetry": "telemetry"}.get(
         knob, knob)
     assert name in str(err.value)
+
+
+def test_resume_auto_refuses_as_argument_and_as_knob():
+    """``resume=auto`` resumes from a crash-safe snapshot in the JAX
+    package; the port has no snapshots yet, so it refuses by name."""
+    X, y = _fused_data(seed=15)
+    with pytest.raises(NotImplementedError, match="resume=auto"):
+        lgt.train({"verbose": -1, **CPU}, lgt.Dataset(X, label=y), 2,
+                  resume="auto")
+    with pytest.raises(NotImplementedError, match="resume=auto"):
+        lgt.Booster(params={"verbose": -1, **CPU, "resume": "auto"},
+                    train_set=lgt.Dataset(X, label=y))
+
+
+def test_hist_precision_split_and_f32_are_k1s_exact_sums():
+    """K1's sums are exact: ``split`` (the default) and ``f32`` train the
+    same model, and ``bf16`` refuses by name."""
+    X, y = _fused_data(seed=15)
+    texts = {p: lgt.train({"verbose": -1, **CPU, "tpu_hist_precision": p},
+                          lgt.Dataset(X, label=y), 3).model_to_string()
+             for p in ("split", "f32")}
+    body = {p: t.split("end of trees")[0] for p, t in texts.items()}
+    assert body["split"] == body["f32"]
+    with pytest.raises(NotImplementedError, match="tpu_hist_precision=bf16"):
+        lgt.train({"verbose": -1, **CPU, "tpu_hist_precision": "bf16"},
+                  lgt.Dataset(X, label=y), 1)
+
+
+def test_tile_geometry_knobs_are_read_by_nothing():
+    """``infer_row_block`` and ``tpu_rows_per_block`` set the JAX
+    package's tiles; the port's kernels size their own, so neither moves a
+    model or a prediction."""
+    X, y = _fused_data(seed=15)
+    out = []
+    for rows in (256, 64):
+        params = {"verbose": -1, **CPU, "infer_row_block": rows,
+                  "tpu_rows_per_block": rows * 16}
+        bst = lgt.train(params, lgt.Dataset(X, label=y), 3)
+        out.append((bst.model_to_string().split("end of trees")[0],
+                    bst.predict(X)))
+    assert out[0][0] == out[1][0]
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+
+
+def test_booster_telemetry_refuses_by_name():
+    X, y = _fused_data(seed=15)
+    bst = lgt.train({"verbose": -1, **CPU}, lgt.Dataset(X, label=y), 1)
+    with pytest.raises(NotImplementedError, match="Booster.telemetry"):
+        bst.telemetry
+
+
+def _public(cls):
+    return sorted(n for n in dir(cls) if not n.startswith("_"))
+
+
+@pytest.mark.parametrize("owner, name", sorted(
+    [("Booster", n) for n in _public(lgb.Booster)]
+    + [("Dataset", n) for n in _public(lgb.Dataset)]
+    + [("module", n) for n in lgb.__all__]))
+def test_every_public_jax_name_exists_or_refuses_by_name(owner, name):
+    """Every public name of the JAX ``Booster``, ``Dataset`` and
+    top-level module is in the port, or raises NotImplementedError naming
+    itself: none is an AttributeError."""
+    if owner == "module":
+        try:
+            getattr(lgt, name)
+        except NotImplementedError as e:
+            assert name in str(e)
+        return
+    port = getattr(lgt, owner)
+    assert hasattr(port, name), f"{owner}.{name} is missing from the port"
+    if owner == "Booster" and isinstance(getattr(port, name), property):
+        X, y = _fused_data(seed=15)
+        bst = lgt.Booster(params={"verbose": -1, **CPU},
+                          train_set=lgt.Dataset(X, label=y))
+        try:
+            getattr(bst, name)
+        except NotImplementedError as e:
+            assert name in str(e)
 
 
 @pytest.mark.parametrize("knob, value", [
