@@ -3,7 +3,7 @@
 CUDA card and check them.
 
     python3 chip_smoke.py [--seed N] [--rows N]
-                          [--only kernels|rank|objectives|predict|shap|options|serial|layout|registry|stream|api]
+                          [--only kernels|rank|objectives|predict|shap|options|serial|layout|registry|stream|api|linear]
 
 Run from the root of a checkout. Phases, each fatal on failure:
 
@@ -111,8 +111,8 @@ T8. ranking at MSLR-WEB30K width: seeded synthetic query sets of Fold 1's
    1..1,251 with one of exactly 1,251, relevance 0-4 skewed toward 0) plus
    2,000 validation queries; ``lgt.train`` with ``lambdarank`` (target
    ndcg, ``eval_at=[10]``, 255 leaves, 255 bins, ``min_data_in_leaf=50``),
-   3 rounds with ``early_stopping(5)``, then 3 rounds of
-   lambdagap-x-plus-plus and 3 of ``rank_xendcg`` with by-query bagging on
+   3 rounds with ``early_stopping(5)``, then 2 rounds of
+   lambdagap-x-plus-plus and 2 of ``rank_xendcg`` with by-query bagging on
    the same Dataset; the counts zeroed just before each run and read just
    after (K1 launches == leaf histograms), every gradient finite, the
    validation NDCG@10 rising over the ndcg run; wall per round, the lambda
@@ -151,7 +151,7 @@ T11-serve. T11a's 7-class model served on the card, early stop off and on
    (a margin that stops some rows): each [rows, 7] answer ``array_equal``
    to the scan oracle, converted outputs its softmax at rtol 1e-6, one
    fused launch per dispatch;
-T12. 16,000 x 20 with a 12-category column, 31 leaves, 3 rounds with a
+T12. 16,000 x 20 with a 12-category column, 31 leaves, 2 rounds with a
    validation set and early stopping, on the card and on the CPU:
    multiclass, multiclassova, multiclass + GOSS, regression_l1 (also with
    bagging 0.7/1), huber, fair, poisson, quantile, mape, gamma, tweedie,
@@ -231,8 +231,8 @@ T16b. (s), (c), (r), (l), (v), 3-class softmax and regression_l1 on the
 T17. tree_layout=sorted against gather (T3, T6 and T8 already train
    sorted: ``auto`` resolves to it at 2^20 rows and more, which those
    phases check): on T3's Datasets (a) f32 fused, (b) quantized 4 levels +
-   bagging 0.7/1 (K2), (c) ``tpu_fused_learner=0``, 2 rounds each, and on
-   T8's Dataset (d) lambdarank ndcg, 2 rounds, each under explicit gather
+   bagging 0.7/1 (K2), (c) ``tpu_fused_learner=0``, 1 round each, and on
+   T8's Dataset (d) lambdarank ndcg, 1 round, each under explicit gather
    and sorted: the model text byte-equal but for the ``[tree_layout: ...]``
    line, the histogram kernel's launches == the histograms built and,
    under sorted, every one a window launch (no row list); per variant and
@@ -245,10 +245,11 @@ T17. tree_layout=sorted against gather (T3, T6 and T8 already train
    the plain version and ``index_add_`` over the contiguous window
    (``--only layout`` runs phases 1-2, T3, T8's data and T17);
 T19. out of core: (a) T3's training set re-sharded into host
-   shards of 2^20 rows; fused gather, fused sorted, serial, and GOSS
-   (learning rate 1.0, so round 2 samples) with ``stream_goss_compact``
-   on and off, 2 rounds each, streamed (``data_residency`` auto over the
-   ShardedBinnedDataset) and resident (the GOSS runs share one resident
+   shards of 2^20 rows; fused gather, fused sorted and serial, 1 round
+   each, and GOSS (learning rate 1.0, so round 2 samples) with
+   ``stream_goss_compact`` on and off, 2 rounds each, streamed
+   (``data_residency`` auto over the ShardedBinnedDataset) and resident
+   (the GOSS runs share one resident
    twin): each streamed model text byte-equal up to ``end of trees`` to
    its resident twin, every streamed histogram K1's accumulate mode (one
    finish a histogram, at least one window launch each) and no resident
@@ -289,7 +290,37 @@ T20b. fobj, init_model (5 + 5 rounds), DART, RF and reset_parameter at
    16,000 x 20, 31 leaves, 10 rounds, on the card and on the CPU:
    training-row predictions within rtol 1e-4 / atol 1e-5, best_iteration
    equal (``--only api`` runs phases 1-2, T3, T20 and T20b);
-6. the kernels line (one JSON object, twelve entries; each entry's
+T21. piece-wise linear leaves (``linear_tree``, ``linear_lambda=1e-3``)
+   at HIGGS width: T3's rows regenerated with NaN in column 0 every 13th
+   row and column 2 every 29th, binned on T3's bins (``reference=``), the
+   raw matrices kept; T3's parameters, the K1 and K2 counts zeroed just
+   before each run and read just after (K1 launches == the histograms
+   built, no K2): (a) the fused learner, 3 rounds: every tree linear, its
+   coefficients finite, the validation logloss falling every round (beside
+   T3's at the same rounds), a rerun's model text byte-equal, the linear
+   fit's host wall a tree; (b) the serial learner, 3 rounds, and the
+   moments of (a)'s first tree and row -> leaf map through the serial
+   booster's fit ``torch.equal`` to (a)'s; (c) ``predict(raw_score=True)``
+   on the validation rows == the booster's validation scores at rtol 1e-5
+   / atol 1e-6, 240 served requests (NaN rows among them) ``array_equal``
+   to the scan oracle with one fused launch a dispatch, and a packed
+   server of (a)'s model and T3's constant one answering each model's
+   oracle in one packed launch a bucket; (d) phase 3's forest with linear
+   payloads (``synth.linearize``) through the fused kernel's linear mode
+   at 1, 256 and 4,096 rows: ``torch.equal`` to its plain version and to
+   a rerun, timed beside the constant mode on the same forest, with its
+   bound and its plain version's time; (e) ``pred_contrib`` of 4,096
+   validation rows summing to the raw scores at rtol 1e-5 / atol 1e-6,
+   ``predict_stream`` from an ``np.memmap`` ``array_equal`` to
+   ``predict``; (f) (a) continued one round with ``init_model``: the
+   replayed training and validation scores within rtol 1e-6 / atol 1e-6
+   of (a)'s, 4 trees;
+T21b. linear regression and binary on the fused learner and linear
+   regression on the serial learner at 16,000 x 20 with NaN cells, 31
+   leaves, 10 rounds, on the card and on the CPU: training-row predictions
+   within rtol 1e-4 / atol 1e-5, best_iteration equal (``--only linear``
+   runs phases 1-2, T3, T21 and T21b);
+6. the kernels line (one JSON object, thirteen entries; each entry's
    ``max_abs_err`` the largest of its kernel's comparisons, T13's K1 in
    ``hist_rows@covtype`` and T11c's K2 in ``hist_rows_q``; the fused
    kernel's launches phase 5's, its packed mode's
@@ -297,11 +328,12 @@ T20b. fobj, init_model (5 + 5 rounds), DART, RF and reset_parameter at
    pred_leaf, the accumulation's phase 5's, none; ``hist_rows@sorted`` and
    ``hist_rows_q@sorted`` the window launches of T17's sorted runs,
    ``hist_rows@stream`` the accumulate-mode launches of T19 (a)'s streamed
-   runs) and, last, the device line.
+   runs, ``predict_forest@linear`` the fused launches of T21 (c)'s served
+   burst, its times T21 (d)'s at 4,096 rows) and, last, the device line.
 
-The card-vs-CPU phases (T4, T7, T9, T12, T15b, T16b, T20b) train their CPU
-sides in ``CPU_WORKERS`` spawned worker processes beside the card's runs;
-each phase stops its processes when it ends.
+The card-vs-CPU phases (T4, T7, T9, T12, T15b, T16b, T20b, T21b) train
+their CPU sides in ``CPU_WORKERS`` spawned worker processes beside the
+card's runs; each phase stops its processes when it ends.
 
 Needs one card; exits non-zero, printing no result, when there is none.
 Imports nothing of JAX nor of the JAX package.
@@ -350,18 +382,22 @@ MSLR_VALID_QUERIES = 2_000
 MSLR_MAX_DOCS = 1_251           # its longest query
 RANK_ROUNDS = 3                 # T8 (cut from 10: the script's time)
 RANK_CPU_ROUNDS = 6             # T9 (cut from 20, from 12 for T20: the script's time)
-RANK_SHORT_ROUNDS = 3
-LAYOUT_ROUNDS = 2               # T17 (a)-(c) (cut from 3 for T19)
-STREAM_ROUNDS = 2               # T19 (a)
+RANK_SHORT_ROUNDS = 2           # T8's x++ and xendcg runs (cut from 3 for T21)
+LAYOUT_ROUNDS = 1               # T17 (a)-(c) (cut from 3 for T19, from 2 for T21)
+STREAM_ROUNDS = 1               # T19 (a) (cut from 2 for T21)
+STREAM_GOSS_ROUNDS = 2          # T19 (a)'s GOSS runs: round 2 samples
 CARD_CPU_ROUNDS = 10            # T4 (cut from 30 for T19, from 20 for T20: the script's time)
-OBJ_CPU_ROUNDS = 3              # T12 (cut from 10 for T19, from 6 for T20: the script's time)
+OBJ_CPU_ROUNDS = 2              # T12 (cut from 10 for T19, from 6 for T20, from 3 for T21: the script's time)
 STREAM_SHARD_ROWS = 1 << 20     # T19: host shards of 2^20 rows
 STREAM_WINDOWS = (65_536, 4_096)   # T19 (b): predict_stream window rows
 STREAM_DEPTHS = (1, 2, 4)       # T19 (b): ring depths
 STREAM_CONTRIB_ROWS = 4096      # T19 (c)
-LAYOUT_RANK_ROUNDS = 2          # T17 (d)
+LAYOUT_RANK_ROUNDS = 1          # T17 (d) (cut from 2 for T21)
 API_CV_ROWS = 1 << 20           # T20 (e): cv on T3's first 2^20 rows
 API_CPU_ROUNDS = 10             # T20b
+LINEAR_ROUNDS = 3               # T21 (a)-(b)
+LINEAR_CPU_ROUNDS = 10          # T21b
+LINEAR_TIMED_ROWS = (1, 256, 4096)   # T21 (d): the linear mode timed
 # UCI Covertype: 581,012 rows split 80/20, 54 features (10 continuous, 4
 # wilderness and 40 soil one-hot columns), 7 cover types with these shares
 COV_TRAIN, COV_VALID = 464_809, 116_203
@@ -1221,7 +1257,7 @@ def train_phase(args, smi: str):
           f"{100 * k_ms / tree_ms:.1f}% of the tree's host wall [{smi}]")
     return {"bst": bst, "Xva": Xva, "launches": launches,
             "train": tr, "valid": va, "params": params, "auc": auc[-1],
-            "logloss": ll[-1], "median_ms": statistics.median(walls),
+            "logloss": ll[-1], "ll": ll, "median_ms": statistics.median(walls),
             "head": head}
 
 
@@ -1580,8 +1616,8 @@ def mslr_data(args) -> dict:
 
 
 def rank_train_phase(args, smi: str, data: dict) -> dict:
-    """T8: lambdarank (target ndcg) at MSLR-WEB30K width, then 3 rounds of
-    lambdagap-x-plus-plus and 3 of rank_xendcg with by-query bagging on the
+    """T8: lambdarank (target ndcg) at MSLR-WEB30K width, then 2 rounds of
+    lambdagap-x-plus-plus and 2 of rank_xendcg with by-query bagging on the
     same constructed Dataset (``data``, :func:`mslr_data`); counts zeroed
     just before each run."""
     import torch
@@ -2307,7 +2343,7 @@ def covtype_serve_phase(t11: dict, dev, smi: str) -> None:
 
 def objectives_card_vs_cpu_phase(smi: str) -> None:
     """T12: 16,000 rows x 20 features, one 12-category column, 31 leaves,
-    3 rounds with a validation set and early stopping, every objective
+    2 rounds with a validation set and early stopping, every objective
     this slice adds, each on the card and on the CPU: training-row
     predictions within rtol 1e-4 / atol 1e-5, the same best_iteration."""
     import lambdagap_tpu_torch as lgt
@@ -3399,8 +3435,9 @@ def scan_oracle(gb, X: np.ndarray, dev, trees: Optional[int] = None):
     K = gb.num_tree_per_iteration
     forest, depth = forest_to_arrays(models, device=dev)
     out = predict_forest(torch.from_numpy(X).to(dev), forest,
-                         [i % K for i in range(len(models))], K,
-                         depth).cpu().numpy()
+                         [i % K for i in range(len(models))], K, depth,
+                         has_linear=any(t.is_linear for t in models)
+                         ).cpu().numpy()
     return out[0] if K == 1 else out.T
 
 
@@ -3757,8 +3794,9 @@ def registry_phase(seed: int, dev, smi: str, text: str) -> dict:
 # T19: out of core: stream training on T3's Datasets in host shards,
 # predict_stream through the two rings, pred_contrib a window at a time
 # ---------------------------------------------------------------------------
-def stream_run(params: dict, ds, tag: str, smi: str, streamed: bool) -> dict:
-    """One T19 (a) training of STREAM_ROUNDS rounds (no validation set),
+def stream_run(params: dict, ds, tag: str, smi: str, streamed: bool,
+               rounds: int = STREAM_ROUNDS) -> dict:
+    """One T19 (a) training of ``rounds`` rounds (no validation set),
     the counts zeroed just before and read just after. Streamed: every
     histogram from K1's accumulate mode (one finish a histogram, at least
     one window each), no resident K1 launch, no device matrix."""
@@ -3782,7 +3820,7 @@ def stream_run(params: dict, ds, tag: str, smi: str, streamed: bool) -> dict:
     for c in counters:
         c.reset()
     last[0] = time.perf_counter()
-    bst = lgt.train(params, ds, STREAM_ROUNDS, callbacks=[per_round])
+    bst = lgt.train(params, ds, rounds, callbacks=[per_round])
     torch.cuda.synchronize()
     k1, k2, win, fin = (c.launches for c in counters)
     lr = bst._booster.learner
@@ -3846,16 +3884,18 @@ def stream_train_phase(t3: dict, smi: str) -> dict:
     resident = {}
     for what, extra in variants:
         params = {**t3["params"], **extra}
+        rounds = (STREAM_GOSS_ROUNDS if "data_sample_strategy" in extra
+                  else STREAM_ROUNDS)
         # compaction changes nothing resident: both GOSS runs share a twin
         key = json.dumps({k: v for k, v in extra.items()
                           if k != "stream_goss_compact"}, sort_keys=True)
         if key not in resident:
             resident[key] = stream_run(
                 {**params, "data_residency": "hbm"}, t3["train"],
-                f"T19(a) [{what}, resident]", smi, False)
+                f"T19(a) [{what}, resident]", smi, False, rounds)
         res = resident[key]
         st = stream_run(params, lgt.Dataset(sds), f"T19(a) [{what}, "
-                        "streamed]", smi, True)
+                        "streamed]", smi, True, rounds)
         check(st["text"] == res["text"], f"T19(a) [{what}]: the streamed "
               "model text differs from the resident one")
         out["launches"] += st["windows"]
@@ -4437,6 +4477,413 @@ def api_phases(t3: dict, dev, smi: str) -> None:
     print(f"T20b: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# T21: piece-wise linear leaves at HIGGS width; T21b card against CPU
+# ---------------------------------------------------------------------------
+class _LinearProbe:
+    """Within the block: the linear fit's host wall a tree (its moment
+    pass, its float64 solve, the device syncs between), the first fit's
+    tree before it and its inputs (row -> leaf map, gradients), and every
+    moment pass's results, read through ``models/linear_leaf``."""
+
+    def __enter__(self):
+        import torch
+        from lambdagap_tpu_torch.models import linear_leaf as ll
+        self.ll, self.fit_ms, self.moments, self.first = ll, [], [], None
+        self.orig = (ll.fit_linear_leaves_batched, ll.accumulate_leaf_moments)
+        fit, acc = self.orig
+
+        def timed_fit(tree, X, leaf_idx, grad, hess, *rest):
+            if self.first is None:
+                self.first = (copy.deepcopy(tree), leaf_idx, grad, hess)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit(tree, X, leaf_idx, grad, hess, *rest)
+            torch.cuda.synchronize()
+            self.fit_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def kept(*args):
+            out = acc(*args)
+            self.moments.append(out)
+            return out
+        ll.fit_linear_leaves_batched = timed_fit
+        ll.accumulate_leaf_moments = kept
+        return self
+
+    def __exit__(self, *exc):
+        self.ll.fit_linear_leaves_batched, self.ll.accumulate_leaf_moments = \
+            self.orig
+        return False
+
+
+def linear_bound(x, tables, T: int, L: int, K: int, steps: int,
+                 leaves: int, leaf_slots: int, slots: int):
+    """The linear mode's bound: ``fused_bound``'s bytes plus what the linear
+    tables give this run's rows, each once: a leaf constant (4 bytes) for
+    each distinct (tree, leaf) reached (``leaves``) and a feature id and a
+    coefficient (8 bytes) for each real slot of those leaves
+    (``leaf_slots``); padding and unreached leaves are never read. Its
+    operations are ``fused_bound``'s plus a multiply and an add for each
+    slot the rows read (``slots``: the reached leaves' feature counts
+    summed over (row, tree))."""
+    _, _, nbytes = fused_bound(x, tables, T, L, K, steps)
+    nbytes += 4 * leaves + 8 * leaf_slots
+    R = x.shape[0]
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = (steps + R * T + 2 * slots) / H100_F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes)
+
+
+def linear_rows(seed: int, n: int):
+    """:func:`higgs_like` rows with NaN in two columns, every 13th row in
+    column 0 and every 29th in column 2 (``tests/test_linear.py:33-35``)."""
+    X, y = higgs_like(seed, n)
+    X[::13, 0] = np.nan
+    X[::29, 2] = np.nan
+    return X, y
+
+
+def linear_kernel_phase(dev, smi: str, trees, cf) -> dict:
+    """T21 (d): phase 3's forest with linear payloads (each leaf's path
+    features, random coefficients; ``synth.linearize``) through the fused
+    kernel's linear mode at 1, 256 and 4,096 rows (NaN rows mixed in):
+    ``torch.equal`` to its plain version and to a rerun; timed beside the
+    constant mode on the same forest (``cf``), with its bound and its
+    plain version's time."""
+    import torch
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.convert import booster_from_numpy
+    from lambdagap_tpu_torch.infer import CompiledForest, compile_forest
+    from lambdagap_tpu_torch.infer import engine as eng
+    from lambdagap_tpu_torch.models import synth
+    t0 = time.perf_counter()
+    lin = synth.linearize([copy.deepcopy(t) for t in trees], 21)
+    text = booster_from_numpy(synth.header(F), lin,
+                              {"device_type": "cpu"}).model_to_string()
+    gb = lgt.Booster(model_str=text, params={"device_type": "cpu"})._booster
+    lcf = CompiledForest(compile_forest(gb), dev)
+    lt = lcf.linear
+    check(lt is not None, "T21(d): the linearized artifact has no tables")
+    t = lcf.tables
+    T, L = lcf._leaf_value.shape
+    FL = int(lt.leaf_feat.shape[2])
+    nfeat = (lt.leaf_feat >= 0).sum(-1)                  # [T, L]
+    rng = np.random.RandomState(21)
+    err, out = 0.0, {}
+    for n in LINEAR_TIMED_ROWS:
+        x = torch.from_numpy(synth.random_rows(rng, n, F)).to(dev)
+
+        def plain():
+            return eng._predict_forest_reference(
+                x, t, t.group_tree_lo, t.group_tree, lcf._leaf_value,
+                lcf._tree_class, 1, 0, 0.0, linear=lt)
+        ref = plain()
+        got, again = lcf.predict(x), lcf.predict(x)
+        torch.cuda.synchronize()
+        err = max(err, float((got - ref).abs().max()))
+        check(torch.equal(got, ref) and torch.equal(again, got),
+              f"T21(d): linear mode != plain at {n} rows "
+              f"({int((got != ref).sum())} scores differ) or a rerun moved")
+        carry = eng.traverse_forest(x, t)
+        leaf = ~carry.T[lcf._group_of_tree.long()].long()   # [T, n]
+        slots = int(nfeat.gather(1, leaf).sum())
+        reached = torch.zeros(T, L, dtype=torch.bool, device=leaf.device)
+        reached.scatter_(1, leaf, True)
+        leaves = int(reached.sum())
+        leaf_slots = int(nfeat[reached].sum())
+        steps = steps_taken(lcf.artifact, carry.cpu().numpy())
+        ms = cuda_ms(lambda: lcf.predict(x))
+        const_ms = cuda_ms(lambda: cf.predict(x))
+        bound_ms, bound_by, nbytes = linear_bound(x, t, T, L, 1, steps,
+                                                  leaves, leaf_slots, slots)
+        out[n] = {"ms": ms, "const_ms": const_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by}
+        if n == LINEAR_TIMED_ROWS[-1]:
+            out[n]["plain_ms"] = cuda_ms(plain, reps=3, warm=1)
+        print(f"T21(d) linear mode @{n} rows x {T} trees (FL {FL}, "
+              f"{leaves} leaves and {leaf_slots} of their slots reached, "
+              f"{slots} slot reads): {ms:.4f} ms against the constant "
+              f"mode {const_ms:.4f} ms on the same forest ("
+              f"{ms / const_ms:.2f}x); bound {bound_ms:.4f} ms ({bound_by}:"
+              f" {nbytes / 1e6:.2f} MB, {steps} steps + {n * T} adds + "
+              f"{2 * slots} slot operations)"
+              + (f"; plain {out[n]['plain_ms']:.3f} ms" if "plain_ms" in
+                 out[n] else "") + f"; == plain, rerun bit-identical [{smi}]")
+    res = dict(out[LINEAR_TIMED_ROWS[-1]])
+    res["max_abs_err"] = err
+    print(f"T21(d): {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def linear_phase(args, t3: dict, dev, smi: str, trees, cf) -> dict:
+    """T21 (a)-(f): linear leaves at HIGGS width on the card."""
+    import torch
+    import lambdagap_tpu_torch as lgt
+    t_phase = time.perf_counter()
+    params = {**t3["params"], "linear_tree": True, "linear_lambda": 1e-3}
+    cfg = lgt.Config.from_params(params)
+    t0 = time.perf_counter()
+    X, y = linear_rows(args.seed + 100, args.rows)
+    Xv, yv = linear_rows(args.seed + 101, VALID_ROWS)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr = lgt.Dataset(X, label=y, reference=t3["train"])
+    va = lgt.Dataset(Xv, label=yv, reference=tr)
+    tr.construct(cfg)
+    va.construct(cfg)
+    build_s = time.perf_counter() - t0
+    del X
+    check(tr.construct().raw is not None and va.construct().raw is not None,
+          "T21: the Datasets did not keep their raw matrices")
+    print(f"T21 data: {args.rows} + {VALID_ROWS} rows x {F}, NaN in columns "
+          f"0 and 2, made in {gen_s:.1f} s; Dataset construction on T3's "
+          f"bins (binning, the raw matrices kept) {build_s:.1f} s")
+
+    # (a) the fused learner
+    ev, walls = {}, _Walls()
+
+    def run_a():
+        return lgt.train(params, tr, LINEAR_ROUNDS, valid_sets=[va],
+                         callbacks=[lgt.record_evaluation(ev)]
+                         + walls.callbacks())
+    with _LinearProbe() as pa:
+        bst, k1 = k1_counted("T21(a)", run_a, leaves_from)
+    gb = bst._booster
+    models = gb.host_models
+    check(len(models) == LINEAR_ROUNDS and all(t.is_linear for t in models),
+          "T21(a): the trees are not linear")
+    coeffs = np.concatenate([np.concatenate([np.asarray(c, np.float64)
+                                             for c in t.leaf_coeff] + [[]])
+                             for t in models])
+    check(coeffs.size > 0 and np.isfinite(coeffs).all()
+          and all(np.isfinite(t.leaf_const[:t.num_leaves]).all()
+                  for t in models), "T21(a): non-finite coefficients")
+    ll = ev["valid_0"]["binary_logloss"]
+    check(all(b < a for a, b in zip(ll, ll[1:])),
+          f"T21(a): valid logloss did not fall every round: {ll}")
+    ll3 = t3["ll"][:LINEAR_ROUNDS]
+    text_a = bst.model_to_string()
+    slots = sum(len(f) for t in models for f in t.leaf_features)
+    print(f"T21(a) [fused]: {LINEAR_ROUNDS} rounds, walls (ms) "
+          f"{', '.join(f'{w:.0f}' for w in walls.walls)} (median "
+          f"{statistics.median(walls.walls):.1f}; T3's median round "
+          f"{t3['median_ms']:.1f}: {statistics.median(walls.walls) / t3['median_ms']:.2f}x);"
+          f" the linear fit (moments + solve) a tree "
+          f"{', '.join(f'{w:.0f}' for w in pa.fit_ms)} ms; K1 launches {k1} "
+          f"== histograms built; {slots} leaf coefficients, all finite; "
+          f"valid logloss {', '.join(f'{v:.5f}' for v in ll)} against T3's "
+          f"{', '.join(f'{v:.5f}' for v in ll3)} at the same rounds [{smi}]")
+    rerun = lgt.train(params, tr, LINEAR_ROUNDS)
+    check(rerun.model_to_string().split("end of trees")[0]
+          == text_a.split("end of trees")[0],
+          "T21(a): a rerun's model text differs")
+    del rerun
+    print("T21(a): a rerun's model text byte-equal")
+
+    # (b) the serial learner; the moments of (a)'s first tree and map
+    # through the serial booster's fit
+    walls_b = _Walls()
+    with _LinearProbe() as pb:
+        bst_b, k1b = k1_counted(
+            "T21(b)", lambda: lgt.train({**params, "tpu_fused_learner": "0"},
+                                        tr, LINEAR_ROUNDS,
+                                        callbacks=walls_b.callbacks()),
+            serial_built)
+        gb_b = bst_b._booster
+        check(gb_b.serial, "T21(b): not the serial learner")
+        tree0, leaf0, g0, h0 = pa.first
+        n_before = len(pb.moments)
+        gb_b._fit_linear_tree(copy.deepcopy(tree0), leaf0, g0, h0)
+        mine = pb.moments[n_before]
+    same = all(torch.equal(a, b) for a, b in zip(mine, pa.moments[0]))
+    check(same, "T21(b): the serial path's moments of (a)'s first tree and "
+          "map != (a)'s")
+    print(f"T21(b) [serial]: {LINEAR_ROUNDS} rounds, walls (ms) "
+          f"{', '.join(f'{w:.0f}' for w in walls_b.walls)}; the fit a tree "
+          f"{', '.join(f'{w:.0f}' for w in pb.fit_ms[:LINEAR_ROUNDS])} ms; "
+          f"K1 launches {k1b} == histograms built; the moments of (a)'s "
+          f"first tree and row -> leaf map through the serial booster's fit "
+          f"torch.equal to (a)'s [{smi}]")
+    del bst_b, gb_b, pb
+
+    # (c) predict, serve, pack
+    t0 = time.perf_counter()
+    d = valid_equals_predict("T21(c)", bst, Xv)
+    srv_bst = lgt.Booster(model_str=text_a)
+    data = np.ascontiguousarray(Xv[:20_000])
+    plan = [((i * 977) % (len(data) - SIZES[i % len(SIZES)]),
+             SIZES[i % len(SIZES)]) for i in range(REQUESTS)]
+    with Dispatches() as dc:
+        with srv_bst.as_server(raw_score=True, workers=1) as server:
+            answers, secs = burst(server, data, plan)
+    dc.check("T21(c) serve path")
+    oracle = scan_oracle(srv_bst._booster, data, dev)
+    check_answers(answers, plan, oracle)
+    check(np.isnan(data).any(), "T21(c): no NaN rows served")
+    print(f"T21(c): predict(raw_score=True) on {VALID_ROWS} validation rows "
+          f"== the booster's validation scores (max |diff| {d:.3g}); "
+          f"{REQUESTS} served requests (NaN rows among them) each == the "
+          f"scan oracle in {secs:.2f} s; {dc.line()} [{smi}]")
+    t3_text = t3["bst"].model_to_string()
+    pk = lgt.Booster(model_str=text_a, params={"serve_pack_models": True})
+    srv = pk.as_server(raw_score=True)
+    srv.add_model("t3", t3_text)
+    odata = {"default": data, "t3": np.ascontiguousarray(t3["Xva"][:20_000])}
+    oracles = {"default": oracle,
+               "t3": scan_oracle(lgt.Booster(model_str=t3_text)._booster,
+                                 odata["t3"], dev)}
+    mplan = [(("default", "t3")[i % 2],) + plan[i] for i in range(len(plan))]
+    before = srv.stats_snapshot()["cache"]["packed_dispatches"]
+    with Dispatches() as dp:
+        got, psecs = model_burst(srv, odata, mplan)
+    packed_n = srv.stats_snapshot()["cache"]["packed_dispatches"] - before
+    srv.close()
+    check_model_answers("T21(c) packed", got, mplan, oracles)
+    check(dp.calls == 0 and packed_n > 0 and dp.fused == packed_n,
+          f"T21(c): {dp.fused} fused launches for {packed_n} packed "
+          f"dispatches ({dp.line()})")
+    print(f"T21(c) packed [(a)'s linear model + T3's constant one]: "
+          f"{len(mplan)} mixed requests in {psecs:.2f} s, each == its "
+          f"model's scan oracle; {packed_n} packed dispatches, {dp.fused} "
+          f"fused launches, none per model ({time.perf_counter() - t0:.1f} "
+          f"s) [{smi}]")
+
+    # (d) the kernel alone
+    kern = linear_kernel_phase(dev, smi, trees, cf)
+
+    # (e) pred_contrib, predict_stream
+    t0 = time.perf_counter()
+    xc = Xv[:SHAP_ROWS]
+    phi = bst.predict(xc, pred_contrib=True)
+    raw = bst.predict(xc, raw_score=True)
+    dphi = float(np.abs(phi.sum(1) - raw).max())
+    check(np.allclose(phi.sum(1), raw, rtol=1e-5, atol=1e-6),
+          f"T21(e): contributions do not sum to the raw scores (max |diff| "
+          f"{dphi})")
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "t21")
+    os.makedirs(here, exist_ok=True)
+    src = np.memmap(os.path.join(here, "valid.f32"), dtype=np.float32,
+                    mode="w+", shape=Xv.shape)
+    src[:] = Xv
+    src.flush()
+    st = {}
+    streamed = bst.predict_stream(src, window_rows=STREAM_WINDOWS[0],
+                                  stats_out=st)
+    check(np.array_equal(streamed, bst.predict(Xv)),
+          "T21(e): predict_stream from the memmap != predict")
+    del src
+    print(f"T21(e): pred_contrib of {SHAP_ROWS} rows (NaN rows among them) "
+          f"sums to the raw scores (max |diff| {dphi:.3g}); predict_stream "
+          f"of {VALID_ROWS} rows from an np.memmap == predict, "
+          f"{st['rows_per_s']:.0f} rows/s ({time.perf_counter() - t0:.1f} s)"
+          f" [{smi}]")
+
+    # (f) init_model: (a) continued one round
+    seen, replay = {}, []
+
+    def first(env):
+        if "scores" not in seen:
+            g = env.model._booster
+            seen["scores"] = g.scores.clone()
+            seen["valid"] = g.valid_scores[0].clone()
+    first.before_iteration = True
+    from lambdagap_tpu_torch.models.gbdt import GBDT
+    orig = GBDT.resume_from
+
+    def timed(g, trees_):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        orig(g, trees_)
+        torch.cuda.synchronize()
+        replay.append((time.perf_counter() - t1) * 1e3)
+
+    def run_f():
+        GBDT.resume_from = timed
+        try:
+            return lgt.train(params, tr, 1, valid_sets=[va], init_model=bst,
+                             callbacks=[first])
+        finally:
+            GBDT.resume_from = orig
+    bst_f, k1f = k1_counted("T21(f)", run_f,
+                            lambda b: leaves_from(b, LINEAR_ROUNDS))
+    check(bst_f.num_trees() == LINEAR_ROUNDS + 1,
+          f"T21(f): {bst_f.num_trees()} trees")
+    for what, got_, want in (("training", seen["scores"], gb.scores),
+                             ("validation", seen["valid"],
+                              gb.valid_scores[0])):
+        dd = float((got_ - want).abs().max())
+        check(torch.allclose(got_, want, rtol=1e-6, atol=1e-6),
+              f"T21(f): replayed {what} scores part from (a)'s (max |diff| "
+              f"{dd})")
+        print(f"T21(f): replayed {what} scores == (a)'s final ones (max "
+              f"|diff| {dd:.3g})")
+    print(f"T21(f) [init_model]: replay of {LINEAR_ROUNDS} linear trees over "
+          f"{gb.num_data} + {VALID_ROWS} rows {replay[0]:.1f} ms; "
+          f"{bst_f.num_trees()} trees; K1 launches {k1f} == histograms "
+          f"built [{smi}]")
+    launches = dc.fused
+    del bst_f, bst, gb, tr, va, srv_bst, pk
+    torch.cuda.empty_cache()
+    print(f"T21: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "kernel": kern, "walls": walls.walls}
+
+
+def linear_card_vs_cpu_phase(smi: str) -> None:
+    """T21b: linear regression and binary on the fused learner and linear
+    regression on the serial learner at 16,000 x 20 with NaN cells, 31
+    leaves, 10 rounds, on the card and on the CPU."""
+    rng = np.random.RandomState(0)
+    X = rng.randn(20_000, 20)
+    X[::13, 0] = np.nan
+    X[::29, 2] = np.nan
+    base = np.nan_to_num(X, nan=1.0)
+    yr = base[:, 0] + 0.5 * base[:, 1] * base[:, 2] + 0.3 * rng.randn(20_000)
+    yb = (yr > 0).astype(np.float64)
+    common = {"num_leaves": 31, "learning_rate": 0.1, "verbose": -1,
+              "linear_tree": True, "linear_lambda": 1e-3}
+    runs = [("regression, fused", {**common, "objective": "regression"},
+             yr, "l2"),
+            ("binary, fused", {**common, "objective": "binary"}, yb,
+             "binary_logloss"),
+            ("regression, serial", {**common, "objective": "regression",
+                                    "tpu_fused_learner": "0"}, yr, "l2")]
+    with CpuSide() as cpu:
+        fins = [(name, card_vs_cpu(cpu, p, X[:16_000], y[:16_000],
+                                   X[16_000:], y[16_000:], LINEAR_CPU_ROUNDS,
+                                   metric))
+                for name, p, y, metric in runs]
+        outs = [(name, fin()) for name, fin in fins]
+    for name, out in outs:
+        (pc, bc, _, sc, _), (pp, _, _, sp, _) = out["cuda"], out["cpu"]
+        print(f"T21b card == CPU [{name}]: predictions max |diff| "
+              f"{np.abs(pc - pp).max():.3g}, best_iteration {bc}; train "
+              f"{sc:.1f} s on the card, {sp:.1f} s on the CPU [{smi}]")
+
+
+def linear_phases(args, t3: dict, dev, smi: str, trees=None,
+                  cf=None) -> dict:
+    """T21 on T3's bins, then T21b. ``trees`` / ``cf``: phase 3's forest
+    and its CompiledForest (built here when not given)."""
+    import torch
+    from lambdagap_tpu_torch.infer import CompiledForest, compile_forest
+    if trees is None:
+        import lambdagap_tpu_torch as lgt
+        from lambdagap_tpu_torch.convert import booster_from_numpy
+        from lambdagap_tpu_torch.models import synth
+        trees = synth.random_trees(args.seed, T, LEAVES, F, GRID)
+        gb = booster_from_numpy(synth.header(F), trees,
+                                {"device_type": "cpu"})._booster
+        cf = CompiledForest(compile_forest(gb), dev)
+    out = linear_phase(args, t3, dev, smi, trees, cf)
+    t0 = time.perf_counter()
+    linear_card_vs_cpu_phase(smi)
+    print(f"T21b: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4445,7 +4892,8 @@ def main() -> int:
     ap.add_argument("--only", choices=("all", "kernels", "rank",
                                        "objectives", "predict", "shap",
                                        "options", "serial", "layout",
-                                       "registry", "stream", "api"),
+                                       "registry", "stream", "api",
+                                       "linear"),
                     default="all",
                     help="kernels: phases 1-4 (with the SASS check), T2 and "
                     "T2q; rank: phases 1-2, T8, T2 at 136 features, T9 and "
@@ -4456,8 +4904,9 @@ def main() -> int:
                     "T3, T15 and T15b; serial: phases 1-2, T3, T16 and "
                     "T16b; layout: phases 1-2, T3, T8's data and T17; "
                     "registry: phases 1-3 and T18; stream: phases 1-2, T3 "
-                    "and T19; api: phases 1-2, T3, T20 and T20b; each then "
-                    "stops without a result line")
+                    "and T19; api: phases 1-2, T3, T20 and T20b; linear: "
+                    "phases 1-2, T3, T21 and T21b; each then stops without "
+                    "a result line")
     args = ap.parse_args()
 
     import torch
@@ -4544,6 +4993,13 @@ def main() -> int:
         api_phases(t3, dev, smi)
         print(f"chip_smoke: training-API phases passed in "
               f"{time.perf_counter() - t_start:.1f} s (--only api: no "
+              "result)")
+        return 0
+    if args.only == "linear":
+        t3 = train_phase(args, smi)
+        linear_phases(args, t3, dev, smi)
+        print(f"chip_smoke: linear-leaf phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--only linear: no "
               "result)")
         return 0
     if args.only == "objectives":
@@ -4709,6 +5165,9 @@ def main() -> int:
     # -- T20. the training API on T3's Datasets; T20b card vs CPU -----------
     api_phases(t3, dev, smi)
 
+    # -- T21. linear leaves on T3's bins; T21b card vs CPU -------------------
+    t21 = linear_phases(args, t3, dev, smi, gb.models, cf)
+
     # -- T17. sorted against gather on T3's and T8's Datasets; windows -------
     t17 = layout_phases(t3, t8, dev, args.seed + 17, smi)
     del t8["train"]
@@ -4805,7 +5264,16 @@ def main() -> int:
         "ms": t19["kernel"]["ms"], "plain_ms": t19["kernel"]["plain_ms"],
         "bound_ms": t19["kernel"]["bound_ms"],
         "bound_by": t19["kernel"]["bound_by"],
-        "library_ms": t19["kernel"]["library_ms"]}] + [t14["shap"]]}))
+        "library_ms": t19["kernel"]["library_ms"]}, {
+        "name": "predict_forest@linear", "route": "cuda",
+        "source": "lambdagap_tpu_torch/csrc/traverse.cu",
+        "replaces": "lambdagap_tpu/infer/engine.py:159",
+        "launches": t21["launches"],
+        "max_abs_err": t21["kernel"]["max_abs_err"],
+        "ms": t21["kernel"]["ms"], "plain_ms": t21["kernel"]["plain_ms"],
+        "bound_ms": t21["kernel"]["bound_ms"],
+        "bound_by": t21["kernel"]["bound_by"],
+        "library_ms": None}] + [t14["shap"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -27,6 +27,7 @@ for the loader.
 """
 from __future__ import annotations
 
+import copy
 import os
 from typing import Any, Dict, List, Optional, Union
 
@@ -133,6 +134,17 @@ class Dataset:
             md.check(self._constructed.num_data)
             return self._constructed
         cfg = config or Config.from_params(self.params)
+        if not cfg.linear_tree and self.params:
+            # a Dataset whose own params set linear_tree keeps its raw
+            # matrix even when the booster's config lacks the flag (a
+            # constant-leaf model continued from a linear init_model
+            # replays the coefficients over raw rows; JAX basic.py:190-203)
+            own = Config.from_params({
+                k: v for k, v in self.params.items()
+                if Config.canonical_name(k) == "linear_tree"})
+            if own.linear_tree:
+                cfg = copy.deepcopy(cfg)
+                cfg.linear_tree = True
         if _is_scipy_sparse(self.data):
             raise NotImplementedError(
                 "a scipy sparse training matrix (its row-batch reader, "

@@ -324,7 +324,7 @@ class Config:
     output_model: str = "LightGBM_model.txt"
     saved_feature_importance_type: int = 0
     snapshot_freq: int = -1
-    linear_tree: bool = False            # piece-wise linear leaves: MXU-batched leaf solve, raw matrix retained (docs/linear-trees.md)
+    linear_tree: bool = False            # piece-wise linear leaves: one moment pass + one solve a tree, raw matrix retained (models/linear_leaf.py)
     max_bin: int = 255
     max_bin_by_feature: List[int] = field(default_factory=list)
     min_data_in_bin: int = 3

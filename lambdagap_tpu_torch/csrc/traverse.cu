@@ -96,6 +96,27 @@
 // belong elsewhere skips the walk (no live chain), paying only the stores.
 // Null maps give the unpacked launch, unchanged.
 //
+// The linear mode of the fused kernel (piece-wise linear leaves,
+// linear_tree) replaces the JAX package's linear `_leaf_values`
+// (lambdagap_tpu/infer/engine.py:159-180, ops/linear.py
+// `linear_leaf_values`), XLA work around the Pallas kernel. It is chosen
+// at launch (non-null linear tables: a template parameter, no branch per
+// element) and changes only the walk's epilogue: for each (tree, row) of a
+// finished (row, group) it writes lin = leaf_const[leaf], then for each
+// slot j of the leaf in order lin = lin + coeff[leaf, j] * x[feat[leaf,
+// j]], or leaf_value[leaf] when a real slot reads NaN. The product and the
+// sum are rounded each on their own (__fmul_rn / __fadd_rn: nvcc would
+// contract them into an FMA), as the plain torch version rounds them, so
+// the two are torch.equal. The slots are packed from slot 0, so the loop
+// stops at a leaf's first -1 slot (a padding slot adds +0.0 in the plain
+// version: only the sign of a zero can differ). The row's features come
+// from the row tile staged in shared memory, else from global memory. The
+// accumulation, the early-stop replay and the packed mode are unchanged:
+// a packed constant member carries leaf_const == leaf_value and no slots.
+// What bounds it: each (tree, row) adds the leaf's FL scattered loads of
+// feature id and coefficient (lanes of a warp sit at different leaves) and
+// a shared-memory read of the row's value; see PERF.md section 6.
+//
 // Plain C interface for ctypes (no PyTorch headers): the wrappers are
 // `predict_forest`, `traverse_forest` and `accumulate_forest` in
 // lambdagap_tpu_torch/infer/engine.py.
@@ -170,6 +191,21 @@ __device__ __forceinline__ bool go_left(const int4 rec, const float v,
   return (missing & dl) | (!missing & (v0 <= __int_as_float(rec.x)));
 }
 
+// The row value of feature f for the tile's row r: staged in shared
+// memory, or from global memory (a row past the batch reads the last one,
+// unused).
+template <bool kSmemRows>
+__device__ __forceinline__ float row_value(const TraverseArgs& a,
+                                           const float* s_x, int64_t row0,
+                                           int r, uint32_t f) {
+  if constexpr (kSmemRows) {
+    return s_x[(uint32_t)(r * row_stride(a.width)) + f];
+  } else {
+    const int64_t row = row0 + r < a.rows ? row0 + r : a.rows - 1;
+    return __ldg(a.x + row * a.x_stride + f);
+  }
+}
+
 // Walk groups [g0, g1) for the block's rows. A warp takes one (group, row
 // set) at a time: its lanes take different rows of the group,
 // kRowsPerThread each, as independent chains whose loads are in flight
@@ -183,7 +219,6 @@ __device__ __forceinline__ void walk_groups(const TraverseArgs a, int g0,
                                             int64_t row0, const Done& done) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int stride = row_stride(a.width);
   const int items = kRowSets * (g1 - g0);
   for (int it = warp; it < items; it += kWarps) {
     const int g = g0 + it / kRowSets;
@@ -217,15 +252,9 @@ __device__ __forceinline__ void walk_groups(const TraverseArgs a, int g0,
       }
       float v[kRowsPerThread];
 #pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const uint32_t f = (uint32_t)rec[i].y >> 4;
-        if constexpr (kSmemRows) {
-          v[i] = s_x[(uint32_t)(r[i] * stride) + f];
-        } else {
-          const int64_t row = row0 + r[i] < a.rows ? row0 + r[i] : a.rows - 1;
-          v[i] = __ldg(a.x + row * a.x_stride + f);
-        }
-      }
+      for (int i = 0; i < kRowsPerThread; ++i)
+        v[i] = row_value<kSmemRows>(a, s_x, row0, r[i],
+                                    (uint32_t)rec[i].y >> 4);
 #pragma unroll
       for (int i = 0; i < kRowsPerThread; ++i) {
         const int32_t next = go_left(rec[i], v[i], a.cat_tab, a.cat_words)
@@ -511,6 +540,10 @@ struct PredictArgs {
   const int32_t* group_tree;      // [trees], forest order within a group
   const float* leaf_value;        // [trees, leaves]
   int64_t leaves;
+  const float* leaf_const;        // linear mode: [trees, leaves]
+  const int32_t* leaf_feat;       //   [trees, leaves, feats], -1 padding
+  const float* leaf_coeff;        //   [trees, leaves, feats]; else null
+  int feats;
   const int32_t* tree_class;      // [trees]
   int64_t trees;
   int num_class;
@@ -556,6 +589,73 @@ struct StoreLeafValues {
 #pragma unroll
       for (int i = 0; i < kRowsPerThread; ++i)
         if (row0 + r[i] < rows) __stcg(w + r[i], v[i]);
+    }
+  }
+};
+
+// The linear epilogue: as StoreLeafValues, each value the leaf's linear
+// model over the row (the plain version is ops/linear.linear_leaf_values).
+// For each tree the warp's kRowsPerThread chains walk their leaves' slots
+// together, until each has reached its leaf's first padding slot.
+template <bool kSmemRows>
+struct StoreLinearValues {
+  TraverseArgs t;
+  const float* s_x;
+  const int32_t* group_tree_lo;
+  const int32_t* group_tree;
+  const float* leaf_value;
+  const float* leaf_const;
+  const int32_t* leaf_feat;
+  const float* leaf_coeff;
+  int64_t leaves;
+  int feats;
+  float* ws;
+  int64_t ws_stride;
+  __device__ __forceinline__ void operator()(
+      int g, int64_t row0, const int (&r)[kRowsPerThread],
+      const int32_t (&node)[kRowsPerThread]) const {
+    const int lo = __ldg(group_tree_lo + g);
+    const int hi = __ldg(group_tree_lo + g + 1);
+    for (int j = lo; j < hi; ++j) {
+      const int64_t tr = __ldg(group_tree + j);
+      float lin[kRowsPerThread];
+      bool nan[kRowsPerThread];
+      bool live[kRowsPerThread];
+      int64_t li[kRowsPerThread];
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i) {
+        live[i] = node[i] < 0;
+        li[i] = tr * leaves + (live[i] ? ~node[i] : 0);
+        lin[i] = live[i] ? __ldg(leaf_const + li[i]) : 0.0f;
+        nan[i] = false;
+      }
+      for (int s = 0; s < feats; ++s) {
+        bool any = false;
+#pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i) {
+          if (!live[i]) continue;
+          const int32_t f = __ldg(leaf_feat + li[i] * feats + s);
+          if (f < 0) {
+            live[i] = false;
+            continue;
+          }
+          const float xv = row_value<kSmemRows>(t, s_x, row0, r[i],
+                                                (uint32_t)f);
+          nan[i] |= xv != xv;  // isnan; exact without fast-math
+          lin[i] = __fadd_rn(
+              lin[i], __fmul_rn(__ldg(leaf_coeff + li[i] * feats + s), xv));
+          any = true;
+        }
+        if (!any) break;
+      }
+      float* w = ws + tr * ws_stride + row0;
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i) {
+        const float v = node[i] >= 0 ? 0.0f
+                        : nan[i]     ? __ldg(leaf_value + li[i])
+                                     : lin[i];
+        if (row0 + r[i] < t.rows) __stcg(w + r[i], v);
+      }
     }
   }
 };
@@ -657,7 +757,7 @@ __host__ __device__ constexpr size_t tail_smem_bytes(int num_class) {
           (num_class > 1 ? (size_t)num_class * kAccRowsFused : 0));
 }
 
-template <bool kSmemRows, bool kOneClass>
+template <bool kSmemRows, bool kOneClass, bool kLinear>
 __global__ void __launch_bounds__(kThreads)
     predict_kernel(const PredictArgs args) {
   extern __shared__ float smem[];
@@ -691,10 +791,19 @@ __global__ void __launch_bounds__(kThreads)
     const int g0 = item * kBlockGroups;
     const int g1 = min(g0 + kBlockGroups, a.t.groups);
     if (kSmemRows) stage_rows(a.t, row0, smem);
-    walk_groups<kSmemRows>(
-        a.t, g0, g1, smem, row0,
-        StoreLeafValues{a.group_tree_lo, a.group_tree, a.leaf_value, a.leaves,
-                        a.ws, a.ws_stride, a.t.rows});
+    if constexpr (kLinear) {
+      walk_groups<kSmemRows>(
+          a.t, g0, g1, smem, row0,
+          StoreLinearValues<kSmemRows>{
+              a.t, smem, a.group_tree_lo, a.group_tree, a.leaf_value,
+              a.leaf_const, a.leaf_feat, a.leaf_coeff, a.leaves, a.feats,
+              a.ws, a.ws_stride});
+    } else {
+      walk_groups<kSmemRows>(
+          a.t, g0, g1, smem, row0,
+          StoreLeafValues{a.group_tree_lo, a.group_tree, a.leaf_value,
+                          a.leaves, a.ws, a.ws_stride, a.t.rows});
+    }
     // every thread's workspace stores reach L2 before the block arrives
     __threadfence();
     __syncthreads();
@@ -756,13 +865,21 @@ extern "C" int lg_traverse_setup(void) {
   if (err == cudaSuccess)
     err = raise_smem_limit(accumulate_kernel<false>, max_smem);
   if (err == cudaSuccess)
-    err = raise_smem_limit(predict_kernel<true, true>, max_smem);
+    err = raise_smem_limit(predict_kernel<true, true, false>, max_smem);
   if (err == cudaSuccess)
-    err = raise_smem_limit(predict_kernel<true, false>, max_smem);
+    err = raise_smem_limit(predict_kernel<true, false, false>, max_smem);
   if (err == cudaSuccess)
-    err = raise_smem_limit(predict_kernel<false, true>, max_smem);
+    err = raise_smem_limit(predict_kernel<false, true, false>, max_smem);
   if (err == cudaSuccess)
-    err = raise_smem_limit(predict_kernel<false, false>, max_smem);
+    err = raise_smem_limit(predict_kernel<false, false, false>, max_smem);
+  if (err == cudaSuccess)
+    err = raise_smem_limit(predict_kernel<true, true, true>, max_smem);
+  if (err == cudaSuccess)
+    err = raise_smem_limit(predict_kernel<true, false, true>, max_smem);
+  if (err == cudaSuccess)
+    err = raise_smem_limit(predict_kernel<false, true, true>, max_smem);
+  if (err == cudaSuccess)
+    err = raise_smem_limit(predict_kernel<false, false, true>, max_smem);
   return err == cudaSuccess ? max_smem : -(int)err;
 }
 
@@ -849,22 +966,30 @@ extern "C" int lg_accumulate_forest(
 // accumulation blocks. counters holds at least 1 + 2 ceil(rows / 256)
 // zeros and is left zeroed; no other launch may use it at the same time.
 // Packed mode: row_model [rows] and group_model [groups], both or neither
-// (null: the unpacked launch); no early stop there. Returns 0 on success,
-// otherwise the cudaError_t of the launch.
+// (null: the unpacked launch); no early stop there. Linear mode:
+// leaf_const [trees, leaves], leaf_feat and leaf_coeff [trees, leaves,
+// feats], all three or none (null: constant leaves); every feature id
+// below width. Returns 0 on success, otherwise the cudaError_t of the
+// launch.
 extern "C" int lg_predict_forest(
     const float* x, int64_t rows, int64_t x_stride, int width,
     const void* recs, const int32_t* group_node_lo, const int32_t* group_root,
     const int32_t* group_steps, int64_t groups, const uint32_t* cat_tab,
     int cat_words, const int32_t* group_tree_lo, const int32_t* group_tree,
-    const float* leaf_value, int64_t leaves, const int32_t* tree_class,
-    int64_t trees, int num_class, int es_freq, float es_margin,
-    const int32_t* row_model, const int32_t* group_model, float* ws,
-    int64_t ws_stride, int32_t* counters, float* out, void* stream) {
+    const float* leaf_value, int64_t leaves, const float* leaf_const,
+    const int32_t* leaf_feat, const float* leaf_coeff, int feats,
+    const int32_t* tree_class, int64_t trees, int num_class, int es_freq,
+    float es_margin, const int32_t* row_model, const int32_t* group_model,
+    float* ws, int64_t ws_stride, int32_t* counters, float* out,
+    void* stream) {
   if (rows == 0) return 0;
+  const bool linear = leaf_const != nullptr;
   if (groups == 0 || trees == 0 || num_class < 1 || ws_stride < rows ||
       ws_stride % 32 != 0 ||
       (row_model == nullptr) != (group_model == nullptr) ||
-      (row_model != nullptr && es_freq > 0))
+      (row_model != nullptr && es_freq > 0) ||
+      linear != (leaf_feat != nullptr) || linear != (leaf_coeff != nullptr) ||
+      (linear && feats < 1))
     return (int)cudaErrorInvalidValue;
   const int64_t row_tiles = (rows + kBlockRows - 1) / kBlockRows;
   const int64_t group_tiles = (groups + kBlockGroups - 1) / kBlockGroups;
@@ -895,6 +1020,10 @@ extern "C" int lg_predict_forest(
   a.group_tree = group_tree;
   a.leaf_value = leaf_value;
   a.leaves = leaves;
+  a.leaf_const = leaf_const;
+  a.leaf_feat = leaf_feat;
+  a.leaf_coeff = leaf_coeff;
+  a.feats = feats;
   a.tree_class = tree_class;
   a.trees = trees;
   a.num_class = num_class;
@@ -907,16 +1036,31 @@ extern "C" int lg_predict_forest(
   a.out = out;
   const unsigned grid = (unsigned)(row_tiles * (group_tiles + kAccBlocks));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (smem_rows) {
-    if (num_class == 1)
-      predict_kernel<true, true><<<grid, kThreads, smem, s>>>(a);
-    else
-      predict_kernel<true, false><<<grid, kThreads, smem, s>>>(a);
-  } else {
-    if (num_class == 1)
-      predict_kernel<false, true><<<grid, kThreads, smem, s>>>(a);
-    else
-      predict_kernel<false, false><<<grid, kThreads, smem, s>>>(a);
+  // the variant: rows staged, one class, linear leaves
+  switch ((smem_rows ? 4 : 0) | (num_class == 1 ? 2 : 0) | (linear ? 1 : 0)) {
+    case 7:
+      predict_kernel<true, true, true><<<grid, kThreads, smem, s>>>(a);
+      break;
+    case 6:
+      predict_kernel<true, true, false><<<grid, kThreads, smem, s>>>(a);
+      break;
+    case 5:
+      predict_kernel<true, false, true><<<grid, kThreads, smem, s>>>(a);
+      break;
+    case 4:
+      predict_kernel<true, false, false><<<grid, kThreads, smem, s>>>(a);
+      break;
+    case 3:
+      predict_kernel<false, true, true><<<grid, kThreads, smem, s>>>(a);
+      break;
+    case 2:
+      predict_kernel<false, true, false><<<grid, kThreads, smem, s>>>(a);
+      break;
+    case 1:
+      predict_kernel<false, false, true><<<grid, kThreads, smem, s>>>(a);
+      break;
+    default:
+      predict_kernel<false, false, false><<<grid, kThreads, smem, s>>>(a);
   }
   return (int)cudaGetLastError();
 }

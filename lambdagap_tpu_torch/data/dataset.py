@@ -16,8 +16,10 @@ the ranking objectives and metrics. Streamed construction
 with one ``QuantileSketch`` per feature and pushes row batches straight
 into the binned matrix, as the JAX package does
 (``lambdagap_tpu/data/dataset.py:110-129,227-300``); the host-sharded
-``ShardedBinnedDataset`` is in :mod:`lambdagap_tpu_torch.data.stream`. The
-linear-tree raw matrix waits for a later slice.
+``ShardedBinnedDataset`` is in :mod:`lambdagap_tpu_torch.data.stream`.
+Under ``linear_tree`` a matrix-built dataset keeps its raw matrix as f32
+(``raw``, the JAX package's ``dataset.py:159,208-211``): the linear leaves
+fit and evaluate on raw feature values.
 """
 from __future__ import annotations
 
@@ -175,6 +177,7 @@ class BinnedDataset:
         self.metadata = Metadata()
         self.feature_names: List[str] = []
         self.max_bin = 255
+        self.raw: Optional[np.ndarray] = None   # kept under linear_tree
         self._bundle = None
         self._bundle_built = False
 
@@ -208,6 +211,10 @@ class BinnedDataset:
         else:
             ds._find_bins(data, config, set(categorical_features))
         ds._push_data(data)
+        if config.linear_tree:
+            # linear leaves fit and evaluate on raw numeric values
+            # (reference: Dataset raw_data retention under linear_tree)
+            ds.raw = data.astype(np.float32)
         ds._attach_metadata(label, weight, group, init_score, position)
         return ds
 

@@ -37,7 +37,13 @@ tensor takes the plain version (:func:`_predict_forest_reference`: the
 records walk, the workspace through the CSR, :func:`_accumulate`;
 :func:`_traverse_all_reference`, block by block like the JAX package's
 ``_traverse_all``; :func:`_leaf_values` + :func:`_accumulate`, ~T small
-torch ops). Linear leaves wait for a later slice.
+torch ops).
+
+A linear forest (``linear_tree``; the artifact's ``leaf_const``,
+``leaf_feat`` and ``leaf_coeff`` tables) launches the same fused kernel in
+its linear mode: each (tree, row) value is the leaf's linear model over the
+row, ``ops/linear.linear_leaf_values`` (the plain version) bit for bit, in
+the solo and the packed launch alike.
 
 :class:`PackedForests` extends the bucket idea ACROSS models (the JAX
 package's ``PackedForests`` and ``_predict_packed``): many compiled forests
@@ -57,6 +63,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.linear import linear_leaf_values
 from ..ops.predict import (K_ZERO_THRESHOLD, MT_NAN, MT_ZERO, category_of,
                            cat_go_left, margin_of)
 from .compile import (FLAG_CATEGORICAL, FLAG_DEFAULT_LEFT, FLAG_MT_SHIFT,
@@ -92,6 +99,31 @@ class LaunchCounter:
 PREDICT_LAUNCHES = LaunchCounter()
 TRAVERSE_LAUNCHES = LaunchCounter()
 ACCUMULATE_LAUNCHES = LaunchCounter()
+
+
+class LinearLeaves(NamedTuple):
+    """A linear forest's leaf tables on one device (the fused kernel's
+    linear mode): ``leaf_const`` f32 [T, L], ``leaf_feat`` int32 [T, L,
+    FL] (-1 on padding slots, packed from slot 0) and ``leaf_coeff`` f32
+    [T, L, FL]."""
+    leaf_const: torch.Tensor
+    leaf_feat: torch.Tensor
+    leaf_coeff: torch.Tensor
+
+
+def _upload_linear(b: Dict[str, np.ndarray], leaf_value: torch.Tensor,
+                   width: int) -> Optional[LinearLeaves]:
+    """The buffers' linear tables beside ``leaf_value`` on its device,
+    checked once (:func:`_check_linear`), or None for a constant
+    forest."""
+    if "leaf_const" not in b:
+        return None
+    lin = LinearLeaves(*(
+        torch.from_numpy(np.ascontiguousarray(b[k], dt)).to(leaf_value.device)
+        for k, dt in (("leaf_const", np.float32), ("leaf_feat", np.int32),
+                      ("leaf_coeff", np.float32))))
+    _check_linear(lin, leaf_value, width, leaf_value.device)
+    return lin
 
 
 class ForestTables(NamedTuple):
@@ -255,10 +287,39 @@ def _narrowest(n_codes: int):
     return np.uint32
 
 
+def _pack_linear(buffers: Sequence[Dict[str, np.ndarray]], L: int
+                 ) -> Dict[str, np.ndarray]:
+    """The members' linear tables padded to the pack's (L, FL) and stacked
+    along the tree axis, as the JAX package's ``_pack_leaf_tables``
+    (``infer/engine.py:432-470``): FL is the widest linear member's; a
+    constant member carries ``leaf_const == leaf_value`` and every slot
+    ``-1``; extra slots are ``-1`` with coefficient 0, extra leaf rows are
+    never selected."""
+    FL = max(np.asarray(b["leaf_feat"]).shape[-1] for b in buffers
+             if "leaf_const" in b)
+    out = {"leaf_const": [], "leaf_feat": [], "leaf_coeff": []}
+    for b in buffers:
+        lv = np.asarray(b["leaf_value"], np.float32)
+        T, Li = lv.shape
+        if "leaf_const" in b:
+            lc = np.asarray(b["leaf_const"], np.float32)
+            lf = np.asarray(b["leaf_feat"], np.int32)
+            lcf = np.asarray(b["leaf_coeff"], np.float32)
+        else:
+            lc = lv.copy()
+            lf = np.full((T, Li, 1), -1, np.int32)
+            lcf = np.zeros((T, Li, 1), np.float32)
+        pad = ((0, 0), (0, L - Li), (0, FL - lf.shape[-1]))
+        out["leaf_const"].append(np.pad(lc, pad[:2]))
+        out["leaf_feat"].append(np.pad(lf, pad, constant_values=-1))
+        out["leaf_coeff"].append(np.pad(lcf, pad))
+    return {k: np.concatenate(v) for k, v in out.items()}
+
+
 def pack_buffers(buffers: Sequence[Dict[str, np.ndarray]]
                  ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
-    """Merge several artifacts' buffers (constant leaves) into the buffers
-    of one forest, and the member of each of its structure groups.
+    """Merge several artifacts' buffers into the buffers of one forest, and
+    the member of each of its structure groups.
 
     Node blocks concatenate unchanged (their child ids are block-local);
     the block directory, ``group_of_tree`` and the palette codes shift by
@@ -266,13 +327,10 @@ def pack_buffers(buffers: Sequence[Dict[str, np.ndarray]]
     to the widest member's words: an extra word's bits are all clear, the
     member's own answer for a category past its words); leaf tables pad
     to the widest member's leaf count, rows a member's trees never select.
-    Returns ``(buffers, group_model [G] int32)``."""
+    When a member has linear leaves, the pack carries linear tables
+    (:func:`_pack_linear`). Returns ``(buffers, group_model [G] int32)``."""
     if not buffers:
         raise ValueError("pack_buffers needs at least one member")
-    if any("leaf_const" in b for b in buffers):
-        raise NotImplementedError(
-            "linear-leaf forests are not ported to lambdagap_tpu_torch yet "
-            "(ROADMAP.md, port queue: linear leaves)")
     W = max(int(np.asarray(b["cat_table"]).shape[1]) for b in buffers)
     L = max(int(np.asarray(b["leaf_value"]).shape[1]) for b in buffers)
     out = {k: [] for k in ("node_feat", "node_thr", "node_flags", "node_cat",
@@ -320,6 +378,8 @@ def pack_buffers(buffers: Sequence[Dict[str, np.ndarray]]
         merged[k] = merged[k].astype(dt)
     merged["block_node_lo"] = np.asarray(node_lo, np.int32)
     merged["block_group_lo"] = np.asarray(group_lo, np.int32)
+    if any("leaf_const" in b for b in buffers):
+        merged.update(_pack_linear(buffers, L))
     return merged, np.concatenate(group_model)
 
 
@@ -454,14 +514,17 @@ def _predict_forest_reference(x: torch.Tensor, t: ForestTables,
                               early_stop_freq: int,
                               early_stop_margin: float,
                               row_model: Optional[torch.Tensor] = None,
-                              group_model: Optional[torch.Tensor] = None
+                              group_model: Optional[torch.Tensor] = None,
+                              linear: Optional[LinearLeaves] = None
                               ) -> torch.Tensor:
     """The fused kernel's phases in plain torch ops -> [num_class, R] f32:
     the records walk (:func:`_traverse_records_reference`), each group's
     trees' leaf values into the ``[T, R]`` workspace through the CSR (+0.0
     for a carry that is not ``~leaf``), then :func:`_accumulate`. Packed
     (``row_model`` [R] / ``group_model`` [G]): a (row, group) of two
-    members carries 0, so its trees add +0.0."""
+    members carries 0, so its trees add +0.0. Linear (``linear``): each
+    value is :func:`~lambdagap_tpu_torch.ops.linear.linear_leaf_values`
+    over the row."""
     node = _traverse_records_reference(x, t).long()    # [R, G]
     if row_model is not None:
         own = group_model.long()[None, :] == row_model.long()[:, None]
@@ -473,7 +536,16 @@ def _predict_forest_reference(x: torch.Tensor, t: ForestTables,
     trees = group_tree.long()
     nodeT = node[:, owner].T                           # [T, R] by CSR slot
     done = nodeT < 0
-    vals = leaf_value[trees[:, None], torch.where(done, ~nodeT, 0)]
+    leaf = torch.where(done, ~nodeT, 0)
+    if linear is None:
+        vals = leaf_value[trees[:, None], leaf]
+    else:
+        FL = linear.leaf_feat.shape[-1]
+        vals = linear_leaf_values(
+            x, (trees[:, None] * L + leaf).T, leaf_value.reshape(-1),
+            linear.leaf_const.reshape(-1),
+            linear.leaf_feat.reshape(-1, FL),
+            linear.leaf_coeff.reshape(-1, FL)).T
     ws = torch.empty((T, x.shape[0]), dtype=torch.float32, device=x.device)
     ws[trees] = torch.where(done, vals, 0.0)
     return _accumulate(ws.T, tree_class.tolist(), num_class,
@@ -519,6 +591,8 @@ def _kernel_lib(dev: torch.device) -> ctypes.CDLL:
                 p, i32,                 # cat_tab, cat_words
                 p, p, p, i64,           # group_tree_lo, group_tree,
                 #                         leaf_value, leaves
+                p, p, p, i32,           # leaf_const, leaf_feat, leaf_coeff,
+                #                         feats (or null, null, null, 0)
                 p, i64, i32,            # tree_class, trees, num_class
                 i32, ctypes.c_float,    # early-stop freq, margin
                 p, p,                   # row_model, group_model (or null)
@@ -761,7 +835,8 @@ def predict_forest(x: torch.Tensor, t: ForestTables,
                    num_class: int, early_stop_freq: int,
                    early_stop_margin: float,
                    row_model: Optional[torch.Tensor] = None,
-                   group_model: Optional[torch.Tensor] = None
+                   group_model: Optional[torch.Tensor] = None,
+                   linear: Optional[LinearLeaves] = None
                    ) -> torch.Tensor:
     """Raw scores [num_class, R] f32 of the rows ``x`` [R, >= width]: every
     row through every structure group of ``t``, tree t's leaf value added
@@ -781,7 +856,12 @@ def predict_forest(x: torch.Tensor, t: ForestTables,
     [G], int32, the member of each row and of each structure group
     (:func:`pack_buffers`); a row's score sums only its own member's trees
     (a foreign group's trees add +0.0). Early stop is refused there, as in
-    the JAX package's packs: its tree-count replay is per member."""
+    the JAX package's packs: its tree-count replay is per member.
+
+    Linear mode: ``linear`` (:class:`LinearLeaves`, [T, L] / [T, L, FL]
+    on the rows' device, every feature id below ``t.width``) turns each
+    leaf value into the leaf's linear model over the row, solo or
+    packed."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"predict_forest runs on cuda or cpu, not "
                          f"{x.device}")
@@ -821,9 +901,35 @@ def predict_forest(x: torch.Tensor, t: ForestTables,
             raise ValueError("predict_forest: early stop cannot replay a "
                              "per-member tree count in packed mode")
         _check_packed(row_model, group_model, x.shape[0], G, x.device)
+    if linear is not None:
+        _check_linear(linear, leaf_value, t.width, x.device)
     return _predict_forest(x, t, group_tree_lo, group_tree, leaf_value,
                            tree_class, num_class, early_stop_freq,
-                           early_stop_margin, row_model, group_model)
+                           early_stop_margin, row_model, group_model, linear)
+
+
+def _check_linear(linear: LinearLeaves, leaf_value: torch.Tensor,
+                  width: int, device: torch.device) -> None:
+    """Refuse linear tables that are not contiguous f32 [T, L] / int32 and
+    f32 [T, L, FL] beside ``leaf_value`` on the rows' device, or read a
+    feature at or past ``width``. One host read of the feature ids."""
+    T, L = leaf_value.shape
+    lc, lf, lcf = linear
+    for name, a, dt in (("leaf_const", lc, torch.float32),
+                        ("leaf_feat", lf, torch.int32),
+                        ("leaf_coeff", lcf, torch.float32)):
+        if a.device != device or a.dtype != dt or not a.is_contiguous():
+            raise ValueError(f"predict_forest: {name} must be contiguous "
+                             f"{dt} on {device}, got {a.dtype} on "
+                             f"{a.device}")
+    if lc.shape != (T, L) or lf.dim() != 3 or lf.shape[:2] != (T, L) or \
+            lf.shape[2] < 1 or lcf.shape != lf.shape:
+        raise ValueError(f"predict_forest: linear tables must be [{T}, {L}]"
+                         f" and [{T}, {L}, FL], got {tuple(lc.shape)}, "
+                         f"{tuple(lf.shape)}, {tuple(lcf.shape)}")
+    if lf.numel() and int(lf.max()) >= width:
+        raise ValueError(f"linear leaves read feature {int(lf.max())}; the "
+                         f"forest reads {width} features")
 
 
 def _predict_forest(x: torch.Tensor, t: ForestTables,
@@ -832,16 +938,17 @@ def _predict_forest(x: torch.Tensor, t: ForestTables,
                     num_class: int, early_stop_freq: int,
                     early_stop_margin: float,
                     row_model: Optional[torch.Tensor] = None,
-                    group_model: Optional[torch.Tensor] = None
+                    group_model: Optional[torch.Tensor] = None,
+                    linear: Optional[LinearLeaves] = None
                     ) -> torch.Tensor:
     """:func:`predict_forest` on maps already checked: the plain version on
     a CPU tensor, else one launch of the fused kernel (packed when
-    ``row_model`` is given)."""
+    ``row_model`` is given, in its linear mode when ``linear`` is)."""
     if x.device.type == "cpu":
         return _predict_forest_reference(
             x, t, group_tree_lo, group_tree, leaf_value, tree_class,
             num_class, early_stop_freq, early_stop_margin, row_model,
-            group_model)
+            group_model, linear)
     if x.device.type != "cuda":
         raise ValueError(f"predict_forest runs on cuda or cpu, not "
                          f"{x.device}")
@@ -856,6 +963,9 @@ def _predict_forest(x: torch.Tensor, t: ForestTables,
     # are one aligned 128-byte line
     ws = torch.empty((T, (R + 31) // 32 * 32), dtype=torch.float32,
                      device=x.device)
+    lin = ((None, None, None, 0) if linear is None else
+           (linear.leaf_const.data_ptr(), linear.leaf_feat.data_ptr(),
+            linear.leaf_coeff.data_ptr(), int(linear.leaf_feat.shape[2])))
     lib = _kernel_lib(x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -866,7 +976,8 @@ def _predict_forest(x: torch.Tensor, t: ForestTables,
             t.group_steps.data_ptr(), int(t.group_root.shape[0]),
             t.cat_tab.data_ptr(), int(t.cat_tab.shape[1]),
             group_tree_lo.data_ptr(), group_tree.data_ptr(),
-            leaf_value.data_ptr(), leaf_value.shape[1], tree_class.data_ptr(),
+            leaf_value.data_ptr(), leaf_value.shape[1], *lin,
+            tree_class.data_ptr(),
             T, num_class, max(int(early_stop_freq), 0),
             float(np.float32(early_stop_margin)),
             None if row_model is None else row_model.data_ptr(),
@@ -883,7 +994,8 @@ def _predict_forest(x: torch.Tensor, t: ForestTables,
 
 class CompiledForest:
     """A device-resident compiled forest: the artifact's packed buffers
-    uploaded once to ``device``.
+    uploaded once to ``device`` (a linear artifact's leaf tables too:
+    ``linear``, or None).
 
     ``predict`` returns RAW per-class scores ``[num_class, N]`` f32;
     averaging and objective conversion stay with the caller
@@ -893,10 +1005,6 @@ class CompiledForest:
                  early_stop_freq: int = 0,
                  early_stop_margin: float = 0.0) -> None:
         m = artifact.meta
-        if bool(m["has_linear"]):
-            raise NotImplementedError(
-                "linear-leaf forests are not ported to lambdagap_tpu_torch "
-                "yet (ROADMAP.md, port queue: linear leaves)")
         self.artifact = artifact
         self.device = torch.device(device)
         self.num_class = int(m["num_class"])
@@ -914,6 +1022,7 @@ class CompiledForest:
         self._tree_class = tc.to(self.device)
         self._leaf_value = torch.from_numpy(
             np.ascontiguousarray(b["leaf_value"], np.float32)).to(self.device)
+        self.linear = _upload_linear(b, self._leaf_value, self.width)
 
     def predict_leaf(self, x: torch.Tensor) -> torch.Tensor:
         """Leaf index per (tree, row), [T, N] int32, from one traversal:
@@ -932,18 +1041,19 @@ class CompiledForest:
         return _predict_forest(x, t, t.group_tree_lo, t.group_tree,
                                self._leaf_value, self._tree_class,
                                self.num_class, self.early_stop_freq,
-                               self._es_margin)
+                               self._es_margin, linear=self.linear)
 
     @property
     def nbytes(self) -> int:
         """Resident device bytes: the artifact's node tables, the kernel's
-        records and CSR, the maps and the leaf table."""
-        return _tensor_bytes(self.tables) + sum(
+        records and CSR, the maps and the leaf tables."""
+        return _tensor_bytes(self.tables) + _tensor_bytes(
+            self.linear or ()) + sum(
             int(a.nbytes) for a in (self._group_of_tree, self._tree_class,
                                     self._leaf_value))
 
 
-def _tensor_bytes(tables: ForestTables) -> int:
+def _tensor_bytes(tables) -> int:
     return sum(int(a.nbytes) for a in tables if isinstance(a, torch.Tensor))
 
 
@@ -994,6 +1104,7 @@ class PackedForests:
         self._tree_class = tc.to(self.device)
         self._group_model = torch.from_numpy(gm).to(self.device)
         self._leaf_value = torch.from_numpy(b["leaf_value"]).to(self.device)
+        self.linear = _upload_linear(b, self._leaf_value, self.width)
         self.num_trees = int(tc.shape[0])
 
     def predict(self, x: torch.Tensor, row_model) -> torch.Tensor:
@@ -1014,10 +1125,11 @@ class PackedForests:
                                self._leaf_value, self._tree_class,
                                self.num_class, 0, 0.0,
                                torch.from_numpy(rm).to(self.device),
-                               self._group_model)
+                               self._group_model, self.linear)
 
     @property
     def nbytes(self) -> int:
-        return _tensor_bytes(self.tables) + sum(
+        return _tensor_bytes(self.tables) + _tensor_bytes(
+            self.linear or ()) + sum(
             int(a.nbytes) for a in (self._tree_class, self._group_model,
                                     self._leaf_value))

@@ -235,13 +235,13 @@ def _build_scorer(gb, idx, trees, es_freq: int, binned: bool,
                 early_stop_freq=es_freq, early_stop_margin=margin,
                 blocks=blocks)
     else:
-        forest, depth, tree_class, blocks = gb._device_forest(idx)
+        forest, depth, tree_class, blocks, linear = gb._device_forest(idx)
 
         def base(x):
             return dispatch_forest_predict(
                 cfg, x, forest, tree_class, K, depth, binned=False,
                 early_stop_freq=es_freq, early_stop_margin=margin,
-                blocks=blocks)
+                blocks=blocks, has_linear=linear)
 
     average = bool(gb.average_output) and n_iters > 1
     convert = (None if raw_score or gb.objective is None
@@ -373,8 +373,11 @@ def predict_stream(gb, data, *, start_iteration: int = 0,
     if not idx:
         res = np.zeros((K, src.n_rows), dtype=np.float32)
         return res[0] if K == 1 else res.T
-    gb._refuse_linear(idx)
     trees = [gb._tree(i) for i in idx]
+    if src.binned and any(getattr(t, "is_linear", False) for t in trees):
+        log.fatal("predict_stream: linear-leaf forests traverse raw rows "
+                  "(the per-leaf dot product needs raw features); score a "
+                  "matrix or file source instead of a binned dataset")
 
     gate = throttle
     if gate is None and signal_source is not None \
@@ -392,8 +395,9 @@ def predict_stream(gb, data, *, start_iteration: int = 0,
     sring = ScoreRing(gb.device, depth, clock)
 
     if pred_contrib:
-        return _contrib_stream(gb, src, idx, window_rows, out, gate,
-                               stats_out, ring, sring)
+        return _contrib_stream(gb, src, idx, start_iteration, num_iteration,
+                               window_rows, out, gate, stats_out, ring,
+                               sring)
 
     es_freq = gb._es_freq()
     cap = int(window_rows or cfg.predict_stream_window_rows)
@@ -467,13 +471,14 @@ def predict_stream(gb, data, *, start_iteration: int = 0,
     return res[0] if K == 1 else res.T
 
 
-def _contrib_stream(gb, src, idx, window_rows, out, gate, stats_out,
-                    ring: ShardRing, sring: ScoreRing) -> np.ndarray:
-    """``pred_contrib`` window by window on kernel S: each window's
-    f32-rounded rows (the JAX package's windows are f32) go up as float64,
-    their ``[w, K, F+1]`` contributions come back through the score ring
-    and are written straight into ``out`` when given."""
-    from ..models.shap import tree_shap
+def _contrib_stream(gb, src, idx, start_iteration, num_iteration,
+                    window_rows, out, gate, stats_out, ring: ShardRing,
+                    sring: ScoreRing) -> np.ndarray:
+    """``pred_contrib`` window by window on kernel S (a linear forest's
+    terms after it, ``GBDT._contrib_rows``): each window's f32-rounded rows
+    (the JAX package's windows are f32) go up as float64, their ``[w, K,
+    F+1]`` contributions come back through the score ring and are written
+    straight into ``out`` when given."""
     if src.binned:
         log.fatal("predict_stream(pred_contrib=True) needs raw feature "
                   "rows (a matrix source); TreeSHAP attributes raw split "
@@ -489,7 +494,6 @@ def _contrib_stream(gb, src, idx, window_rows, out, gate, stats_out,
     if max_f >= F:
         log.fatal("pred_contrib input has %d features but the model "
                   "splits on feature %d", F, max_f)
-    paths = gb._shap_paths(idx)
     t_start = time.perf_counter()
     width = K * (F + 1)
     res = None if out is not None else np.empty(
@@ -513,7 +517,8 @@ def _contrib_stream(gb, src, idx, window_rows, out, gate, stats_out,
 
     n_windows = rows = 0
     for key, bufs in WindowPump(windows(), ring, gate=gate):
-        sring.put(key, tree_shap(bufs[0], paths))
+        sring.put(key, gb._contrib_rows(bufs[0], start_iteration,
+                                        num_iteration))
         if sring.full:
             drain_one()
         rows += bufs[0].shape[0]

@@ -26,7 +26,11 @@ percentile of its in-bag residuals, the shrinkage applied to the host tree
 in float64, and the scores updated with ``f32(leaf_value)[row_leaf]``
 (``row_leaf``: the fused learner's, or the serial learner's from its final
 permutation, the JAX package's ``_add_tree_score``). That path stops when
-no class's tree splits, as the JAX package's does.
+no class's tree splits, as the JAX package's does. Linear leaves
+(``linear_tree``) take it too: each split tree's leaves are fitted
+(``_fit_linear_tree``, ``models/linear_leaf.py``) before the shrinkage,
+and its scores are the f32-rounded ``tree.linear_leaf_outputs`` over the
+raw rows, on the training set, every validation set and every replay.
 
 ``train_one_iter(grad, hess)`` trains on the caller's gradients (custom
 objectives, ``objective=none``; no boost-from-average then).
@@ -74,15 +78,16 @@ from ..metrics import create_metrics
 from ..objectives import ObjectiveFunction, create_objective
 from ..ops.predict import (TreeArrays, _round_depth, build_forest_blocks,
                            forest_to_arrays, predict_forest,
-                           predict_forest_leaf, predict_tree_binned,
-                           tree_to_arrays)
+                           predict_forest_leaf, predict_leaf_index_binned,
+                           predict_tree_binned, tree_to_arrays)
 from ..ops.predict import to_device as to_device_arrays
 from ..ops.predict_tensor import (build_tree_tiles, predict_forest_leaf_tensor,
                                   predict_forest_tensor)
 from ..utils import log
 from ..utils.device import resolve_device
 from .learner import cegb_requested
-from .tree import Tree
+from .linear_leaf import resolve_linear_config
+from .tree import Tree, linear_leaf_outputs
 
 K_EPSILON = 1e-15
 _ROADMAP = "(ROADMAP.md, Queue 1)"
@@ -121,21 +126,25 @@ def dispatch_forest_predict(cfg: Config, x: torch.Tensor, forest,
                             tree_class, num_class: int, max_depth: int,
                             binned: bool, early_stop_freq: int = 0,
                             early_stop_margin: float = 0.0,
-                            blocks=None) -> torch.Tensor:
+                            blocks=None,
+                            has_linear: bool = False) -> torch.Tensor:
     """Route a whole-forest score dispatch over the stacked tables through
     the configured engine: ``tensor`` (and ``compiled``, whose artifact
     models raw serving rows only, for the training-shaped replays) to the
     tensorized engine, ``scan`` to the per-tree oracle. Both return
     bit-identical [num_class, N] float32; ``blocks`` are the pre-sliced
-    tiles or blocks of :meth:`GBDT._device_forest`."""
+    tiles or blocks of :meth:`GBDT._device_forest`. ``has_linear``
+    evaluates the linear leaf payload (raw rows only: a linear forest's
+    binned replays go through :meth:`GBDT._replayer`)."""
     if cfg.predict_engine in ("tensor", "compiled"):
         return predict_forest_tensor(
             x, forest, tree_class, num_class, max_depth, binned,
             early_stop_freq, early_stop_margin,
-            tree_tile=cfg.predict_tree_tile, tiles=blocks)
+            tree_tile=cfg.predict_tree_tile, tiles=blocks,
+            has_linear=has_linear)
     return predict_forest(x, forest, tree_class, num_class, max_depth,
                           early_stop_freq, early_stop_margin, blocks=blocks,
-                          binned=binned)
+                          binned=binned, has_linear=has_linear)
 
 
 def dispatch_forest_leaf(cfg: Config, x: torch.Tensor, forest,
@@ -157,6 +166,8 @@ def _add_bias(tree: Tree, bias: float) -> None:
     if abs(bias) > K_EPSILON:
         tree.leaf_value[:tree.num_leaves] += bias
         tree.internal_value = [v + bias for v in tree.internal_value]
+        if tree.is_linear:
+            tree.leaf_const[:tree.num_leaves] += bias
 
 
 def _finalize_tree(tree: Tree, shrinkage: float, bias: float) -> Tree:
@@ -173,11 +184,8 @@ def _finalize_tree(tree: Tree, shrinkage: float, bias: float) -> Tree:
     return tree
 
 
-def _refuse_linear_trees(trees) -> None:
-    if any(getattr(t, "is_linear", False) for t in trees):
-        raise NotImplementedError(
-            "linear-leaf forests are not ported to lambdagap_tpu_torch "
-            "yet (ROADMAP.md, port queue: linear leaves)")
+def _has_linear(trees) -> bool:
+    return any(getattr(t, "is_linear", False) for t in trees)
 
 
 class _LazyTree:
@@ -205,8 +213,6 @@ def _refuse_unported(cfg: Config) -> None:
 
     if cfg.tree_learner != "serial":
         no(f"tree_learner={cfg.tree_learner}")
-    if cfg.linear_tree:
-        no("linear_tree")
     if cfg.snapshot_freq > 0:
         no("snapshot_freq (crash-safe snapshots)")
     if cfg.resume == "auto":
@@ -281,7 +287,13 @@ class GBDT:
         self.num_data = ds.num_data
         self.max_feature_idx = ds.num_total_features - 1
         if self.objective is not None:
+            if cfg.linear_tree and self.objective.is_renew_tree_output:
+                # (reference: config check "Cannot use regression_l1
+                # objective when fitting linear trees")
+                log.fatal("Cannot use the %s objective with linear_tree",
+                          self.objective.name)
             self.objective.init(ds.metadata, ds.num_data, self.device)
+        resolve_linear_config(cfg)
         self.serial = not use_fused_learner(cfg)
         self.learner = (SerialTreeLearner if self.serial
                         else FusedTreeLearner)(ds, cfg, self.device)
@@ -296,6 +308,9 @@ class GBDT:
         # the per-feature binned matrix on the device when the learner
         # holds EFB bundle columns, uploaded at the first replay
         self._x_binned: Optional[torch.Tensor] = None
+        # the raw matrices on the device under linear leaves (the training
+        # set's, each validation set's), uploaded at first use
+        self._raw_dev: Dict[int, Tuple[np.ndarray, torch.Tensor]] = {}
         self.sample_strategy = create_sample_strategy(
             cfg, ds.num_data, label=ds.metadata.label,
             query_boundaries=ds.metadata.query_boundaries)
@@ -317,7 +332,8 @@ class GBDT:
     def add_valid_set(self, ds, name: str) -> None:
         """A validation set; one added after training began takes the
         existing trees' scores in one batched binned-forest dispatch
-        (JAX ``gbdt.py:465-495``)."""
+        (JAX ``gbdt.py:465-495``), a linear forest's tree by tree from
+        the set's raw rows."""
         self.valid_sets.append((name, ds))
         self.valid_binned.append(torch.from_numpy(
             np.ascontiguousarray(ds.binned)).to(self.device))
@@ -326,22 +342,56 @@ class GBDT:
         self.valid_scores.append(self._init_scores(ds.metadata.init_score,
                                                    ds.num_data))
         if self.models:
-            replay = self._replayer(self.host_models)
-            self.valid_scores[-1] += replay(self.valid_binned[-1])
+            trees = self.host_models
+            vi = len(self.valid_sets) - 1
+            if _has_linear(trees) and ds.raw is None:
+                log.fatal("Valid set %r needs the raw feature matrix "
+                          "retained to replay a linear_tree model", name)
+            self._replayer(trees)(self.valid_scores[vi],
+                                  self.valid_binned[vi], self._raw_of(ds))
+
+    def _raw_of(self, ds) -> Optional[torch.Tensor]:
+        """A dataset's linear_tree raw matrix on the device (uploaded once
+        while the dataset keeps it), or None."""
+        raw = getattr(ds, "raw", None)
+        if raw is None:
+            return None
+        key = id(ds)
+        cached = self._raw_dev.get(key)
+        if cached is None or cached[0] is not raw:
+            self._raw_dev[key] = cached = (
+                raw, torch.from_numpy(np.ascontiguousarray(raw)).to(
+                    self.device))
+        return cached[1]
 
     def _replayer(self, trees: List[Tree]):
-        """A function of a binned matrix giving ``trees``' raw scores over
-        it, [K, rows] f32, through the configured engine
-        (:func:`dispatch_forest_predict`), as the JAX package replays a
-        forest when it resumes or attaches a validation set late."""
+        """A function ``(scores [K, rows], binned [rows, F], raw [rows, D])``
+        that adds ``trees``' raw scores over those rows into ``scores`` in
+        place, as the JAX package replays a forest when it resumes or
+        attaches a validation set late: a constant forest in one dispatch
+        through the configured engine (:func:`dispatch_forest_predict`); a
+        linear forest tree by tree in forest order, each tree's float64
+        outputs over the raw rows (the leaf from the binned traversal)
+        rounded to f32 and added, as training added them (JAX
+        ``gbdt.py:497-520``)."""
         K = self.num_tree_per_iteration
-        _refuse_linear_trees(trees)
         forest, depth = forest_to_arrays(
             trees, feature_meta=self.learner.meta_host,
             use_inner_feature=True, device=self.device)
+        if _has_linear(trees):
+            def linear(scores, x, raw):
+                leaf = dispatch_forest_leaf(self.config, x, forest, depth,
+                                            binned=True)
+                for i, t in enumerate(trees):
+                    scores[i % K] += linear_leaf_outputs(t, raw,
+                                                         leaf[i]).float()
+            return linear
         tree_class = [i % K for i in range(len(trees))]
-        return lambda x: dispatch_forest_predict(
-            self.config, x, forest, tree_class, K, depth, binned=True)
+
+        def constant(scores, x, raw=None):
+            scores += dispatch_forest_predict(
+                self.config, x, forest, tree_class, K, depth, binned=True)
+        return constant
 
     def _train_windows(self):
         """The per-feature binned training matrix on the device in row
@@ -420,7 +470,7 @@ class GBDT:
         grad, hess, mask = self.sample_strategy.sample(self.iter_, grad,
                                                        hess)
         self.tree_ms, self.renew_ms = [], []
-        if (self.serial or type(self) is not GBDT
+        if (self.serial or type(self) is not GBDT or cfg.linear_tree
                 or (self.objective is not None
                     and self.objective.is_renew_tree_output)):
             return self._train_host_trees(grad, hess, mask, init_scores)
@@ -503,6 +553,8 @@ class GBDT:
             tree, rec, row_leaf = grown
             if tree.num_leaves > 1:
                 should_continue = True
+                if cfg.linear_tree and type(self) is GBDT:
+                    self._fit_linear_tree(tree, row_leaf, grad[k], hess[k])
                 if self.objective is not None \
                         and self.objective.is_renew_tree_output:
                     self._renew_tree_output(tree, k, row_leaf, mask)
@@ -558,10 +610,34 @@ class GBDT:
             tree = self.learner.materialize(rec)
         return tree, rec, row_leaf
 
+    def _fit_linear_tree(self, tree: Tree, row_leaf: torch.Tensor, grad,
+                         hess) -> None:
+        """Fit the tree's linear leaves over the raw features of the leaf
+        paths (``models/linear_leaf.py``; JAX ``gbdt.py:700-738``): both
+        learners land here with their row -> leaf map on the device."""
+        from .linear_leaf import (fit_linear_leaves_batched,
+                                  numeric_feature_mask)
+        ds = self.train_set
+        if ds.raw is None:
+            log.warning("linear_tree needs the retained raw matrix; "
+                        "skipping linear fit")
+            return
+        fit_linear_leaves_batched(tree, self._raw_of(ds), row_leaf, grad,
+                                  hess, self.config.linear_lambda,
+                                  numeric_feature_mask(ds),
+                                  self.config.num_leaves)
+
     def _add_tree_scores(self, tree: Tree, rec, row_leaf,
                          k: int) -> None:
         """Add a host tree's ``f32(leaf_value)`` to class k's training
-        scores (by ``row_leaf``) and to every validation set's."""
+        scores (by ``row_leaf``) and to every validation set's; a linear
+        tree's f32-rounded :func:`linear_leaf_outputs` over the raw rows
+        instead."""
+        if tree.is_linear:
+            self.scores[k] += linear_leaf_outputs(
+                tree, self._raw_of(self.train_set), row_leaf).float()
+            self._add_valid_linear_tree_score(tree, rec, k)
+            return
         lv = torch.from_numpy(
             tree.leaf_value.astype(np.float32)).to(self.device)
         self.scores[k] += lv[row_leaf]
@@ -569,6 +645,37 @@ class GBDT:
             self._add_valid_tree_score(rec, lv, k)
         else:
             self._add_valid_host_tree_score(tree, lv, k)
+
+    def _add_valid_linear_tree_score(self, tree: Tree, rec, k: int) -> None:
+        """A linear tree's outputs added to every validation set's class-k
+        scores: its leaf over the binned rows, its f32-rounded
+        :func:`linear_leaf_outputs` over the raw rows (JAX
+        ``gbdt.py:807-827``). A set without its raw matrix takes the
+        constant leaf values, with the JAX package's warning."""
+        if not self.valid_sets:
+            return
+        lv = torch.from_numpy(
+            tree.leaf_value.astype(np.float32)).to(self.device)
+        if rec is not None:
+            t, depth = self._device_tree_arrays(rec, lv), max(rec.max_depth,
+                                                              1)
+        else:
+            t = to_device_arrays(tree_to_arrays(
+                tree, feature_meta=self.learner.meta_host,
+                use_inner_feature=True), self.device)
+            depth = _round_depth(tree.max_depth + 1)
+        for vi, (name, ds) in enumerate(self.valid_sets):
+            leaf = predict_leaf_index_binned(self.valid_binned[vi], t, depth)
+            raw = self._raw_of(ds)
+            if raw is None:
+                log.warning("Valid set %r has no retained raw matrix; "
+                            "linear-tree eval falls back to constant leaf "
+                            "values (metrics will not match predict())",
+                            name)
+                self.valid_scores[vi][k] += lv[leaf]
+                continue
+            self.valid_scores[vi][k] += linear_leaf_outputs(
+                tree, raw, leaf).float()
 
     def _grow(self, grad, hess, mask):
         """One tree: the serial learner's host Tree, or the fused learner's
@@ -761,29 +868,27 @@ class GBDT:
                 and self.objective.name in ("binary", "multiclass",
                                             "multiclassova") else 0)
 
-    def _refuse_linear(self, idx) -> None:
-        _refuse_linear_trees(self._tree(i) for i in idx)
-
     def _device_forest(self, idx):
         """Stacked tensor forest on the booster's device for the tensor and
         scan engines, with its pre-sliced tiles (``predict_tree_tile``) or
         blocks, cached per generation, slice and engine. Returns (forest,
-        depth, tree_class, blocks)."""
+        depth, tree_class, blocks, has_linear)."""
         cfg = self.config
         key = (self.generation, len(self.models), idx[0], idx[-1], len(idx),
                cfg.predict_engine, cfg.predict_tree_tile)
         cache = self._forest_cache
         if cache is None or cache[0] != key:
             K = self.num_tree_per_iteration
-            forest, depth = forest_to_arrays([self._tree(i) for i in idx],
-                                             device=self.device)
+            trees = [self._tree(i) for i in idx]
+            forest, depth = forest_to_arrays(trees, device=self.device)
             tree_class = [i % K for i in idx]
             if cfg.predict_engine in ("tensor", "compiled"):
                 blocks = build_tree_tiles(forest, tree_class,
                                           cfg.predict_tree_tile)
             else:
                 blocks = build_forest_blocks(forest, tree_class)
-            self._forest_cache = (key, (forest, depth, tree_class, blocks))
+            self._forest_cache = (key, (forest, depth, tree_class, blocks,
+                                        _has_linear(trees)))
         return self._forest_cache[1]
 
     def _compiled_forest(self, start_iteration: int, num_iteration: int,
@@ -821,13 +926,12 @@ class GBDT:
         if self.config.predict_engine == "compiled":
             return self._compiled_forest(start_iteration, num_iteration,
                                          es_freq).predict(x)
-        self._refuse_linear(idx)
-        forest, depth, tree_class, blocks = self._device_forest(idx)
+        forest, depth, tree_class, blocks, linear = self._device_forest(idx)
         return dispatch_forest_predict(
             self.config, x, forest, tree_class, K, depth, binned=False,
             early_stop_freq=es_freq,
             early_stop_margin=float(self.config.pred_early_stop_margin),
-            blocks=blocks)
+            blocks=blocks, has_linear=linear)
 
     def predict_raw(self, data: np.ndarray, start_iteration: int = 0,
                     num_iteration: int = -1) -> np.ndarray:
@@ -847,16 +951,20 @@ class GBDT:
         device. Under ``compiled`` the traversal kernel's carry answers it
         (one launch, no second traversal): tree t's leaf is
         ``~carry[r, group_of_tree[t]]``."""
-        idx = self._model_slice(start_iteration, num_iteration)
         x = torch.from_numpy(np.ascontiguousarray(data)).to(self.device)
+        return self._leaf_rows(x, start_iteration, num_iteration)
+
+    def _leaf_rows(self, x: torch.Tensor, start_iteration: int,
+                   num_iteration: int) -> torch.Tensor:
+        """:meth:`_leaf_device` of f32 rows already on the device."""
+        idx = self._model_slice(start_iteration, num_iteration)
         if not idx:
             return torch.zeros((0, x.shape[0]), dtype=torch.int32,
                                device=self.device)
         if self.config.predict_engine == "compiled":
             return self._compiled_forest(start_iteration, num_iteration,
                                          self._es_freq()).predict_leaf(x)
-        self._refuse_linear(idx)
-        forest, depth, _, blocks = self._device_forest(idx)
+        forest, depth, _, blocks, _ = self._device_forest(idx)
         return dispatch_forest_leaf(self.config, x, forest, depth,
                                     binned=False, blocks=blocks)
 
@@ -869,17 +977,40 @@ class GBDT:
                                  num_iteration).cpu().numpy().T
 
     def _shap_paths(self, idx):
-        """The slice's TreeSHAP paths on the booster's device, cached per
+        """The slice's TreeSHAP paths on the booster's device (a linear
+        tree's over its leaf constants) and its linear terms' tables
+        (``shap.linear_tables``, None for a constant forest), cached per
         generation and slice."""
         key = (self.generation, len(self.models), idx[0], idx[-1], len(idx))
         cache = self._shap_cache
         if cache is None or cache[0] != key:
-            from .shap import build_paths, to_device
+            from .shap import build_paths, linear_tables, structural, to_device
             K = self.num_tree_per_iteration
-            paths = build_paths([self._tree(i) for i in idx],
-                                [i % K for i in idx], K)
-            self._shap_cache = (key, to_device(paths, self.device))
+            trees = [self._tree(i) for i in idx]
+            tree_class = [i % K for i in idx]
+            paths = build_paths([structural(t) for t in trees], tree_class, K)
+            self._shap_cache = (key, (
+                to_device(paths, self.device),
+                linear_tables(trees, tree_class, self.device)
+                if _has_linear(trees) else None))
         return self._shap_cache[1]
+
+    def _contrib_rows(self, x: torch.Tensor, start_iteration: int,
+                      num_iteration: int) -> torch.Tensor:
+        """SHAP contributions [N, K, F+1] float64 of the float64 rows ``x``
+        on the booster's device, before averaging: kernel S over the
+        slice's paths; for a linear forest, then each linear term on its
+        own feature, the rows' leaves from the f32 traversal (K3 under
+        ``compiled``; ``shap.add_linear_terms``)."""
+        from .shap import add_linear_terms, tree_shap
+        idx = self._model_slice(start_iteration, num_iteration)
+        paths, linear = self._shap_paths(idx)
+        phi = tree_shap(x, paths)
+        if linear is not None:
+            leaf = self._leaf_rows(x.float().contiguous(), start_iteration,
+                                   num_iteration)
+            add_linear_terms(phi, x, leaf, linear)
+        return phi
 
     def predict_contrib(self, data: np.ndarray, start_iteration: int = 0,
                         num_iteration: int = -1) -> np.ndarray:
@@ -887,8 +1018,9 @@ class GBDT:
         the expected value, each class's row summing to its raw score
         (reference: Tree::PredictContrib / TreeSHAP, src/io/tree.cpp); K
         classes lay out as [N, K*(F+1)]. Decisions in float64 on a float64
-        copy of ``data``."""
-        from .shap import tree_shap
+        copy of ``data``; a linear tree's structural part over its leaf
+        constants, each linear term on its own feature (the JAX package's
+        ``tree_shap_linear``)."""
         data = np.asarray(data, dtype=np.float64)
         data = np.ascontiguousarray(self._check_predict_shape(data))
         N, F_data = data.shape
@@ -903,9 +1035,9 @@ class GBDT:
         if not idx:
             phi = np.zeros((N, K, F_data + 1), np.float64)
         else:
-            self._refuse_linear(idx)
             x = torch.from_numpy(data).to(self.device)
-            phi = tree_shap(x, self._shap_paths(idx)).cpu().numpy()
+            phi = self._contrib_rows(x, start_iteration,
+                                     num_iteration).cpu().numpy()
         if self.average_output:
             phi /= max(1, len(idx) // max(K, 1))
         if K == 1:
@@ -968,6 +1100,21 @@ class GBDT:
         trees = [copy.deepcopy(t) for t in trees]
         for t in trees:
             rebind_to_dataset(t, self.train_set)
+        raw = None
+        if _has_linear(trees):
+            # linear trees predict leaf_const + leaf_coeff . x: a replay
+            # with constant leaves would train every later gradient
+            # against wrong scores (JAX gbdt.py:905-928)
+            if type(self) is not GBDT:
+                log.fatal("Continued training from a linear_tree model is "
+                          "only supported with boosting=gbdt")
+            if self.train_set.raw is None or any(
+                    ds.raw is None for _, ds in self.valid_sets):
+                log.fatal("Continued training from a linear_tree model needs "
+                          "the raw feature matrix retained on every dataset "
+                          "(train a linear_tree Dataset or disable "
+                          "init_model)")
+            raw = self._raw_of(self.train_set)
         self.models = list(trees)
         self.iter_ = len(trees) // K
         self.invalidate_predict_cache()
@@ -975,9 +1122,12 @@ class GBDT:
             return
         replay = self._replayer(trees)
         for lo, xw in self._train_windows():
-            self.scores[:, lo:lo + xw.shape[0]] += replay(xw)
-        for vi in range(len(self.valid_sets)):
-            self.valid_scores[vi] += replay(self.valid_binned[vi])
+            n = xw.shape[0]
+            replay(self.scores[:, lo:lo + n], xw,
+                   None if raw is None else raw[lo:lo + n])
+        for vi, (_, ds) in enumerate(self.valid_sets):
+            replay(self.valid_scores[vi], self.valid_binned[vi],
+                   self._raw_of(ds))
 
     def refit(self, data: np.ndarray, label: np.ndarray, weight=None,
               group=None, decay_rate: Optional[float] = None) -> None:
@@ -1000,7 +1150,13 @@ class GBDT:
         trees = self.host_models
         if not trees:
             log.fatal("refit needs a trained model")
-        self._refuse_linear(range(len(trees)))
+        if _has_linear(trees):
+            # refit rewrites leaf_value only; predict would keep reading
+            # the stale linear payload, so it goes (JAX gbdt.py:959-966)
+            log.warning("refit drops linear-leaf models; the refitted trees "
+                        "predict with constant leaf values")
+            for t in trees:
+                t.is_linear = False
         md = Metadata()
         md.label = np.asarray(label, dtype=np.float32).reshape(-1)
         if weight is not None:
@@ -1053,7 +1209,12 @@ class GBDT:
             return
         self._materialize_lazy()
         last = range(len(self.models) - K, len(self.models))
-        self._refuse_linear(last)
+        if _has_linear(self.models[i] for i in last):
+            # subtracting constant leaf values would corrupt the scores a
+            # linear tree updated with its dot products (JAX
+            # gbdt.py:1431-1435)
+            log.fatal("rollback_one_iter is not supported for linear_tree "
+                      "models")
         if self.train_set is not None:
             lr = self.learner
             for k, i in enumerate(last):

@@ -38,11 +38,20 @@ launches (``csrc/treeshap.cu``: at most three a pass of rows,
 cap included; on a CPU tensor it runs the plain version
 (:func:`_tree_shap_reference`), the same per-path recurrence as float64
 torch ops over a ``[rows, paths, path_len]`` lattice, chunked so its
-memory stays bounded. Linear leaves are not ported: callers refuse linear
-forests before they reach this module.
+memory stays bounded.
+
+A linear tree (``linear_tree``) is explained as the JAX package's
+``tree_shap_linear`` explains it (arXiv:1802.05640): the structural pass
+runs over the leaf constants (:func:`structural`, kernel S unchanged), and
+each linear term ``coeff_j * x_j`` of the row's leaf goes to its own
+feature j (:func:`add_linear_terms`, torch ops over every row at once, the
+rows' leaves from the traversal); a row with NaN in its leaf's features
+predicts ``leaf_value``, and the difference to ``leaf_const`` goes to the
+first NaN feature. A row's contributions still sum to its raw score.
 """
 from __future__ import annotations
 
+import copy
 import ctypes
 import threading
 from typing import NamedTuple, Sequence
@@ -664,3 +673,83 @@ def tree_shap(x: torch.Tensor, p: ShapPaths) -> torch.Tensor:
                     f"tree_shap kernel launch failed (code {rc})")
     TREE_SHAP_LAUNCHES.add()
     return phi
+
+
+# ---------------------------------------------------------------------------
+# linear leaves
+# ---------------------------------------------------------------------------
+class LinearTables(NamedTuple):
+    """The linear trees of a forest slice as device tables for
+    :func:`add_linear_terms`: ``feat`` / ``coeff`` [T, L, FL] (int64, -1 on
+    padding slots / float64), ``diff`` [T, L] float64 ``leaf_value -
+    leaf_const``; ``trees`` and ``classes`` the linear trees' positions in
+    the slice and their classes (host lists)."""
+    feat: torch.Tensor
+    coeff: torch.Tensor
+    diff: torch.Tensor
+    trees: list
+    classes: list
+
+
+def structural(tree: Tree) -> Tree:
+    """The tree TreeSHAP explains: a linear tree with its leaf constants as
+    leaf values (a shallow copy), a constant tree as it is."""
+    if not getattr(tree, "is_linear", False):
+        return tree
+    out = copy.copy(tree)
+    lv = np.asarray(tree.leaf_value, np.float64).copy()
+    lv[:tree.num_leaves] = tree.leaf_const[:tree.num_leaves]
+    out.leaf_value = lv
+    return out
+
+
+def linear_tables(trees: Sequence[Tree], tree_class: Sequence[int],
+                  device: torch.device) -> LinearTables:
+    """:class:`LinearTables` of ``trees`` on ``device``."""
+    pos = [i for i, t in enumerate(trees) if getattr(t, "is_linear", False)]
+    L = max(trees[i].num_leaves for i in pos)
+    FL = max(1, max(len(f) for i in pos
+                    for f in trees[i].leaf_features[:trees[i].num_leaves]))
+    feat = np.full((len(pos), L, FL), -1, np.int64)
+    coeff = np.zeros((len(pos), L, FL), np.float64)
+    diff = np.zeros((len(pos), L), np.float64)
+    for j, i in enumerate(pos):
+        t = trees[i]
+        n = t.num_leaves
+        tf, tc, const = t.linear_tables()
+        feat[j, :n, :tf.shape[1]] = tf
+        coeff[j, :n, :tc.shape[1]] = tc
+        diff[j, :n] = np.asarray(t.leaf_value[:n], np.float64) - const
+
+    def up(a):
+        return torch.from_numpy(a).to(device)
+    return LinearTables(up(feat), up(coeff), up(diff), pos,
+                        [int(tree_class[i]) for i in pos])
+
+
+def add_linear_terms(phi: torch.Tensor, x: torch.Tensor, leaf: torch.Tensor,
+                     lt: LinearTables) -> None:
+    """Add the linear trees' terms into ``phi`` [N, K, F+1] float64 in
+    place, tree by tree in forest order: ``coeff_j * x_j`` of the row's
+    leaf to feature j; for a row with NaN in a real slot of its leaf, no
+    term, and ``leaf_value - leaf_const`` to the first such feature. ``x``:
+    the float64 rows [N, F]; ``leaf``: [T, N] leaf of each row in each
+    tree of the slice. A row's features are distinct within a leaf, so a
+    scatter never adds twice into one (row, feature) but +0.0 (padding
+    slots land in the expected-value column, adding +0.0)."""
+    last = phi.shape[-1] - 1
+    for j, (t, k) in enumerate(zip(lt.trees, lt.classes)):
+        lf = leaf[t].long()
+        f = lt.feat[j][lf]                             # [N, FL]
+        slot = f >= 0
+        xv = torch.gather(x, 1, f.clamp(min=0))
+        nan = slot & torch.isnan(xv)
+        nan_row = nan.any(1)
+        term = torch.where(slot & ~nan_row[:, None], lt.coeff[j][lf] * xv,
+                           0.0)
+        dst = phi[:, k]
+        dst.scatter_add_(1, torch.where(slot, f, last), term)
+        first = torch.gather(f, 1, torch.argmax(nan.to(torch.uint8), 1,
+                                                keepdim=True))
+        dst.scatter_add_(1, torch.where(nan_row[:, None], first, last),
+                         torch.where(nan_row, lt.diff[j][lf], 0.0)[:, None])

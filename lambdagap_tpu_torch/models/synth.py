@@ -80,6 +80,28 @@ def categorical_trees(seed: int, num_trees: int = 20, num_leaves: int = 31,
     return out
 
 
+def linearize(trees: List[Tree], seed: int) -> List[Tree]:
+    """Give ``trees`` linear leaf payloads in place (and return them): each
+    leaf's distinct numeric path features, sorted, with coefficients ~
+    N(0, 0.01) and ``leaf_const`` = ``leaf_value`` + N(0, 0.01); every
+    7th leaf keeps no features (its constant alone)."""
+    from .linear_leaf import leaf_path_features
+    rng = np.random.RandomState(seed)
+    for tree in trees:
+        L = tree.num_leaves
+        numeric = np.ones(max(tree.split_feature, default=0) + 1, bool)
+        tbl = leaf_path_features(tree, numeric, L, numeric.size)
+        feats = [[int(f) for f in row if f >= 0] for row in tbl[:L]]
+        tree.is_linear = True
+        tree.leaf_features = [[] if leaf % 7 == 6 else f
+                              for leaf, f in enumerate(feats)]
+        tree.leaf_coeff = [rng.normal(0, 0.01, len(f))
+                           for f in tree.leaf_features]
+        tree.leaf_const = (np.asarray(tree.leaf_value[:L], np.float64)
+                           + rng.normal(0, 0.01, L))
+    return trees
+
+
 def header(num_features: int,
            objective: str = "binary sigmoid:1") -> Dict[str, str]:
     """A model-text header dict for ``convert.booster_from_numpy``."""

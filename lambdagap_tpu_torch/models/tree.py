@@ -5,8 +5,8 @@ JAX package): the reference's flat-array binary tree
 (reference: include/LightGBM/tree.h:26, src/io/tree.cpp). A tree lives on
 the host (appending one split per step, cheap) and is stacked into padded
 device tensors for batched prediction (see
-:mod:`lambdagap_tpu_torch.ops.predict`). ``rebind_to_dataset`` waits for
-the training slice: it needs ``data/binning``.
+:mod:`lambdagap_tpu_torch.ops.predict`). :func:`linear_leaf_outputs` gives
+a linear tree's per-row outputs on the rows' device.
 
 Node encoding follows the reference: internal nodes are indexed 0..n-1; child
 pointers are either an internal index (>= 0) or ``~leaf_index`` (< 0).
@@ -17,6 +17,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 MISSING_NONE_C, MISSING_ZERO_C, MISSING_NAN_C = 0, 1, 2
 _FORCE_LEFT_BIN = 1 << 30      # threshold_bin sentinel: every bin goes left
@@ -128,10 +129,31 @@ class Tree:
         return new_leaf
 
     def apply_shrinkage(self, rate: float) -> None:
-        """(reference: tree.h Shrinkage) in float64."""
+        """(reference: tree.h Shrinkage) in float64, the linear payload
+        too."""
         self.leaf_value[:self.num_leaves] *= rate
         self.internal_value = [v * rate for v in self.internal_value]
+        if self.is_linear:
+            self.leaf_const[:self.num_leaves] *= rate
+            for leaf in range(self.num_leaves):
+                self.leaf_coeff[leaf] = self.leaf_coeff[leaf] * rate
         self.shrinkage *= rate
+
+    def linear_tables(self):
+        """The linear payload as float64 numpy slot tables: feature ids
+        [L, FL] int64 (``-1`` on padding slots), coefficients [L, FL] (0
+        on padding) and constants [L], FL the widest leaf's feature count
+        (at least 1). Built anew each call: the payload is edited in place
+        (shrinkage, bias, refit)."""
+        L = self.num_leaves
+        FL = max(1, max(len(f) for f in self.leaf_features[:L]))
+        feat = np.full((L, FL), -1, np.int64)
+        coeff = np.zeros((L, FL), np.float64)
+        for i in range(L):
+            nf = len(self.leaf_features[i])
+            feat[i, :nf] = self.leaf_features[i]
+            coeff[i, :nf] = self.leaf_coeff[i]
+        return feat, coeff, np.asarray(self.leaf_const[:L], np.float64)
 
     @property
     def max_depth(self) -> int:
@@ -258,3 +280,39 @@ def rebind_to_dataset(tree: Tree, ds) -> None:
                 log.debug("Feature %d: model expects NaN missing but dataset "
                           "has none; NaN handling folded away", f)
                 tree.missing_type[i] = MISSING_NONE_C
+
+
+# rows of a linear_leaf_outputs chunk: bounds its [rows, FL] float64 work
+_OUTPUT_ROWS = 1 << 20
+
+
+def linear_leaf_outputs(tree: Tree, X: torch.Tensor,
+                        leaf_idx: torch.Tensor) -> torch.Tensor:
+    """Per-row float64 outputs of a tree given each row's leaf index, on
+    X's device: ``leaf_const + sum_j coeff_j * x_j`` over the leaf's
+    features, or the constant ``leaf_value`` for a row with NaN in one of
+    them (reference: linear_tree_learner.cpp / tree.cpp PredictLinear); a
+    constant tree's ``leaf_value``. The JAX package's
+    ``linear_leaf_outputs`` (``models/tree.py:271-290``) makes one numpy
+    pass per leaf; here every leaf at once, in row chunks. The training
+    update, the validation update and every replay call this one
+    function, then round its result to f32 once a tree."""
+    dev = X.device
+    L = tree.num_leaves
+    leaf = leaf_idx.to(device=dev, dtype=torch.int64)
+    lv = torch.from_numpy(np.asarray(tree.leaf_value[:L], np.float64)).to(dev)
+    if not getattr(tree, "is_linear", False):
+        return lv[leaf]
+    feat_t, coeff_t, const = (torch.from_numpy(a).to(dev)
+                              for a in tree.linear_tables())
+    out = torch.empty(leaf.shape[0], dtype=torch.float64, device=dev)
+    for lo in range(0, leaf.shape[0], _OUTPUT_ROWS):
+        lc = leaf[lo:lo + _OUTPUT_ROWS]
+        f = feat_t[lc]                                   # [n, FL]
+        slot = f >= 0
+        xv = torch.gather(X[lo:lo + _OUTPUT_ROWS], 1,
+                          f.clamp(min=0)).double()
+        nan = (slot & torch.isnan(xv)).any(1)
+        dot = torch.where(slot, coeff_t[lc] * xv, 0.0).sum(1)
+        out[lo:lo + _OUTPUT_ROWS] = torch.where(nan, lv[lc], const[lc] + dot)
+    return out

@@ -21,7 +21,10 @@ package's layout: only the tail block pads, with all-zero no-op trees that
 land on a zero leaf and add exactly +0.0 after every real tree), which the
 tensor engine (``ops/predict_tensor.py``) consumes as its tiles.
 :func:`predict_forest_leaf` gives the leaf index per (tree, row) for
-``pred_leaf`` and ``refit``. Linear leaves wait for later slices.
+``pred_leaf`` and ``refit``. Under ``has_linear`` a tree's value is the
+linear leaf evaluation ``ops/linear.linear_leaf_values`` on raw rows (JAX
+``ops/predict.py:265-275``): a constant tree carries ``leaf_const ==
+leaf_value`` and empty slots, so a mixed forest evaluates uniformly.
 """
 from __future__ import annotations
 
@@ -301,20 +304,22 @@ def _forest_block(forest: TreeArrays, tree_class: Sequence[int], b: int,
     pads, with no-op trees (all-zero arrays: the bounded traversal never
     leaves node 0 and lands on ``leaf_value[-1] == 0``, adding exactly
     +0.0 — and pads sit strictly after every real tree, so early-stop
-    margins are unaffected)."""
+    margins are unaffected). A pad's linear slots are empty (-1), so it
+    adds +0.0 under ``has_linear`` too, whatever the rows hold."""
     hi = min(b + tree_block, T)
     pad = tree_block - (hi - b)
 
-    def cut(a: torch.Tensor) -> torch.Tensor:
+    def cut(a: torch.Tensor, fill: int = 0) -> torch.Tensor:
         blk = a[b:hi]
         if pad:
-            blk = torch.cat([blk, torch.zeros((pad,) + tuple(a.shape[1:]),
-                                              dtype=a.dtype,
-                                              device=a.device)])
+            blk = torch.cat([blk, torch.full((pad,) + tuple(a.shape[1:]),
+                                             fill, dtype=a.dtype,
+                                             device=a.device)])
         return blk
 
     tc = [int(k) for k in tree_class[b:hi]] + [0] * pad
-    return TreeArrays(*(cut(a) for a in forest)), tc
+    return TreeArrays(*(cut(a, -1 if name == "leaf_feat" else 0)
+                        for name, a in zip(TreeArrays._fields, forest))), tc
 
 
 def build_forest_blocks(forest: TreeArrays, tree_class: Sequence[int],
@@ -335,16 +340,28 @@ def build_forest_blocks(forest: TreeArrays, tree_class: Sequence[int],
     return tuple(out)
 
 
+def _tree_leaf_vals(x: torch.Tensor, t: TreeArrays, max_depth: int,
+                    binned: bool, has_linear: bool) -> torch.Tensor:
+    """One tree's per-row output [N]: the constant leaf gather or, for a
+    linear forest on raw rows, the linear leaf evaluation."""
+    leaf = _leaf_id(x, t, max_depth, binned)
+    if not has_linear:
+        return t.leaf_value[leaf]
+    from .linear import linear_leaf_values
+    return linear_leaf_values(x, leaf[:, None], t.leaf_value, t.leaf_const,
+                              t.leaf_feat, t.leaf_coeff)[:, 0]
+
+
 def _predict_forest_block(x: torch.Tensor, forest: TreeArrays,
                           tree_class: Sequence[int], carry, max_depth: int,
                           binned: bool, early_stop_freq: int,
-                          early_stop_margin: float):
+                          early_stop_margin: float, has_linear: bool = False):
     """One block of trees, threading the (out, stopped, i) carry: one f32
     add per tree in forest order."""
     out, stopped, i = carry
     for j, k in enumerate(tree_class):
         t = _tree(forest, j)
-        vals = t.leaf_value[_leaf_id(x, t, max_depth, binned)]
+        vals = _tree_leaf_vals(x, t, max_depth, binned, has_linear)
         if early_stop_freq <= 0:
             out[k] += vals
             continue
@@ -365,7 +382,8 @@ def predict_forest(x: torch.Tensor, forest: TreeArrays,
                    tree_class: Sequence[int], num_class: int,
                    max_depth: int, early_stop_freq: int = 0,
                    early_stop_margin: float = 0.0, blocks=None,
-                   binned: bool = False) -> torch.Tensor:
+                   binned: bool = False,
+                   has_linear: bool = False) -> torch.Tensor:
     """Sum a whole forest's leaf values into per-class scores.
 
     x: [N, D] raw f32 rows (or, ``binned``, the [N, F] binned matrix) on
@@ -376,14 +394,18 @@ def predict_forest(x: torch.Tensor, forest: TreeArrays,
     (reference: src/boosting/prediction_early_stop.cpp; binary margin =
     2*|score|, multiclass = top1 - top2). ``blocks`` from
     :func:`build_forest_blocks` run the same trees block by block with the
-    carry threaded through (the padded tail adds +0.0). Returns
+    carry threaded through (the padded tail adds +0.0). ``has_linear``:
+    evaluate the linear leaf payload (raw rows only). Returns
     [num_class, N] float32."""
+    assert not (binned and has_linear), \
+        "linear forests traverse raw rows; binned replays are per tree"
     carry = init_carry(num_class, x.shape[0], x.device)
     if blocks is None:
         blocks = ((forest, [int(k) for k in tree_class], len(tree_class)),)
     for blk, tc, _ in blocks:
         carry = _predict_forest_block(x, blk, tc, carry, max_depth, binned,
-                                      early_stop_freq, early_stop_margin)
+                                      early_stop_freq, early_stop_margin,
+                                      has_linear)
     return carry[0]
 
 

@@ -23,8 +23,10 @@ traversal still computes rows that stopped early.
 Decision rules (NaN/default-left routing, categorical bitsets, binned bin
 compares, zero-missing) follow ``ops/predict._traverse_leaf_id`` decision
 for decision; a raw categorical value takes :func:`ops.predict.category_of`,
-the saturating cast XLA's convert performs. Linear leaves are not ported:
-callers refuse linear forests before they reach this module.
+the saturating cast XLA's convert performs. Under ``has_linear`` the leaf
+gather becomes ``ops/linear.linear_leaf_values`` over the flattened leaf
+tables (JAX ``ops/predict_tensor.py:121-140``), the scan engine's
+evaluation, so the engines stay ``array_equal`` on linear forests.
 """
 from __future__ import annotations
 
@@ -109,28 +111,38 @@ def _traverse_tile(x: torch.Tensor, t: TreeArrays, max_depth: int,
     return node
 
 
-def _tile_leaf_values(node: torch.Tensor, t: TreeArrays) -> torch.Tensor:
-    """Leaf-value gather for a traversed tile: [R, Tt] f32. No-op pad
-    trees (node >= 0) contribute exactly 0.0, like the scan engine's padded
-    tail blocks."""
+def _tile_leaf_values(node: torch.Tensor, t: TreeArrays, x: torch.Tensor,
+                      has_linear: bool) -> torch.Tensor:
+    """Leaf-value gather for a traversed tile: [R, Tt] f32, or the linear
+    leaf evaluation over the raw rows ``x``. No-op pad trees (node >= 0)
+    contribute exactly 0.0, like the scan engine's padded tail blocks."""
     Tt, L = t.leaf_value.shape
     done = node < 0
     leaf = torch.where(done, ~node, 0)
     idx = (torch.arange(Tt, dtype=torch.int64,
                         device=node.device) * L)[None, :] + leaf
-    vals = t.leaf_value.reshape(-1)[idx]
+    if has_linear:
+        from .linear import linear_leaf_values
+        FL = t.leaf_feat.shape[-1]
+        vals = linear_leaf_values(
+            x, idx, t.leaf_value.reshape(-1), t.leaf_const.reshape(-1),
+            t.leaf_feat.reshape(-1, FL), t.leaf_coeff.reshape(-1, FL))
+    else:
+        vals = t.leaf_value.reshape(-1)[idx]
     return torch.where(done, vals, 0.0)
 
 
 def _predict_tensor_tile(x: torch.Tensor, t: TreeArrays,
                          tree_class: Sequence[int], carry, max_depth: int,
                          binned: bool, early_stop_freq: int = 0,
-                         early_stop_margin: float = 0.0):
+                         early_stop_margin: float = 0.0,
+                         has_linear: bool = False):
     """One tile: the parallel [R, Tt] traversal, then the forest-order
     accumulation threading the scan engine's (out, stopped, i) carry —
     the same f32 additions in the same order, the same early-stop
     points."""
-    vals = _tile_leaf_values(_traverse_tile(x, t, max_depth, binned), t)
+    vals = _tile_leaf_values(_traverse_tile(x, t, max_depth, binned), t, x,
+                             has_linear)
     valsT = vals.T                                            # [Tt, R]
     out, stopped, i = carry
     for j, k in enumerate(tree_class):
@@ -167,13 +179,17 @@ def predict_forest_tensor(x: torch.Tensor, forest: TreeArrays,
                           early_stop_freq: int = 0,
                           early_stop_margin: float = 0.0,
                           tree_tile: Optional[int] = None,
-                          tiles=None) -> torch.Tensor:
+                          tiles=None,
+                          has_linear: bool = False) -> torch.Tensor:
     """Tensorized drop-in for :func:`ops.predict.predict_forest`: x is
     [N, D] raw f32 rows (``binned=False``) or the [N, F] binned matrix;
     returns [num_class, N] float32, bit-identical to the scan engine.
     ``tiles`` (from :func:`build_tree_tiles`) skips the per-call forest
     re-slice; ``tree_tile`` bounds the [R, Tt] working set (default
-    ``predict_tree_tile``'s 64)."""
+    ``predict_tree_tile``'s 64); ``has_linear`` evaluates the linear leaf
+    payload (raw rows only)."""
+    assert not (binned and has_linear), \
+        "linear forests traverse raw rows; binned replays are per tree"
     tc = [int(k) for k in tree_class]
     carry = init_carry(num_class, x.shape[0], x.device)
     if tiles is None:
@@ -182,7 +198,8 @@ def predict_forest_tensor(x: torch.Tensor, forest: TreeArrays,
         tiles = ((forest, tc, len(tc)),)
     for blk, btc, _ in tiles:
         carry = _predict_tensor_tile(x, blk, btc, carry, max_depth, binned,
-                                     early_stop_freq, early_stop_margin)
+                                     early_stop_freq, early_stop_margin,
+                                     has_linear)
     return carry[0]
 
 

@@ -117,12 +117,11 @@ class CompiledForestCache:
         self.artifact = None
         self.artifact_hash = None
         self._compiled = None
+        # a linear forest serves like a constant one (JAX cache.py:101-106):
+        # its leaf tables ride the stacked arrays and the compiled
+        # artifact, and every engine evaluates them
+        self.has_linear = any(getattr(t, "is_linear", False) for t in trees)
         if idx and self.engine in ("scan", "tensor"):
-            if any(getattr(t, "is_linear", False) for t in trees):
-                raise NotImplementedError(
-                    "linear-leaf forests are not ported to "
-                    "lambdagap_tpu_torch yet (ROADMAP.md, port queue: "
-                    "linear leaves)")
             forest, depth = forest_to_arrays(trees, device=self.device)
             tree_class = [i % self.num_class for i in idx]
             tiles = (build_tree_tiles(forest, tree_class,
@@ -198,7 +197,8 @@ class CompiledForestCache:
             out = dispatch_forest_predict(
                 self.gbdt.config, xb, forest, tree_class, self.num_class,
                 depth, binned=False, early_stop_freq=self._es_freq,
-                early_stop_margin=self._es_margin, blocks=tiles)
+                early_stop_margin=self._es_margin, blocks=tiles,
+                has_linear=self.has_linear)
         return self._finish(out, raw_score)
 
     def _finish(self, out: torch.Tensor, raw_score: bool) -> torch.Tensor:

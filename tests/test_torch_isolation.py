@@ -9,8 +9,9 @@ bundles (the threefry draws, the samplers, the int8 histograms and the
 bundling included), and trains and scores out of core (a streamed
 ``ShardedBinnedDataset``, ``predict_stream``), then trains DART under a
 ``reset_parameter`` schedule, continues it with ``init_model`` and
-cross-validates (``cv``). Asking for the card where there is none raises
-instead of quietly running on the CPU.
+cross-validates (``cv``), then trains, serves and explains linear leaves
+(``ops/linear.py``, ``models/linear_leaf.py``). Asking for the card where
+there is none raises instead of quietly running on the CPU.
 """
 import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import ast
@@ -84,6 +85,18 @@ assert more.num_trees() == 4
 res = lgt.cv(api, lgt.Dataset(Xt, label=yt, free_raw_data=False), 2,
              nfold=2, return_cvbooster=True)
 assert isinstance(res["cvbooster"], lgt.CVBooster)
+from lambdagap_tpu_torch.ops import linear as linear_ops
+from lambdagap_tpu_torch.models import linear_leaf
+assert linear_ops.leaf_feature_width(7, 7) == 8
+lin = lgt.train({{"device_type": "cpu", "objective": "regression",
+                 "verbose": -1, "num_leaves": 7, "linear_tree": True}},
+                lgt.Dataset(Xt, label=Xt[:, 0] + 2 * Xt[:, 1]), 3)
+assert all(t.is_linear for t in lin._booster.host_models)
+lin_raw = lin.predict(Xt, raw_score=True)
+with lin.as_server(raw_score=True) as server:
+    assert np.array_equal(server.predict(Xt), lin_raw)
+phi = lin.predict(Xt, pred_contrib=True)
+assert np.allclose(phi.sum(1), lin_raw, rtol=1e-5, atol=1e-6)
 bad = sorted(m for m in sys.modules
              if (m == "jax" or m.startswith("jax.")
                  or m == "lambdagap_tpu" or m.startswith("lambdagap_tpu."))
@@ -180,6 +193,27 @@ def test_cuda_tensor_never_reaches_the_plain_traversal():
                                torch.device("cpu"))
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         eng.traverse_forest(torch.from_numpy(X).to("meta"), tables)
+
+
+def test_linear_mode_never_falls_back_to_the_plain_version():
+    """The fused kernel's linear mode on a non-CPU, non-CUDA tensor raises
+    too: no linear path quietly takes the plain version."""
+    from lambdagap_tpu_torch.infer import compile_forest
+    from lambdagap_tpu_torch.infer import engine as eng
+    from lambdagap_tpu_torch.models import synth
+    from lambdagap_tpu_torch.convert import booster_from_numpy
+    trees = synth.linearize(synth.random_trees(1, 3, 7, 4, grid_size=8), 2)
+    port = booster_from_numpy(synth.header(4), trees,
+                              {"device_type": "cpu"})
+    cf = eng.CompiledForest(compile_forest(port._booster),
+                            torch.device("cpu"))
+    assert cf.linear is not None
+    x = torch.zeros((3, 4), device="meta")
+    t = cf.tables
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        eng.predict_forest(x, t, t.group_tree_lo, t.group_tree,
+                           cf._leaf_value, cf._tree_class, 1, 0, 0.0,
+                           linear=cf.linear)
 
 
 @pytest.mark.parametrize("params, exc, match", [

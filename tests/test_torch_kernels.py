@@ -63,11 +63,16 @@ launch and equals the tensor engine's leaves; ``predict_engine=tensor`` on
 the card serves the scan oracle's scores. A DART round on the card builds
 each histogram in one K1 launch, ``torch.equal`` to the plain version on
 the round's own inputs, and a served DART model is one fused launch a
-dispatch, ``torch.equal`` to the fused kernel's plain version.
+dispatch, ``torch.equal`` to the fused kernel's plain version. The fused
+kernel's linear mode (linear leaves) is ``torch.equal`` to its plain
+version (``ops/linear.linear_leaf_values``) on NaN rows, with the rows
+staged and from global memory, solo and packed with constant members, and
+reruns bit-identically.
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
 import torch_cpu_threads  # noqa: F401  (first: one torch thread)
+import copy
 import functools
 
 import numpy as np
@@ -286,7 +291,102 @@ def _plain(cf, x):
     t = cf.tables
     return eng._predict_forest_reference(
         x, t, t.group_tree_lo, t.group_tree, cf._leaf_value, cf._tree_class,
-        cf.num_class, cf.early_stop_freq, cf._es_margin)
+        cf.num_class, cf.early_stop_freq, cf._es_margin, linear=cf.linear)
+
+
+@functools.lru_cache(maxsize=None)
+def _linear_text(kind):
+    """The ``kind`` forest's structures with linear leaves
+    (``synth.linearize``: path features, random coefficients)."""
+    text, trees, feats = _forest(kind)
+    trees = synth.linearize([copy.deepcopy(t) for t in trees], 11)
+    return booster_from_numpy(synth.header(feats), trees,
+                              CPU).model_to_string(), feats
+
+
+def _member(kind, dev):
+    """(CompiledForest, features) of ``kind`` ("<kind>@linear": its linear
+    version)."""
+    base, _, linear = kind.partition("@")
+    if linear:
+        text, feats = _linear_text(base)
+    else:
+        text, _trees, feats = _forest(base)
+    art = compile_forest(lgt.Booster(model_str=text, params=CPU)._booster)
+    return eng.CompiledForest(art, dev), feats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["numeric", "categorical", "large", "mslr"])
+@pytest.mark.parametrize("rows", [1, 97, 256, 601, 4096])
+def test_linear_kernel_equals_plain_version_on_card(kind, rows,
+                                                    cuda_device):
+    """The linear mode: one launch equal to its plain version on rows with
+    NaN cells and all-NaN rows (the fallback to leaf_value), the rows
+    staged in shared memory or read from global memory (136 features);
+    reruns and a row alone bit-identical; not the constant mode's
+    answer."""
+    cf, feats = _member(kind + "@linear", cuda_device)
+    assert cf.linear is not None and cf.linear.leaf_feat.shape[2] >= 1
+    x = torch.from_numpy(_rows(kind, rows, feats, seed=2)).to(cuda_device)
+    ref = _plain(cf, x)
+    eng.PREDICT_LAUNCHES.reset()
+    got = cf.predict(x)
+    again = cf.predict(x)
+    assert _counters_zero(cuda_device)
+    assert eng.PREDICT_LAUNCHES.launches == 2
+    assert got.shape == ref.shape and torch.equal(got, ref)
+    assert torch.equal(again, got)
+    assert torch.equal(cf.predict(x[:1]), got[:, :1])
+    t = cf.tables
+    assert torch.equal(eng.predict_forest(
+        x, t, t.group_tree_lo, t.group_tree, cf._leaf_value, cf._tree_class,
+        cf.num_class, 0, 0.0, linear=cf.linear), ref)
+    cf_const, _ = _member(kind, cuda_device)
+    if rows >= 97:
+        assert not torch.equal(got, cf_const.predict(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kinds", [
+    ("numeric@linear", "categorical", "multiclass"),
+    ("merged", "mslr@linear", "categorical@linear")])
+@pytest.mark.parametrize("rows", [1, 97, 601, 4096])
+def test_linear_packed_kernel_equals_plain_version_and_members_on_card(
+        kinds, rows, cuda_device):
+    """The packed mode with linear and constant members: one launch equal
+    to its plain version and, row by row, to each member's own launch."""
+    cfs = {kind: _member(kind, cuda_device)[0] for kind in kinds}
+    packed = eng.PackedForests(cfs)
+    assert packed.linear is not None
+    rng = np.random.RandomState(rows)
+    rm = rng.randint(0, len(cfs), rows).astype(np.int32)
+    x = np.full((rows, packed.width), np.nan, np.float32)
+    for i, kind in enumerate(cfs):
+        base = kind.partition("@")[0]
+        feats = _forest(base)[2]
+        mine = rm == i
+        x[mine, :feats] = _rows(base, int(mine.sum()), feats, rows)
+    xt = torch.from_numpy(x).to(cuda_device)
+    rmt = torch.from_numpy(rm).to(cuda_device)
+    t = packed.tables
+    ref = eng._predict_forest_reference(
+        xt, t, t.group_tree_lo, t.group_tree, packed._leaf_value,
+        packed._tree_class, packed.num_class, 0, 0.0, rmt,
+        packed._group_model, packed.linear)
+    eng.PREDICT_LAUNCHES.reset()
+    got = packed.predict(xt, rm)
+    again = packed.predict(xt, rm)
+    assert _counters_zero(cuda_device)
+    assert eng.PREDICT_LAUNCHES.launches == 2
+    assert got.shape == ref.shape and torch.equal(got, ref)
+    assert torch.equal(again, got)
+    for i, cf in enumerate(cfs.values()):
+        mine = torch.from_numpy(np.nonzero(rm == i)[0]).to(cuda_device)
+        if mine.numel():
+            solo = cf.predict(xt[mine, :cf.width].contiguous())
+            assert torch.equal(got[:cf.num_class, mine], solo)
+            assert not got[cf.num_class:, mine].any()
 
 
 def _counters_zero(dev):

@@ -274,6 +274,36 @@ def _cv_with(knob: str, value):
     return run
 
 
+LINEAR = {"verbose": -1, **CPU, "objective": "regression",
+          "linear_tree": True, "num_leaves": 7}
+
+
+def _linear_l1(X, y):
+    """linear_tree under an objective that renews its leaves."""
+    lgt.train({**LINEAR, "objective": "regression_l1"},
+              lgt.Dataset(X, label=y), 2)
+
+
+def _linear_rollback(X, y):
+    lgt.train(LINEAR, lgt.Dataset(X, label=y), 2).rollback_one_iter()
+
+
+def _linear_stream_binned(X, y):
+    """predict_stream of a linear model over a binned source."""
+    ds = lgt.Dataset(X, label=y)
+    bst = lgt.train(LINEAR, ds, 2)
+    bst.predict_stream(lgt.ShardedBinnedDataset.from_dataset(
+        ds.construct(), 256))
+
+
+def _linear_continued_by_dart(X, y):
+    bst = lgt.train(LINEAR, lgt.Dataset(X, label=y), 2)
+    lgt.train({"verbose": -1, **CPU, "objective": "regression",
+               "boosting": "dart", "num_leaves": 7},
+              lgt.Dataset(X, label=y, params={"linear_tree": True}), 2,
+              init_model=bst)
+
+
 def _fobj_n_by_k(X, y):
     """A 3-class fobj returning LightGBM 4's [N, K] gradient matrix."""
     bst = lgt.Booster(params={"verbose": -1, **CPU, "objective": "none",
@@ -291,7 +321,6 @@ def _fobj_n_by_k(X, y):
     {"profile_start_iter": 1},
     {"resume": "auto"},
     {"mesh_shape": "2x1"},
-    {"linear_tree": True},
     {"enable_telemetry": True},
     {"tree_learner": "data"},
     {"boosting": "dart", "data_residency": "stream"},
@@ -305,12 +334,22 @@ def _fobj_n_by_k(X, y):
     ("cv feval", _cv_with("feval", lambda p, d: ("m", 0.0, False)),
      NotImplementedError, "feval"),
     ("fobj [N, K]", _fobj_n_by_k, ValueError, r"shape \(\d+, 3\)"),
+    ("linear_tree regression_l1", _linear_l1, RuntimeError,
+     "regression_l1 objective with linear_tree"),
+    ("linear rollback_one_iter", _linear_rollback, RuntimeError,
+     "rollback_one_iter is not supported for linear_tree"),
+    ("linear predict_stream binned", _linear_stream_binned, RuntimeError,
+     "predict_stream: linear-leaf forests traverse raw rows"),
+    ("linear init_model under dart", _linear_continued_by_dart,
+     RuntimeError, "linear_tree model is only supported with boosting=gbdt"),
 ])
 def test_unported_options_refuse_loudly(params, tmp_path):
     """Every option the port does not train, and a non-default value of
     every knob of a layer it does not carry, refuses by name; so do cv's
-    arguments that the JAX package's cv ignores and a custom gradient in
-    the [N, K] layout the JAX package would scramble."""
+    arguments that the JAX package's cv ignores, a custom gradient in the
+    [N, K] layout the JAX package would scramble, and what the JAX package
+    refuses of linear leaves: an objective that renews its leaves,
+    rollback, a binned predict_stream source, continuing under DART."""
     X, y = _fused_data(seed=15)
     if isinstance(params, tuple):
         _, run, exc, name = params
