@@ -3,14 +3,14 @@
 CUDA card and check them.
 
     python3 chip_smoke.py [--seed N] [--rows N]
-                          [--only kernels|rank|objectives|predict|shap|options|serial|layout|registry|stream|api|linear]
+                          [--only kernels|rank|objectives|predict|shap|options|serial|layout|registry|stream|api|linear|data]
 
 Run from the root of a checkout. Phases, each fatal on failure:
 
 1. the card (name and power limit, as nvidia-smi reports them) and the
    torch / CUDA / nvcc versions;
 2. build every kernel of every path from ``lambdagap_tpu_torch/csrc/``
-   (traverse.cu, hist.cu, hist_q.cu, treeshap.cu: one nvcc per source, all
+   (traverse.cu, hist.cu, hist_q.cu, treeshap.cu, bin.cu: one nvcc per source, all
    started together) into the git-ignored build dir, printing each kernel's
    registers, shared memory and spills; then the histogram kernels'
    atomics in SASS (``cuobjdump -sass``): every shared-memory add must be
@@ -320,7 +320,29 @@ T21b. linear regression and binary on the fused learner and linear
    leaves, 10 rounds, on the card and on the CPU: training-row predictions
    within rtol 1e-4 / atol 1e-5, best_iteration equal (``--only linear``
    runs phases 1-2, T3, T21 and T21b);
-6. the kernels line (one JSON object, thirteen entries; each entry's
+T22. data beyond a dense matrix, and binning on the card. Every Dataset
+   above bins its numerical columns with kernel B (``csrc/bin.cu``): T3's
+   construction is B's main-path run (its launches counted, one a block of
+   at most 2^24 values, and no host mapper call on a numerical column).
+   (a) B at T3's shape (10.5 M x 28 f32 rows, T3's bins) and at T8's
+   (2,266,357 x 136, bins from 200,000 rows): ``torch.equal`` to its plain
+   version, a rerun and the host mapper's bins on the first 2^18 rows;
+   its time beside its bound, the plain version and one batched
+   ``torch.searchsorted``, the H2D and D2H copies apart; the
+   construction seconds of the phases that bin; (b) 1,000,000 T3-shaped
+   rows written as CSV (a header, a weight column) and LibSVM with
+   ``qid:`` (T8-like query sizes): one-round and two-round Datasets with
+   equal bins and metadata, 2 rounds on the CSV Dataset byte-equal to the
+   same matrix in memory, ``predict(path)`` and ``predict_stream(path)``
+   ``array_equal`` to ``predict(matrix)`` (one fused launch a dispatch or
+   window), ``save_binary`` -> ``load_binary`` -> train byte-equal, parse
+   seconds and rows/s; (c) a 1,000,000 x 28 CSR matrix at ~90% zeros
+   trains byte-equal to its dense twin, predict equal; (d) T6's quantized
+   + bagged configuration with K2's accumulator limit lowered in-process
+   (windows of 2^22 rows): model text byte-equal to the unlowered run,
+   K2 launches == the windows built (``--only data`` runs phases 1-2, T3
+   and T22);
+6. the kernels line (one JSON object, fourteen entries; each entry's
    ``max_abs_err`` the largest of its kernel's comparisons, T13's K1 in
    ``hist_rows@covtype`` and T11c's K2 in ``hist_rows_q``; the fused
    kernel's launches phase 5's, its packed mode's
@@ -329,7 +351,9 @@ T21b. linear regression and binary on the fused learner and linear
    ``hist_rows_q@sorted`` the window launches of T17's sorted runs,
    ``hist_rows@stream`` the accumulate-mode launches of T19 (a)'s streamed
    runs, ``predict_forest@linear`` the fused launches of T21 (c)'s served
-   burst, its times T21 (d)'s at 4,096 rows) and, last, the device line.
+   burst, its times T21 (d)'s at 4,096 rows; ``bin_rows`` (B) T3's
+   construction's launches, its times T22 (a)'s at T3's shape) and, last,
+   the device line.
 
 The card-vs-CPU phases (T4, T7, T9, T12, T15b, T16b, T20b, T21b) train
 their CPU sides in ``CPU_WORKERS`` spawned worker processes beside the
@@ -403,10 +427,15 @@ LINEAR_TIMED_ROWS = (1, 256, 4096)   # T21 (d): the linear mode timed
 COV_TRAIN, COV_VALID = 464_809, 116_203
 COV_SHARES = (0.3646, 0.4876, 0.0615, 0.0047, 0.0163, 0.0299, 0.0353)
 COV_ROUNDS = 2                  # T11a (cut from 6: the script's time)
-COV_SHORT_ROUNDS = 2
+COV_SHORT_ROUNDS = 2            # T11c
+COV_OVA_ROUNDS = 1              # T11b (cut from 2 for T22)
 # YearPredictionMSD: 463,715 training and 51,630 test rows, 90 features
 MSD_TRAIN, MSD_VALID, MSD_F = 463_715, 51_630, 90
 MSD_ROUNDS = 2                  # T13 (cut from 3 for T19)
+DATA_FILE_ROWS = 1_000_000      # T22 (b): rows written as CSV and LibSVM
+DATA_SPARSE_ROWS = 1_000_000    # T22 (c): the CSR matrix's rows
+DATA_ROUNDS = 2                 # T22 (b)-(d)
+CONSTRUCT_S: dict = {}          # Dataset construction seconds by phase (T22)
 
 
 def fail(msg: str) -> None:
@@ -1171,17 +1200,28 @@ def train_phase(args, smi: str):
               "num_leaves": LEAVES, "max_bin": MAX_BIN, "learning_rate": 0.1,
               "verbose": -1}
     cfg = lgt.Config.from_params(params)
+    from lambdagap_tpu_torch.ops.bin_cuda import BIN_LAUNCHES
+    BIN_LAUNCHES.reset()
     t0 = time.perf_counter()
     tr = lgt.Dataset(Xtr, label=ytr)
     va = lgt.Dataset(Xva, label=yva, reference=tr)
-    tr.construct(cfg)
-    va.construct(cfg)
+    with NumericBinSpy() as spy:
+        tr.construct(cfg)
+        va.construct(cfg)
     build_s = time.perf_counter() - t0
+    bin_launches = BIN_LAUNCHES.launches
+    check(spy.calls == 0, f"T3: {spy.calls} numerical columns binned by "
+          "the host mapper on the card")
+    want_b = bin_blocks(args.rows, F) + bin_blocks(VALID_ROWS, F)
+    check(bin_launches == want_b, f"T3: {bin_launches} B launches for "
+          f"{want_b} row blocks")
+    CONSTRUCT_S["T3"] = build_s
     # T20 (e) cross-validates the first 2^20 raw rows
     head = (Xtr[:API_CV_ROWS].copy(), ytr[:API_CV_ROWS].copy())
-    del Xtr
     print(f"T3 data: {args.rows} x {F} train + {VALID_ROWS} valid rows made "
-          f"in {gen_s:.1f} s; Dataset construction (binning) {build_s:.1f} s")
+          f"in {gen_s:.1f} s; Dataset construction (binning on the card: "
+          f"{bin_launches} B launches, no host numerical binning) "
+          f"{build_s:.1f} s [{smi}]")
 
     rounds = []
 
@@ -1258,7 +1298,7 @@ def train_phase(args, smi: str):
     return {"bst": bst, "Xva": Xva, "launches": launches,
             "train": tr, "valid": va, "params": params, "auc": auc[-1],
             "logloss": ll[-1], "ll": ll, "median_ms": statistics.median(walls),
-            "head": head}
+            "head": head, "Xtr": Xtr, "bin_launches": bin_launches}
 
 
 def quant_phase(t3: dict, smi: str):
@@ -1599,6 +1639,7 @@ def mslr_data(args) -> dict:
     tr.construct(cfg)
     va.construct(cfg)
     build_s = time.perf_counter() - t0
+    CONSTRUCT_S["T8"] = build_s
     del Xtr
     shares = np.bincount(ytr.astype(int), minlength=5) / len(ytr)
     print(f"T8 data: {MSLR_QUERIES} queries, {int(str_.sum())} documents x "
@@ -2166,6 +2207,7 @@ def covtype_data(args, smi: str):
     va.construct(cfg)
     bun = ds.ensure_bundle(cfg)
     build_s = time.perf_counter() - t0
+    CONSTRUCT_S["T11 (with EFB)"] = build_s
     check(bun is not None and bun.num_cols < X.shape[1],
           "T11: EFB formed no bundle of the one-hot columns")
     sizes = sorted((len(m) for m in bun.members if len(m) > 1), reverse=True)
@@ -2178,7 +2220,7 @@ def covtype_data(args, smi: str):
           f"{bun.num_cols} bundled columns; bundles of {sizes} features (the "
           "rest single)")
     print(f"T11 cuts: synthetic rows of Covertype's shape (not the data); "
-          f"{COV_ROUNDS} / {COV_SHORT_ROUNDS} / {COV_SHORT_ROUNDS} rounds "
+          f"{COV_ROUNDS} / {COV_OVA_ROUNDS} / {COV_SHORT_ROUNDS} rounds "
           "(the reference runs hundreds); features, classes, one-hot "
           "structure, leaves and bins uncut")
     return params, tr, va, X[COV_TRAIN:], shares
@@ -2218,7 +2260,7 @@ def covtype_phase(args, dev, smi: str) -> dict:
            "x_rows": gb.learner.x_rows, "Bb": gb.learner.Bb,
            "hist_builds_tree": per_tree}
     _, hist_b, _, _ = probed_train({**params, "objective": "multiclassova"},
-                                   tr, va, COV_SHORT_ROUNDS, "T11b", smi)
+                                   tr, va, COV_OVA_ROUNDS, "T11b", smi)
     check(all(np.isfinite(v).all() for v in hist_b.values()),
           "T11b: non-finite validation metrics")
     qparams = {**params, "use_quantized_grad": True,
@@ -4633,6 +4675,7 @@ def linear_phase(args, t3: dict, dev, smi: str, trees, cf) -> dict:
     tr.construct(cfg)
     va.construct(cfg)
     build_s = time.perf_counter() - t0
+    CONSTRUCT_S["T21"] = build_s
     del X
     check(tr.construct().raw is not None and va.construct().raw is not None,
           "T21: the Datasets did not keep their raw matrices")
@@ -4884,6 +4927,411 @@ def linear_phases(args, t3: dict, dev, smi: str, trees=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# T22: data beyond a dense matrix, binning on the card (kernel B)
+# ---------------------------------------------------------------------------
+class NumericBinSpy:
+    """Within the block: counts host mapper calls on a numerical column
+    (``BinMapper.values_to_bins`` of more than one value: a mapper finds
+    its zero's bin with a one-value call), which a Dataset built on the
+    card never makes (B bins them); categorical columns stay with the
+    mapper."""
+
+    def __enter__(self):
+        from lambdagap_tpu_torch.data.binning import BIN_NUMERICAL, BinMapper
+        self.cls, self.orig, self.calls = BinMapper, BinMapper.values_to_bins, 0
+        spy = self
+
+        def counted(m, values):
+            if m.bin_type == BIN_NUMERICAL and np.size(values) > 1:
+                spy.calls += 1
+            return spy.orig(m, values)
+        BinMapper.values_to_bins = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.values_to_bins = self.orig
+        return False
+
+
+def bin_blocks(n: int, f: int) -> int:
+    """B launches a host matrix of ``n`` x ``f`` takes (blocks of at most
+    ``BLOCK_VALUES`` values, ``ops/bin_cuda.bin_matrix``)."""
+    from lambdagap_tpu_torch.ops.bin_cuda import BLOCK_VALUES
+    return -(-n // max(BLOCK_VALUES // f, 1))
+
+
+def _as_int(t):
+    """u8 / u16 bins as int32 (u16 through int16's bits)."""
+    import torch
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).int() & 0xFFFF
+    return t.int()
+
+
+def bin_kernel_check(tag: str, x_host: np.ndarray, ds, dev, smi: str) -> dict:
+    """B at one shape: rows ``x_host`` (f32, the card's copy timed apart)
+    through ``ds``'s bounds table; ``torch.equal`` to its plain version,
+    to a rerun and, on the first 2^20 rows, to the host mapper's bins;
+    its time beside the bound (rows read and bins written once), the plain
+    version, one batched ``torch.searchsorted`` over the bounds padded
+    with +inf, and the H2D / D2H copies."""
+    import torch
+    from lambdagap_tpu_torch.ops import bin_cuda as bc
+    table = ds.bin_table()
+    n, f = x_host.shape
+    U = table.num_used
+    pinned = torch.empty((n, f), dtype=torch.float32, pin_memory=True)
+    pinned.numpy()[:] = x_host
+    x = torch.empty((n, f), dtype=torch.float32, device=dev)
+    h2d = cuda_ms(lambda: x.copy_(pinned, non_blocking=True), reps=3, warm=1)
+    out = torch.zeros((n, U), dtype=table.torch_dtype, device=dev)
+    got = bc.bin_rows(x, table, out.clone())
+    again = bc.bin_rows(x, table, out.clone())
+    ref = bc._bin_reference(x, table, out.clone())
+    torch.cuda.synchronize()
+    same = torch.equal(_as_int(got), _as_int(ref))
+    err = float((_as_int(got) - _as_int(ref)).abs().max())
+    check(same, f"{tag}: B != its plain version ({err})")
+    check(torch.equal(_as_int(got), _as_int(again)), f"{tag}: B rerun "
+          "differs")
+    head = min(n, 1 << 18)
+    host = np.stack([ds.mappers[j].values_to_bins(x_host[:head, j])
+                     for j in ds.used_features], axis=1)
+    num = [int(k) for k in table.dst]
+    check(np.array_equal(_as_int(got[:head]).cpu().numpy()[:, num],
+                         host[:, num]),
+          f"{tag}: B != the host mapper's bins on the first {head} rows")
+    del again, ref
+    ms = cuda_ms(lambda: bc.bin_rows(x, table, out), reps=10, warm=2)
+    plain_ms = cuda_ms(lambda: bc._bin_reference(x, table, out), reps=3,
+                       warm=1)
+    host_out = torch.empty((n, U), dtype=table.torch_dtype, pin_memory=True)
+    d2h = cuda_ms(lambda: host_out.copy_(out, non_blocking=True), reps=3,
+                  warm=1)
+    t = table.on(dev)
+    sizes = np.diff(table.off)
+    padded = torch.full((table.num_features, int(sizes.max())),
+                        float("inf"), dtype=torch.float64, device=dev)
+    for i, (lo, hi) in enumerate(zip(table.off[:-1], table.off[1:])):
+        padded[i, :hi - lo] = t["bounds"][lo:hi]
+    xt = x[:, t["col"].long()].double().t().contiguous()
+    lib_ms = cuda_ms(lambda: torch.searchsorted(padded, xt), reps=3, warm=1)
+    del xt, padded
+    nbytes = x.numel() * x.element_size() + out.numel() * out.element_size() \
+        + table.bounds.nbytes
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    print(f"T22(a) B [{tag}: {n} x {f} f32 -> {U} {str(out.dtype)[6:]} "
+          f"bins, {table.num_features} numerical, "
+          f"{t['n_tiles']} feature tile(s), {t['smem']} B shared]: "
+          f"torch.equal to its plain version, a rerun and the host mapper's "
+          f"bins (first {head} rows); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, batched torch.searchsorted {lib_ms:.3f} ms, "
+          f"bound {bound:.4f} ms (bytes: {nbytes / 1e6:.1f} MB); H2D "
+          f"{h2d:.3f} ms (pinned), D2H {d2h:.3f} ms [{smi}]")
+    del x, out, got, pinned, host_out
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound, "bound_by": "bytes", "max_abs_err": err,
+            "h2d_ms": h2d, "d2h_ms": d2h}
+
+
+def data_bin_phase(args, t3: dict, dev, smi: str) -> dict:
+    """T22 (a): B at T3's shape (its training rows, on its bins) and at
+    T8's (2,266,357 x 136 rows, bins from a 200,000-row sample); the
+    construction seconds of the phases that bin beside the host binner's
+    (PERF.md section 5)."""
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.data.dataset import BinnedDataset
+    from lambdagap_tpu_torch.ops import bin_cuda as bc
+    k3 = bin_kernel_check("T3", t3["Xtr"], t3["train"].construct(), dev, smi)
+    n8 = 2_266_357
+    X8 = np.random.default_rng(args.seed + 222).standard_normal(
+        (n8, MSLR_F), dtype=np.float32)
+    cfg = lgt.Config.from_params({"max_bin": MAX_BIN, "verbose": -1})
+    sample = BinnedDataset.from_matrix(X8[:200_000], cfg)
+    k8 = bin_kernel_check("T8", X8, sample, dev, smi)
+    bc.BIN_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    with NumericBinSpy() as spy:
+        full = BinnedDataset.from_matrix(X8, cfg, reference=sample)
+    push_s = time.perf_counter() - t0
+    check(spy.calls == 0 and bc.BIN_LAUNCHES.launches == bin_blocks(
+        n8, MSLR_F), f"T22(a): T8-width push: {spy.calls} host numerical "
+        f"calls, {bc.BIN_LAUNCHES.launches} B launches")
+    check(full.binned.shape == (n8, MSLR_F), "T22(a): T8-width push shape")
+    print(f"T22(a) T8-width push (136 features, the rows binned on the "
+          f"card, {bc.BIN_LAUNCHES.launches} B launches, no host numerical "
+          f"binning): {push_s:.2f} s [{smi}]")
+    del X8, full, sample
+    CONSTRUCT_S["T8 width push"] = push_s
+    print("T22(a) Dataset construction seconds (binning on the card; the "
+          "host numpy binner's were T3 29.9, T8 38.5, T21 36.2 in PERF.md "
+          "section 5): " + ", ".join(f"{k} {v:.2f}"
+                                     for k, v in CONSTRUCT_S.items())
+          + f" [{smi}]")
+    return {"T3": k3, "T8": k8}
+
+
+# the 3-digit ASCII strings of 0..999 (000, 001, ...), for the writers
+_DIGITS3 = np.array([[48 + i // 100, 48 + i // 10 % 10, 48 + i % 10]
+                     for i in range(1000)], np.uint8)
+
+
+def _digits(a: np.ndarray, width: int) -> np.ndarray:
+    """Non-negative ints (any shape, below 10^width, width a multiple of 3
+    up to 9, or 2, 5 or 7) -> their ``width`` zero-padded ASCII digits,
+    u8 ``[..., width]``, three at a time from a table."""
+    parts = []
+    rest = width
+    while rest > 0:
+        take = 3 if rest % 3 == 0 else rest % 3
+        rest -= take
+        parts.append(_DIGITS3[(a // 10 ** rest) % 1000][..., 3 - take:])
+    return np.concatenate(parts, axis=-1)
+
+
+def _value_tokens(k: np.ndarray) -> np.ndarray:
+    """Values k / 1000 (|k| < 10^8; any shape) as 10-byte tokens
+    ``+ddddd.ddd``, u8 ``[..., 10]``."""
+    a = np.abs(k).astype(np.int32)      # int32 division is the fast one
+    sign = np.where(k < 0, ord("-"), ord("+")).astype(np.uint8)[..., None]
+    dot = np.full(k.shape + (1,), ord("."), np.uint8)
+    return np.concatenate([sign, _digits(a // 1000, 5), dot,
+                           _DIGITS3[a % 1000]], axis=-1)
+
+
+def _text_rows(fields: list, sep: bytes) -> bytes:
+    """Fields (u8 ``[n, w]`` each) joined by the one-byte ``sep``, one line
+    a row."""
+    n = fields[0].shape[0]
+    parts = []
+    for i, fld in enumerate(fields):
+        if i:
+            parts.append(np.full((n, 1), sep[0], np.uint8))
+        parts.append(fld)
+    parts.append(np.full((n, 1), ord("\n"), np.uint8))
+    return np.concatenate(parts, axis=1).tobytes()
+
+
+def data_file_rows(seed: int, n: int):
+    """T3-shaped rows for the files: HIGGS-like values rounded to
+    thousandths (so the text holds each exactly as ``k / 1000``), the
+    binary label, a weight of 1 or 2, and T8-like query sizes."""
+    X, y = higgs_like(seed, n)
+    k = np.clip(np.round(X.astype(np.float64) * 1000), -(10**8 - 1),
+                10**8 - 1).astype(np.int64)
+    w = 1.0 + (np.arange(n) % 2)
+    rng = np.random.default_rng(seed)
+    sizes = np.clip(np.round(rng.lognormal(np.log(93.0), 0.72, n // 50)), 1,
+                    MSLR_MAX_DOCS).astype(np.int64)
+    sizes = sizes[np.cumsum(sizes) <= n]
+    sizes = np.append(sizes, n - sizes.sum()) if sizes.sum() < n else sizes
+    rel = np.clip(np.floor(X[:, 0] + 1.0), 0, 4).astype(np.int64)
+    return k, k / 1000.0, y, w, sizes, rel
+
+
+def data_files_phase(args, t3: dict, smi: str) -> dict:
+    """T22 (b): 1,000,000 T3-shaped rows written as CSV (a header, a
+    weight column) and as LibSVM with ``qid:`` (T8-like query sizes): the
+    one-round and two-round Datasets ``array_equal`` (bins and metadata);
+    2 rounds on the CSV Dataset byte-equal to the same matrix in memory;
+    ``predict(path)`` and ``predict_stream(path)`` ``array_equal`` to
+    ``predict(matrix)``, one fused launch a dispatch or window; the binary
+    cache's save -> load -> train byte-equal; parse seconds and rows/s."""
+    import shutil
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.data import loader
+    from lambdagap_tpu_torch.ops import bin_cuda as bc
+    n = DATA_FILE_ROWS
+    k, X, y, w, sizes, rel = data_file_rows(args.seed + 300, n)
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "t22")
+    os.makedirs(here, exist_ok=True)
+    csv, svm = os.path.join(here, "d.csv"), os.path.join(here, "d.svm")
+    names = [f"f{j}" for j in range(F)]
+    t0 = time.perf_counter()
+    tokens = _value_tokens(k)                        # [n, F, 10]
+    comma = np.full((n, F, 1), ord(","), np.uint8)
+    with open(csv, "wb") as f:
+        f.write((",".join(["label"] + names + ["w"]) + "\n").encode())
+        f.write(_text_rows([(48 + y.astype(np.uint8))[:, None],
+                            np.concatenate([tokens, comma], axis=2).reshape(
+                                n, -1)[:, :-1],
+                            _value_tokens((w * 1000).astype(np.int64))],
+                           b","))
+    qid = np.repeat(np.arange(len(sizes)), sizes)
+    # " j:" before feature j's token (a space, then its index, then ":")
+    keys = [np.frombuffer(f" {j}:".encode(), np.uint8) for j in range(F)]
+    feats = np.concatenate([np.concatenate([np.broadcast_to(
+        keys[j], (n, len(keys[j]))), tokens[:, j]], axis=1)
+        for j in range(F)], axis=1)
+    with open(svm, "wb") as f:
+        f.write(_text_rows([(48 + rel.astype(np.uint8))[:, None],
+                            np.concatenate([np.broadcast_to(np.frombuffer(
+                                b"qid:", np.uint8), (n, 4)),
+                                _digits(qid, 7), feats], axis=1)], b" "))
+    del tokens, feats
+    write_s = time.perf_counter() - t0
+    mb = (os.path.getsize(csv) + os.path.getsize(svm)) / 1e6
+    params = {**t3["params"], "bin_construct_sample_cnt": n, "header": True,
+              "weight_column": "name:w"}
+    out = {}
+    for tag, path, p in (("CSV", csv, params),
+                         ("LibSVM", svm, {**t3["params"],
+                                          "bin_construct_sample_cnt": n})):
+        # the one-round load parses the whole file (no threshold route)
+        c1 = lgt.Config.from_params({**p, "stream_ingest_threshold_mb": 0})
+        c2 = lgt.Config.from_params({**p, "two_round": True})
+        bc.BIN_LAUNCHES.reset()
+        t0 = time.perf_counter()
+        with NumericBinSpy() as spy:
+            one = loader.load_data_file(path, c1)
+        one_s = time.perf_counter() - t0
+        b1 = bc.BIN_LAUNCHES.launches
+        bc.BIN_LAUNCHES.reset()
+        t0 = time.perf_counter()
+        with NumericBinSpy() as spy2:
+            two = loader.load_data_file(path, c2)
+        two_s = time.perf_counter() - t0
+        b2 = bc.BIN_LAUNCHES.launches
+        check(b1 == bin_blocks(n, F) and b2 == -(-n // loader.CHUNK_ROWS),
+              f"T22(b) {tag}: B launches {b1} one-round, {b2} two-round")
+        check(spy.calls == 0 and spy2.calls == 0, f"T22(b) {tag}: host "
+              "numerical binning on the card")
+        check(np.array_equal(one.binned, two.binned),
+              f"T22(b) {tag}: one-round != two-round bins")
+        for key in ("label", "weight", "query_boundaries"):
+            a, b = getattr(one.metadata, key), getattr(two.metadata, key)
+            check((a is None and b is None) or np.array_equal(a, b),
+                  f"T22(b) {tag}: one-round != two-round {key}")
+        if tag == "LibSVM":
+            check(np.array_equal(np.diff(one.metadata.query_boundaries),
+                                 sizes), "T22(b): qid groups != the sizes")
+        print(f"T22(b) {tag} [{n} rows x {F}]: one-round load (a parse "
+              f"on 8 threads, B) {one_s:.2f} s ({n / one_s:.0f} rows/s), "
+              f"two-round (two parses) {two_s:.2f} s ({n / two_s:.0f} "
+              f"rows/s), bins and "
+              f"metadata equal; B launches {b1} one-round (2^24-value "
+              f"blocks), {b2} two-round (a 65,536-row chunk each), no host "
+              f"numerical binning [{smi}]")
+        out[tag] = one
+    print(f"T22(b) files: {mb:.1f} MB written in {write_s:.2f} s")
+    # 2 rounds on the CSV Dataset == the same matrix in memory
+    mem = lgt.Dataset(X, label=y, weight=w, feature_name=names)
+    b_file = lgt.train(params, lgt.Dataset(out["CSV"]), DATA_ROUNDS)
+    b_mem = lgt.train(params, mem, DATA_ROUNDS)
+    text = b_file.model_to_string()
+    check(text == b_mem.model_to_string(), "T22(b): the CSV-trained model "
+          "text != the in-memory one")
+    want = b_mem.predict(X)
+    with Dispatches() as d:
+        got = b_file.predict(csv)
+    d.check("T22(b) predict(path)")
+    check(np.array_equal(got, want), "T22(b): predict(csv path) != "
+          "predict(matrix)")
+    check(np.array_equal(b_file.predict(svm), want), "T22(b): predict("
+          "LibSVM path) != predict(matrix)")
+    st = {}
+    with Dispatches() as d:
+        got = b_file.predict_stream(csv, stats_out=st)
+    check(d.fused == st["windows"] and d.k3 == 0 and d.acc == 0,
+          f"T22(b): {d.fused} fused launches for {st['windows']} windows")
+    check(np.array_equal(got, want), "T22(b): predict_stream(path) != "
+          "predict(matrix)")
+    print(f"T22(b) 2 rounds on the CSV Dataset: model text byte-equal to the "
+          f"matrix in memory; predict(path) (CSV and LibSVM) and "
+          f"predict_stream(path) ({st['windows']} windows, one fused launch "
+          f"each, {st['rows_per_s']:.0f} rows/s) array_equal to "
+          f"predict(matrix) [{smi}]")
+    cache = os.path.join(here, "d.bin")
+    t0 = time.perf_counter()
+    loader.save_binary(out["CSV"], cache)
+    back = loader.load_binary(cache + ".npz")
+    cache_s = time.perf_counter() - t0
+    b_cache = lgt.train(params, lgt.Dataset(back), DATA_ROUNDS)
+    check(b_cache.model_to_string() == text, "T22(b): the binary cache "
+          "trains another model")
+    print(f"T22(b) save_binary -> load_binary ({cache_s:.2f} s) -> train: "
+          f"byte-equal [{smi}]")
+    shutil.rmtree(here, ignore_errors=True)
+
+
+def data_sparse_phase(args, t3: dict, smi: str) -> None:
+    """T22 (c): a 1,000,000 x 28 CSR matrix at ~90% zeros trains 2 rounds
+    byte-equal to its dense twin, binned through the streaming path (B a
+    16,384-row batch); its predict equals the dense predict."""
+    import scipy.sparse as sps
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.ops import bin_cuda as bc
+    n = DATA_SPARSE_ROWS
+    k, X, y, _w, _s, _r = data_file_rows(args.seed + 301, n)
+    X[np.random.default_rng(args.seed + 302).random(X.shape) < 0.9] = 0.0
+    csr = sps.csr_matrix(X)
+    params = {**t3["params"], "bin_construct_sample_cnt": n}
+    bc.BIN_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    with NumericBinSpy() as spy:
+        b_sp = lgt.train(params, lgt.Dataset(csr, label=y), DATA_ROUNDS)
+    sp_s = time.perf_counter() - t0
+    launches = bc.BIN_LAUNCHES.launches
+    b_de = lgt.train(params, lgt.Dataset(X, label=y), DATA_ROUNDS)
+    check(spy.calls == 0 and launches == -(-n // 16384),
+          f"T22(c): {launches} B launches, {spy.calls} host numerical calls")
+    check(b_sp.model_to_string() == b_de.model_to_string(),
+          "T22(c): the CSR model != its dense twin's")
+    check(np.array_equal(b_sp.predict(csr), b_de.predict(X)),
+          "T22(c): predict(CSR) != predict(dense)")
+    print(f"T22(c) CSR {n} x {F} ({csr.nnz / X.size:.3f} nonzero): 2 rounds "
+          f"byte-equal to the dense twin ({sp_s:.2f} s with binning, {launches}"
+          f" B launches, a 16,384-row batch each); predict equal [{smi}]")
+
+
+def data_quant_phase(t3: dict, smi: str) -> None:
+    """T22 (d): T6's quantized + bagged configuration on T3's Datasets, K2's
+    accumulator limit lowered in-process so every histogram is windows of
+    2^22 rows (the root three): model text byte-equal to the unlowered
+    run, K2 launches == the windows built."""
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    from lambdagap_tpu_torch.ops import histogram
+    params = {**t3["params"], "use_quantized_grad": True,
+              "num_grad_quant_bins": 4, "stochastic_rounding": True,
+              "quant_train_renew_leaf": True, "bagging_fraction": 0.8,
+              "bagging_freq": 1}
+    base = lgt.train(params, t3["train"], DATA_ROUNDS).model_to_string()
+    limit = hc.K2_ACCUM_LIMIT
+    hc.K2_ACCUM_LIMIT = (1 << 22) * 4
+    try:
+        hc.HIST_Q_LAUNCHES.reset()
+        histogram.QUANT_WINDOWS.reset()
+        t0 = time.perf_counter()
+        bst = lgt.train(params, t3["train"], DATA_ROUNDS)
+        secs = time.perf_counter() - t0
+        k2, windows = hc.HIST_Q_LAUNCHES.launches, \
+            histogram.QUANT_WINDOWS.launches
+    finally:
+        hc.K2_ACCUM_LIMIT = limit
+    check(bst._booster.learner.q_window == 1 << 22, "T22(d): no windows")
+    check(bst.model_to_string() == base, "T22(d): windowed model text != "
+          "the unwindowed run's")
+    check(k2 == windows and windows > 0, f"T22(d): {k2} K2 launches for "
+          f"{windows} windows")
+    print(f"T22(d) quantized + bagged, K2 windows of 2^22 rows: model text "
+          f"byte-equal to the one-launch run; {k2} K2 launches == {windows} "
+          f"windows built; {secs:.2f} s for {DATA_ROUNDS} rounds [{smi}]")
+
+
+def data_phases(args, t3: dict, dev, smi: str) -> dict:
+    t0 = time.perf_counter()
+    b = data_bin_phase(args, t3, dev, smi)
+    data_files_phase(args, t3, smi)
+    data_sparse_phase(args, t3, smi)
+    data_quant_phase(t3, smi)
+    print(f"T22: {time.perf_counter() - t0:.1f} s")
+    return b
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4893,7 +5341,7 @@ def main() -> int:
                                        "objectives", "predict", "shap",
                                        "options", "serial", "layout",
                                        "registry", "stream", "api",
-                                       "linear"),
+                                       "linear", "data"),
                     default="all",
                     help="kernels: phases 1-4 (with the SASS check), T2 and "
                     "T2q; rank: phases 1-2, T8, T2 at 136 features, T9 and "
@@ -4905,8 +5353,8 @@ def main() -> int:
                     "T16b; layout: phases 1-2, T3, T8's data and T17; "
                     "registry: phases 1-3 and T18; stream: phases 1-2, T3 "
                     "and T19; api: phases 1-2, T3, T20 and T20b; linear: "
-                    "phases 1-2, T3, T21 and T21b; each then stops without "
-                    "a result line")
+                    "phases 1-2, T3, T21 and T21b; data: phases 1-2, T3 and "
+                    "T22; each then stops without a result line")
     args = ap.parse_args()
 
     import torch
@@ -4920,7 +5368,7 @@ def main() -> int:
     from lambdagap_tpu_torch.infer import CompiledForest, compile_forest
     from lambdagap_tpu_torch.infer import engine as eng
     from lambdagap_tpu_torch.models import shap, synth
-    from lambdagap_tpu_torch.ops import hist_cuda
+    from lambdagap_tpu_torch.ops import bin_cuda, hist_cuda
     from lambdagap_tpu_torch.ops.predict import (forest_to_arrays,
                                                  predict_forest)
     from lambdagap_tpu_torch.utils import cuda_build
@@ -4943,7 +5391,8 @@ def main() -> int:
     # -- 2. build every kernel of the path, in parallel ---------------------
     t0 = time.perf_counter()
     sources = [eng.TRAVERSE_SOURCE, hist_cuda.HIST_SOURCE,
-               hist_cuda.HIST_Q_SOURCE, shap.TREE_SHAP_SOURCE]
+               hist_cuda.HIST_Q_SOURCE, shap.TREE_SHAP_SOURCE,
+               bin_cuda.BIN_SOURCE]
     handles = [cuda_build.start_build(s) for s in sources]
     for s, h in zip(sources, handles):
         report = cuda_build.finish_build(h)
@@ -5000,6 +5449,13 @@ def main() -> int:
         linear_phases(args, t3, dev, smi)
         print(f"chip_smoke: linear-leaf phases passed in "
               f"{time.perf_counter() - t_start:.1f} s (--only linear: no "
+              "result)")
+        return 0
+    if args.only == "data":
+        t3 = train_phase(args, smi)
+        data_phases(args, t3, dev, smi)
+        print(f"chip_smoke: data phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--only data: no "
               "result)")
         return 0
     if args.only == "objectives":
@@ -5181,6 +5637,9 @@ def main() -> int:
                         t11)
     print(f"T14: {time.perf_counter() - t0:.1f} s")
 
+    # -- T22. files, sparse, B at T3's and T8's widths, quantized windows ---
+    t22 = data_phases(args, t3, dev, smi)
+
     # -- 6. the kernels line, then the device line ---------------------------
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
@@ -5273,7 +5732,15 @@ def main() -> int:
         "ms": t21["kernel"]["ms"], "plain_ms": t21["kernel"]["plain_ms"],
         "bound_ms": t21["kernel"]["bound_ms"],
         "bound_by": t21["kernel"]["bound_by"],
-        "library_ms": None}] + [t14["shap"]]}))
+        "library_ms": None}] + [t14["shap"]] + [{
+        "name": "bin_rows", "route": "cuda",
+        "source": "lambdagap_tpu_torch/csrc/bin.cu",
+        "replaces": "lambdagap_tpu/native/binner.cpp:172",
+        "launches": t3["bin_launches"],
+        "max_abs_err": t22["T3"]["max_abs_err"], "ms": t22["T3"]["ms"],
+        "plain_ms": t22["T3"]["plain_ms"], "bound_ms": t22["T3"]["bound_ms"],
+        "bound_by": t22["T3"]["bound_by"],
+        "library_ms": t22["T3"]["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,13 +17,19 @@ CPU. ``Booster.update(fobj=)`` trains on custom gradients,
 built through ``models.dart.create_boosting`` (``boosting=gbdt|dart|rf``).
 A ``Dataset`` keeps its raw matrix under ``free_raw_data=False``, which
 ``subset`` (cv's folds) needs; ``set_label`` / ``set_weight`` /
-``set_init_score`` reach the binned dataset once it is built. A scipy
-sparse matrix is predicted one dense window of 65,536 rows at a time. A ``Sequence`` (or a list of them) is binned streamingly
-(``BinnedDataset.from_sequences``), and an already-built
-``ShardedBinnedDataset`` passes through to out-of-core training;
-``Booster.predict_stream`` scores out of core (``infer/stream.py``).
-Pandas / Arrow inputs, scipy sparse training matrices and data files wait
-for the loader.
+``set_init_score`` reach the binned dataset once it is built. A ``Sequence``
+(or a list of them) is binned streamingly (``BinnedDataset.from_sequences``),
+and an already-built ``ShardedBinnedDataset`` passes through to out-of-core
+training; ``Booster.predict_stream`` scores out of core (``infer/stream.py``).
+
+Data beyond a dense matrix, as in the JAX package: a data file path
+(CSV / TSV / LibSVM, its sidecars, the binary cache; ``data/loader.py``)
+for ``Dataset``, ``predict``, ``predict_stream``, ``eval`` and ``refit``; a
+scipy sparse matrix (CSR, CSC or COO), binned a dense window of rows at a
+time through ``_CSRSequence`` and predicted in windows of 65,536 rows; an
+Arrow table (dictionary columns categorical) for the data and Arrow arrays
+for the label, weight, group, position and init score, where pyarrow is
+installed.
 """
 from __future__ import annotations
 
@@ -40,10 +46,50 @@ from .models.gbdt import GBDT
 from .utils import log
 
 
+def _is_arrow(data) -> bool:
+    """A pyarrow object (checked by module, so pyarrow stays an optional
+    import that only its own objects pull in)."""
+    return type(data).__module__.split(".")[0] == "pyarrow"
+
+
+def _arrow_table_to_matrix(table):
+    """A pyarrow Table -> (float64 matrix, feature names, categorical
+    indices), as the JAX package converts it (``lambdagap_tpu/basic.py:
+    44-63``): dictionary-encoded columns become their codes and are
+    categorical; boolean / integer / float columns cast to float64 with
+    nulls as NaN."""
+    import pyarrow as pa
+    names = [str(c) for c in table.column_names]
+    mat = np.empty((table.num_rows, table.num_columns), dtype=np.float64)
+    categorical = []
+    for i, col in enumerate(table.columns):
+        if pa.types.is_dictionary(col.type):
+            combined = col.combine_chunks()
+            if isinstance(combined, pa.ChunkedArray):
+                combined = combined.chunk(0)
+            mat[:, i] = combined.indices.to_numpy(zero_copy_only=False)
+            categorical.append(i)
+        else:
+            mat[:, i] = col.to_numpy(zero_copy_only=False)
+    return mat, names, categorical
+
+
+def _arrow_to_vector(arr, dtype) -> np.ndarray:
+    """A pyarrow Array / ChunkedArray (or a 1- or K-column Table of init
+    scores) -> numpy."""
+    import pyarrow as pa
+    if isinstance(arr, pa.Table):
+        return np.column_stack([c.to_numpy(zero_copy_only=False)
+                                for c in arr.columns]).astype(dtype)
+    return arr.to_numpy(zero_copy_only=False).astype(dtype)
+
+
 def _to_matrix(data) -> np.ndarray:
-    """A 2-D float64 matrix from anything numpy can convert (the JAX
-    package's conversion; the engines cast to float32, TreeSHAP decides in
-    float64)."""
+    """A 2-D float64 matrix from anything numpy can convert, or an Arrow
+    table (the JAX package's conversion; the engines cast to float32,
+    TreeSHAP decides in float64)."""
+    if _is_arrow(data):
+        return _arrow_table_to_matrix(data)[0]
     return np.asarray(data, dtype=np.float64)
 
 
@@ -67,6 +113,27 @@ class Sequence:
         raise NotImplementedError("Sequence.__len__")
 
 
+class _CSRSequence(Sequence):
+    """Row batches of a scipy sparse matrix (CSR, or CSC / COO through
+    ``tocsr``; the JAX package's, ``lambdagap_tpu/basic.py:95-120``): each
+    batch densifies one window of rows, so construction never holds the
+    dense float matrix whole. 16,384 rows x 2,000 features is a 256 MB
+    window."""
+
+    batch_size = 16384
+
+    def __init__(self, sparse) -> None:
+        self.csr = sparse.tocsr()
+
+    def __len__(self):
+        return self.csr.shape[0]
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return self.csr[idx].toarray()
+        return self.csr[idx:idx + 1].toarray()[0]
+
+
 def _fobj_tensor(a, what: str, K: int, N: int, device):
     """A custom gradient or hessian as [K, N] float32 on the booster's
     device. Only a flat class-major array is taken: the JAX package reads
@@ -80,21 +147,16 @@ def _fobj_tensor(a, what: str, K: int, N: int, device):
     return torch.from_numpy(np.ascontiguousarray(a.reshape(K, N))).to(device)
 
 
-def _refuse_file(data) -> None:
-    if isinstance(data, (str, os.PathLike)):
-        raise NotImplementedError(
-            "predicting from a data file is not ported to lambdagap_tpu_torch "
-            "yet (ROADMAP.md, Queue 1: the loader); pass a matrix")
-
-
 class Dataset:
     """Training data with lazy construction (reference: basic.py:1744
     Dataset._lazy_init). ``data`` is a dense matrix (float32 and float64
     stay as they are — binning reads them exactly — other types convert to
-    float64 as the JAX package converts them), a ``Sequence`` or a list of
-    them (binned streamingly: boundaries from a sketch over every row), or
-    an already-binned ``BinnedDataset`` — a ``ShardedBinnedDataset`` among
-    them, which trains out of core."""
+    float64 as the JAX package converts them), an Arrow table, a data file
+    path (its sidecars loaded; a ``categorical_feature`` name resolves
+    against the file's header), a scipy sparse matrix or a ``Sequence`` or
+    a list of them (binned streamingly: boundaries from a sketch over every
+    row), or an already-binned ``BinnedDataset`` — a
+    ``ShardedBinnedDataset`` among them, which trains out of core."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, group=None, init_score=None,
@@ -145,12 +207,12 @@ class Dataset:
             if own.linear_tree:
                 cfg = copy.deepcopy(cfg)
                 cfg.linear_tree = True
+        self._arrow_metadata()
+        if isinstance(self.data, (str, os.PathLike)):
+            return self._construct_file(cfg, config)
         if _is_scipy_sparse(self.data):
-            raise NotImplementedError(
-                "a scipy sparse training matrix (its row-batch reader, "
-                "_CSRSequence) is not ported to lambdagap_tpu_torch yet "
-                "(ROADMAP.md, Queue 1: the loader); pass a dense matrix or "
-                "a Sequence")
+            # binned a window of dense rows at a time (from_sequences)
+            self.data = _CSRSequence(self.data)
         seqs = None
         if isinstance(self.data, Sequence):
             seqs = [self.data]
@@ -160,6 +222,10 @@ class Dataset:
         names = ([str(n) for n in self.feature_name]
                  if isinstance(self.feature_name, (list, tuple)) else None)
         categorical: List[int] = []
+        mat = None
+        if _is_arrow(self.data):
+            mat, auto_names, categorical = _arrow_table_to_matrix(self.data)
+            names = names or auto_names
         if isinstance(self.categorical_feature, (list, tuple)):
             for c in self.categorical_feature:
                 if isinstance(c, str) and names and c in names:
@@ -177,7 +243,8 @@ class Dataset:
             if self.free_raw_data:
                 self.data = None
             return self._constructed
-        mat = np.asarray(self.data)
+        if mat is None:
+            mat = np.asarray(self.data)
         if mat.dtype not in (np.float32, np.float64):
             mat = mat.astype(np.float64)
         self._constructed = BinnedDataset.from_matrix(
@@ -188,6 +255,61 @@ class Dataset:
         if self.free_raw_data:
             self.data = None
         return self._constructed
+
+    def _arrow_metadata(self) -> None:
+        """Arrow label / weight / group / position / init score -> numpy,
+        once, at the boundary (a K-column init-score table is class-major;
+        the JAX package's ``basic.py:207-217``)."""
+        for name, dtype in (("label", np.float32), ("weight", np.float32),
+                            ("group", np.int64), ("position", np.int64)):
+            v = getattr(self, name)
+            if _is_arrow(v):
+                setattr(self, name, _arrow_to_vector(v, dtype).reshape(-1))
+        if _is_arrow(self.init_score):
+            init = _arrow_to_vector(self.init_score, np.float64)
+            self.init_score = init.T.reshape(-1) if init.ndim == 2 else init
+
+    def _construct_file(self, cfg: Config,
+                        config: Optional[Config]) -> BinnedDataset:
+        """A Dataset straight from a data file (``data/loader.py``; the JAX
+        package's ``basic.py:221-262``): the constructor's
+        ``categorical_feature`` takes the place of the params key, names
+        resolved against ``feature_name`` or else the file's header; the
+        constructor's label, weight, init score and group override the
+        file's."""
+        from .data.loader import load_data_file
+        if isinstance(self.categorical_feature, (list, tuple)):
+            cfg = copy.deepcopy(cfg)
+            names = (list(self.feature_name)
+                     if isinstance(self.feature_name, (list, tuple)) else None)
+            cats = []
+            for c in self.categorical_feature:
+                if isinstance(c, str):
+                    cats.append(str(names.index(c)) if names and c in names
+                                else f"name:{c}")
+                else:
+                    cats.append(str(int(c)))
+            cfg.categorical_feature = ",".join(cats)
+        ref = (self.reference.construct(config)
+               if self.reference is not None else None)
+        ds = load_data_file(str(self.data), cfg, reference=ref)
+        if isinstance(self.feature_name, (list, tuple)):
+            ds.feature_names = [str(n) for n in self.feature_name]
+        md = ds.metadata
+        if self.label is not None:
+            md.label = np.asarray(self.label, np.float32).reshape(-1)
+        if self.weight is not None:
+            md.weight = np.asarray(self.weight, np.float32).reshape(-1)
+        if self.init_score is not None:
+            md.init_score = np.asarray(self.init_score,
+                                       np.float64).reshape(-1)
+        if self.group is not None:
+            md.set_group(self.group)
+        md.check(ds.num_data)
+        self._constructed = ds
+        if self.free_raw_data:
+            self.data = None
+        return ds
 
     def num_data(self) -> int:
         return (self._constructed.num_data if self._constructed is not None
@@ -374,11 +496,18 @@ class Booster:
             "Booster.telemetry is not ported to lambdagap_tpu_torch yet (the "
             "obs layer: ROADMAP.md, Queue 1 item 5)")
 
-    def refit(self, data, label, weight=None, group=None,
+    def refit(self, data, label=None, weight=None, group=None,
               decay_rate: float = 0.9, **kwargs) -> "Booster":
         """Refit the existing tree structures to new data (reference:
         basic.py Booster.refit -> GBDT::RefitTree). Returns a new Booster;
-        this one is unchanged."""
+        this one is unchanged. ``data`` may be a data file path, whose
+        label, weight and groups stand in for the arguments left None."""
+        if isinstance(data, (str, os.PathLike)):
+            from .data.loader import _parse_text_file
+            data, y, w, g, _ = _parse_text_file(str(data), self.config)
+            label = y if label is None else label
+            weight = w if weight is None else weight
+            group = g if group is None else group
         new = Booster(params=self.params, model_str=self.model_to_string())
         new._booster.refit(_to_matrix(data), label, weight=weight,
                            group=group, decay_rate=decay_rate)
@@ -425,16 +554,21 @@ class Booster:
                 log.fatal("Booster.eval needs the raw data: this Dataset "
                           "was constructed and is not a registered "
                           "train/valid set")
-        _refuse_file(data.data)
         from .data.dataset import Metadata
-        X = _to_matrix(data.data)
+        if isinstance(data.data, (str, os.PathLike)):
+            from .data.loader import _parse_text_file
+            X, label, weight, group, _ = _parse_text_file(str(data.data),
+                                                          self.config)
+        else:
+            X = _to_matrix(data.data)
+            label, weight, group = data.label, data.weight, data.group
         md = Metadata()
-        if data.label is not None:
-            md.label = np.asarray(data.label, np.float32).reshape(-1)
-        if data.weight is not None:
-            md.weight = np.asarray(data.weight, np.float32).reshape(-1)
-        if data.group is not None:
-            md.set_group(np.asarray(data.group))
+        if label is not None:
+            md.label = np.asarray(label, np.float32).reshape(-1)
+        if weight is not None:
+            md.weight = np.asarray(weight, np.float32).reshape(-1)
+        if group is not None:
+            md.set_group(np.asarray(group))
         metrics = create_metrics(self.config, md, len(X))
         # metrics consume output-space scores, as the training loop hands
         # them (single-class [N], multiclass [K, N])
@@ -467,7 +601,11 @@ class Booster:
                               pred_leaf=pred_leaf,
                               pred_contrib=pred_contrib, **kwargs)
                  for lo in range(0, csr.shape[0], step)], axis=0)
-        _refuse_file(data)
+        if isinstance(data, (str, os.PathLike)):
+            # a data file, label and dropped columns stripped (reference:
+            # LGBM_BoosterPredictForFile)
+            from .data.loader import _parse_text_file
+            data = _parse_text_file(str(data), self.config)[0]
         mat = _to_matrix(data)
         if pred_leaf:
             return self._booster.predict_leaf(mat, start_iteration,
@@ -487,12 +625,12 @@ class Booster:
                        ) -> np.ndarray:
         """Out-of-core batch scoring (``infer/stream.py``; the JAX
         package's ``Booster.predict_stream``): ``data`` is a dense matrix,
-        an ``np.memmap`` or a ``ShardedBinnedDataset`` built with
-        ``reference=`` this model's training set. Scores are bit-equal to
-        :meth:`predict`; ``out`` (e.g. an ``np.memmap``) receives the rows
-        in place; ``signal_source`` arms the co-tenant throttle;
-        ``stats_out`` receives the run report. A data file raises until
-        the loader is ported."""
+        an ``np.memmap``, a data file path (parsed a window at a time) or a
+        ``ShardedBinnedDataset`` built with ``reference=`` this model's
+        training set. Scores are bit-equal to :meth:`predict`; ``out``
+        (e.g. an ``np.memmap``) receives the rows in place;
+        ``signal_source`` arms the co-tenant throttle; ``stats_out``
+        receives the run report."""
         from .data.stream import ShardedBinnedDataset
         if not isinstance(data, (np.ndarray, ShardedBinnedDataset,
                                  str, os.PathLike)):

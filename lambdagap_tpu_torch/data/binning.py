@@ -391,7 +391,7 @@ class BinMapper:
                 hit = keys[sorter][pos] == ivalues
                 out = np.where(hit, vals[sorter][pos], 0).astype(np.int32)
             return out
-        bounds = np.asarray([b for b in self.bin_upper_bound if not np.isnan(b)])
+        bounds = self.upper_bounds()
         nan_mask = np.isnan(values)
         vals = np.where(nan_mask, 0.0, values)
         if self.missing_type == MISSING_ZERO:
@@ -402,6 +402,12 @@ class BinMapper:
         if self.missing_type == MISSING_NAN:
             bins = np.where(nan_mask, self.num_bin - 1, bins)
         return bins
+
+    def upper_bounds(self) -> np.ndarray:
+        """The numerical upper bounds without the NaN bin's sentinel,
+        float64: what ``values_to_bins`` searches (and kernel B reads)."""
+        return np.asarray([b for b in self.bin_upper_bound if not np.isnan(b)],
+                          np.float64)
 
     def bin_to_value(self, bin_idx: int) -> float:
         """Representative raw threshold for a bin boundary: the upper bound
@@ -417,6 +423,30 @@ class BinMapper:
             return np.inf
         b = self.bin_upper_bound[bin_idx]
         return float(b) if not np.isnan(b) else np.inf
+
+
+def bounds_table(mappers: Sequence[BinMapper], used_features: Sequence[int]):
+    """The numerical used features' bounds as one table, the layout of the
+    JAX package's native binner (``lambdagap_tpu/native/__init__.py:
+    180-203``) and of kernel B: ``(col, dst, nan_bin, bounds, off)`` — each
+    numerical feature's raw column, its column among the used features, its
+    NaN bin (-1 unless the missing type is NaN: a NaN then reads as 0.0),
+    and its upper bounds at ``bounds[off[f]:off[f + 1]]``. Categorical
+    features are left out: their mapper bins them."""
+    col, dst, nan_bin, parts = [], [], [], []
+    for k, j in enumerate(used_features):
+        m = mappers[j]
+        if m.bin_type == BIN_CATEGORICAL:
+            continue
+        col.append(j)
+        dst.append(k)
+        nan_bin.append(m.num_bin - 1 if m.missing_type == MISSING_NAN else -1)
+        parts.append(m.upper_bounds())
+    off = np.zeros(len(parts) + 1, np.int64)
+    np.cumsum([len(b) for b in parts], out=off[1:])
+    bounds = np.concatenate(parts) if parts else np.empty(0, np.float64)
+    return (np.asarray(col, np.int32), np.asarray(dst, np.int32),
+            np.asarray(nan_bin, np.int32), bounds, off)
 
 
 def _distinct_with_counts(sorted_vals: np.ndarray):

@@ -20,6 +20,11 @@ into the binned matrix, as the JAX package does
 Under ``linear_tree`` a matrix-built dataset keeps its raw matrix as f32
 (``raw``, the JAX package's ``dataset.py:159,208-211``): the linear leaves
 fit and evaluate on raw feature values.
+
+Rows are binned on the config's device (``device_type``): every numerical
+column by kernel B (``ops/bin_cuda.bin_matrix``; its plain version on the
+CPU), where the JAX package runs its host C++ binner; categorical columns
+by their mapper on the host, as there.
 """
 from __future__ import annotations
 
@@ -28,11 +33,15 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..config import Config
+from ..ops.bin_cuda import BinTable, bin_matrix
 from ..utils import log
+from ..utils.device import resolve_device
 from .binning import (BIN_CATEGORICAL, BIN_NUMERICAL, MISSING_NAN,
-                      MISSING_NONE, MISSING_ZERO, BinMapper, QuantileSketch)
+                      MISSING_NONE, MISSING_ZERO, BinMapper, QuantileSketch,
+                      bounds_table)
 
 MISSING_CODES = {MISSING_NONE: 0, MISSING_ZERO: 1, MISSING_NAN: 2}
 
@@ -178,6 +187,7 @@ class BinnedDataset:
         self.feature_names: List[str] = []
         self.max_bin = 255
         self.raw: Optional[np.ndarray] = None   # kept under linear_tree
+        self._bin_table: Optional[BinTable] = None
         self._bundle = None
         self._bundle_built = False
 
@@ -210,7 +220,7 @@ class BinnedDataset:
             ds._adopt_reference(reference)
         else:
             ds._find_bins(data, config, set(categorical_features))
-        ds._push_data(data)
+        ds._push_data(data, resolve_device(config.device_type))
         if config.linear_tree:
             # linear leaves fit and evaluate on raw numeric values
             # (reference: Dataset raw_data retention under linear_tree)
@@ -253,10 +263,12 @@ class BinnedDataset:
                                    set(categorical_features))
         binned = np.empty((total, len(ds.used_features)),
                           bin_dtype(ds.feature_num_bins))
+        device = resolve_device(config.device_type)
         row0 = 0
         for s, ln in zip(seqs, lens):
             for lo, blk in _batches(s, ln, 4096):
-                binned[row0 + lo:row0 + lo + len(blk)] = ds._bin_block(blk)
+                binned[row0 + lo:row0 + lo + len(blk)] = ds._bin_block(
+                    blk, device)
             row0 += ln
         ds.binned = binned
         ds._attach_metadata(label, weight, group, init_score, position)
@@ -266,16 +278,36 @@ class BinnedDataset:
         """A validation set's bins: the training set's mappers
         (reference: Dataset::CreateValid, src/io/dataset.cpp)."""
         for k in ("mappers", "used_features", "feature_num_bins",
-                  "bin_offsets", "feature_names", "max_bin"):
+                  "bin_offsets", "feature_names", "max_bin", "_bin_table"):
             setattr(self, k, getattr(reference, k))
 
-    def _bin_block(self, blk: np.ndarray) -> np.ndarray:
+    def bin_table(self) -> BinTable:
+        """The mappers' numerical bounds as kernel B reads them (built
+        once)."""
+        if self._bin_table is None:
+            self._bin_table = BinTable(
+                *bounds_table(self.mappers, self.used_features),
+                num_used=len(self.used_features),
+                out_dtype=bin_dtype(self.feature_num_bins))
+        return self._bin_table
+
+    def _bin_into(self, data: np.ndarray, out: np.ndarray,
+                  device: torch.device) -> None:
+        """Bin row block ``data`` ``[n, num_total_features]`` into ``out``
+        ``[n, num_used_features]``: the numerical columns by B on
+        ``device``, the categorical ones by their mapper."""
+        bin_matrix(data, self.bin_table(), device, out)
+        for k, j in enumerate(self.used_features):
+            if self.mappers[j].bin_type == BIN_CATEGORICAL:
+                out[:, k] = self.mappers[j].values_to_bins(data[:, j])
+
+    def _bin_block(self, blk: np.ndarray,
+                   device: torch.device) -> np.ndarray:
         """A float row block ``[n, num_total_features]`` binned to the
         used features' columns."""
         out = np.empty((blk.shape[0], len(self.used_features)),
                        bin_dtype(self.feature_num_bins))
-        for k, j in enumerate(self.used_features):
-            out[:, k] = self.mappers[j].values_to_bins(blk[:, j])
+        self._bin_into(blk, out, device)
         return out
 
     def _attach_metadata(self, label, weight, group, init_score,
@@ -325,12 +357,11 @@ class BinnedDataset:
                 forced_bounds=forced.get(j, ())))
         _finish_bins(self)
 
-    def _push_data(self, data: np.ndarray) -> None:
-        """Bin every row, one used feature (column) at a time."""
+    def _push_data(self, data: np.ndarray, device: torch.device) -> None:
+        """Bin every row on ``device`` (:meth:`_bin_into`)."""
         binned = np.empty((self.num_data, len(self.used_features)),
                           bin_dtype(self.feature_num_bins))
-        for k, j in enumerate(self.used_features):
-            binned[:, k] = self.mappers[j].values_to_bins(data[:, j])
+        self._bin_into(data, binned, device)
         self.binned = binned
 
     # ------------------------------------------------------------------

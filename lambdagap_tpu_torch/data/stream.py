@@ -47,6 +47,7 @@ import torch
 
 from ..config import Config
 from ..utils import log
+from ..utils.device import resolve_device
 from .dataset import (BinnedDataset, _batches, _mappers_from_sketches,
                       bin_dtype)
 from .binning import QuantileSketch
@@ -330,10 +331,11 @@ class ShardedBinnedDataset(BinnedDataset):
         C = len(ds.used_features)
         ds.shards = [ds._alloc_shard(i, rows, C, dtype) for i, rows in
                      enumerate(_shard_sizes(total, ds.shard_rows))]
+        device = resolve_device(config.device_type)
         row0 = 0
         for s, ln in zip(seqs, lens):
             for lo, blk in _batches(s, ln, 65536):
-                ds._write_rows(row0 + lo, ds._bin_block(blk))
+                ds._write_rows(row0 + lo, ds._bin_block(blk, device))
             row0 += ln
         ds._attach_metadata(label, weight, group, init_score, position)
         return ds

@@ -31,9 +31,10 @@ Every engine scores each row on its own, so the scores are bit-equal to
 the resident ``GBDT.predict_raw`` / ``predict`` on the same device for
 every window size and raggedness, and to the JAX package's
 ``predict_stream`` where the JAX engines equal the port's
-(``tests/test_torch_predict_stream.py``). The JAX package's file source
-(it needs the loader), ``mesh_shape`` row sharding and the profiler window
-(``profile_stream_start_window``) are not ported and raise by name.
+(``tests/test_torch_predict_stream.py``). A data file path is parsed a
+window at a time (:class:`_FileSource`). ``mesh_shape`` row sharding and
+the profiler window (``profile_stream_start_window``) are not ported and
+raise by name.
 """
 from __future__ import annotations
 
@@ -328,14 +329,33 @@ class _ShardedSource:
             yield self.ds.row_block(lo, min(lo + window_rows, n))
 
 
+class _FileSource:
+    """A text data file (CSV / TSV / LibSVM) parsed a window at a time
+    through the loader's block reader (``data/loader.PredictFile``; the
+    JAX package's ``iter_predict_blocks``, ``infer/stream.py:344``): one
+    window of parsed rows on the host at a time, with the column handling
+    of ``Booster.predict(path)``."""
+
+    binned = False
+
+    def __init__(self, gb, path) -> None:
+        from ..data.loader import PredictFile
+        self.gb = gb
+        self.file = PredictFile(str(path), gb.config)
+        self.n_rows = self.file.n_rows
+        self.n_cols = self.file.n_cols
+
+    def blocks(self, window_rows: int):
+        for blk in self.file.blocks(window_rows):
+            yield np.ascontiguousarray(self.gb._check_predict_shape(blk),
+                                       dtype=np.float32)
+
+
 def _as_source(gb, data):
     if isinstance(data, ShardedBinnedDataset):
         return _ShardedSource(gb, data)
     if isinstance(data, (str, os.PathLike)):
-        raise NotImplementedError(
-            "predict_stream from a data file is not ported to "
-            f"lambdagap_tpu_torch yet {_ROADMAP}: the loader; pass a "
-            "matrix or an np.memmap")
+        return _FileSource(gb, data)
     return _MatrixSource(gb, data if isinstance(data, np.ndarray)
                          else np.asarray(data))
 
@@ -349,8 +369,8 @@ def predict_stream(gb, data, *, start_iteration: int = 0,
                    out: Optional[np.ndarray] = None, signal_source=None,
                    throttle: Optional[CoTenantThrottle] = None,
                    stats_out: Optional[dict] = None) -> np.ndarray:
-    """Score ``data`` (a 2-D matrix, an ``np.memmap`` or a
-    ``ShardedBinnedDataset`` on the model's bins) window by window.
+    """Score ``data`` (a 2-D matrix, an ``np.memmap``, a data file path or
+    a ``ShardedBinnedDataset`` on the model's bins) window by window.
     Returns what the resident predict returns — ``[N]`` / ``[N, K]``
     scores (``raw_score``: bit-equal to ``predict_raw``), or with
     ``pred_contrib`` the ``[N, F+1]`` / ``[N, K*(F+1)]`` SHAP matrix of

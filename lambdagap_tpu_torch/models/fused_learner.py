@@ -105,7 +105,7 @@ from ..ops.histogram import leaf_histogram, subtract_histogram, \
 from ..ops.partition import decision_go_left, decode_bundled
 from ..ops.split import CAT_WORDS, K_MIN_SCORE, BestSplit, best_split, \
     calculate_leaf_output, gather_threshold_split
-from ..utils import prng
+from ..utils import log, prng
 from .learner import SerialTreeLearner, _next_pow2, _PhaseTimer
 from .tree import Tree
 
@@ -148,16 +148,20 @@ class FusedTreeLearner(SerialTreeLearner):
         super().__init__(dataset, config, device)
         # quantized gradients (the JAX learner, fused_learner.py:116-155):
         # K2 sums int8 levels in int32, exact while rows x levels stays
-        # below int32 max
+        # below int32 max; past it each histogram sums int32 windows of
+        # limit // levels positions in int64 (exact, where the JAX learner
+        # falls back to per-chunk scaled float32 sums)
         self.quant = bool(config.use_quantized_grad)
+        self.q_window = None
         if self.quant:
             qb = config.num_grad_quant_bins
-            if self.num_data * qb >= exact_accum_limit("pallas"):
-                raise NotImplementedError(
-                    f"num_grad_quant_bins={qb} at {self.num_data} rows can "
-                    "overflow the int32 level sums; the per-chunk float32 "
-                    "fallback is not ported to lambdagap_tpu_torch yet "
-                    "(ROADMAP.md) — lower num_grad_quant_bins")
+            limit = exact_accum_limit("pallas")
+            if self.num_data * qb >= limit:
+                self.q_window = limit // qb
+                log.warning("quantized histogram level sums may exceed the "
+                            "int32 accumulator (%d rows x %d levels); "
+                            "summing K2 windows of %d rows in int64",
+                            self.num_data, qb, self.q_window)
             self._qkey = prng.PRNGKey(config.data_random_seed + 7919)
         # the tree options' step state (fused_learner.py:156-172); the
         # booster routes monotone_constraints_method=advanced to the
@@ -337,7 +341,7 @@ class FusedTreeLearner(SerialTreeLearner):
             level sums scaled to gradient units (the JAX learner,
             fused_learner.py:679-681)."""
             h = leaf_histogram(lay, perm, begin, count, Bb, live, offset,
-                               hscale)
+                               hscale, self.q_window)
             return h.float() * qscale if self.quant else h
 
         def scan_hist(h, sums) -> torch.Tensor:

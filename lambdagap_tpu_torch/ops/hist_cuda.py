@@ -98,12 +98,20 @@ _ws_lock = threading.Lock()
 Count = Union[int, torch.Tensor]
 
 
+# the largest level sum K2's int32 accumulator holds exactly; a learner
+# whose rows x num_grad_quant_bins reaches it builds each quantized
+# histogram from windows of at most K2_ACCUM_LIMIT // num_grad_quant_bins
+# positions summed in int64 (ops/histogram.leaf_histogram). A module
+# constant, so a run can lower it in-process to exercise the windows
+K2_ACCUM_LIMIT = 2**31 - 1
+
+
 def exact_accum_limit(hist_impl: str) -> int:
     """Largest integer the quantized-histogram level accumulator holds
-    exactly (``hist_pallas.py:58-70``): int32 max for ``pallas``, whose
-    counterpart K2 accumulates int32; 2**24 (integer-valued float32) for
-    the JAX package's one-hot contraction."""
-    return 2**31 - 1 if hist_impl == "pallas" else 2**24
+    exactly (``hist_pallas.py:58-70``): int32 max (``K2_ACCUM_LIMIT``) for
+    ``pallas``, whose counterpart K2 accumulates int32; 2**24
+    (integer-valued float32) for the JAX package's one-hot contraction."""
+    return K2_ACCUM_LIMIT if hist_impl == "pallas" else 2**24
 
 
 def hist_scale(grad: torch.Tensor, hess: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,12 @@ columns back to per-feature space. The XLA one-hot contraction of the JAX
 package (its non-Pallas path) is not ported: every histogram of the port
 comes from a kernel, through :func:`leaf_histogram` in any row layout
 (under ``data_residency=stream`` a loop over uploaded windows into K1's
-accumulate mode, ``ops/partition.StreamRows.histogram``).
+accumulate mode, ``ops/partition.StreamRows.histogram``). Where a
+quantized level sum could pass int32 (rows x ``num_grad_quant_bins`` at
+``exact_accum_limit("pallas")``), each quantized histogram is K2 launches
+over consecutive position windows summed exactly in int64
+(:func:`_windowed_q`), where the JAX package falls back to per-chunk
+scaled float32 sums (``lambdagap_tpu/models/fused_learner.py:139-151``).
 """
 from __future__ import annotations
 
@@ -19,8 +24,12 @@ from typing import Optional, Union
 import torch
 
 from ..data.bundling import KIND_COPY, KIND_DEFAULT
-from .hist_cuda import hist_rows, hist_rows_q
+from ..infer.engine import LaunchCounter
+from .hist_cuda import Count, hist_rows, hist_rows_q
 from .partition import GatherRows, SortedRows, StreamRows
+
+# the windows the windowed quantized histograms built (one K2 launch each)
+QUANT_WINDOWS = LaunchCounter()
 
 
 def subtract_histogram(parent_hist: torch.Tensor,
@@ -53,11 +62,38 @@ def unbundle_hist(hist_b: torch.Tensor, src: torch.Tensor,
                        out)
 
 
+def _windowed_q(bins, gq, hq, rows, live: Count, count: int, num_bins: int,
+                mask, offset, window: int) -> torch.Tensor:
+    """A quantized histogram over the first ``live`` of ``count`` positions
+    from ``offset`` as K2 launches over consecutive windows of at most
+    ``window`` positions (window w: offset + w * window, its share of
+    ``live``), each window's exact int32 sums added into int64 — so the sum
+    is exact at any row count and equal to one launch's wherever that one
+    fits int32. ``live`` may be a device tensor: the windows come from the
+    host ``count``, a window past ``live`` adds nothing."""
+    dev = bins.device
+    base = offset if offset is not None else torch.zeros(
+        1, dtype=torch.int32, device=dev)
+    acc = torch.zeros((bins.shape[1], num_bins, 3), dtype=torch.int64,
+                      device=dev)
+    for w in range(max(1, -(-count // window))):
+        lo = w * window
+        if isinstance(live, torch.Tensor):
+            cnt = (live - lo).clamp(0, window).to(torch.int32)
+        else:
+            cnt = min(max(int(live) - lo, 0), window)
+        acc += hist_rows_q(bins, gq, hq, rows, cnt, num_bins, mask,
+                           base + lo)
+        QUANT_WINDOWS.add()
+    return acc
+
+
 def leaf_histogram(layout: Union[GatherRows, SortedRows, StreamRows],
                    perm: torch.Tensor, begin: int, count: int,
                    num_bins: int, live: Optional[torch.Tensor] = None,
                    offset: Optional[torch.Tensor] = None,
-                   scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   scale: Optional[torch.Tensor] = None,
+                   q_window: Optional[int] = None) -> torch.Tensor:
     """A leaf's histogram from its kernel, in either row layout
     (``lambdagap_tpu/ops/histogram.py``'s ``leaf_histogram`` and, under
     ``tree_layout=sorted``, ``leaf_histogram_sorted``, :170-195): the leaf
@@ -72,7 +108,9 @@ def leaf_histogram(layout: Union[GatherRows, SortedRows, StreamRows],
     integers, so the histograms are equal bit for bit. Under
     ``data_residency=stream`` (:class:`StreamRows`) a child is the smaller
     child of the split just made, whose span the layout read with the
-    split's go-left flags, so ``live`` and ``offset`` are not read."""
+    split's go-left flags, so ``live`` and ``offset`` are not read. With
+    ``q_window`` a quantized histogram is int64 sums over windows of at
+    most that many positions (:func:`_windowed_q`)."""
     if isinstance(layout, StreamRows):
         if live is not None:
             begin, count = layout.child(begin, count)
@@ -81,5 +119,8 @@ def leaf_histogram(layout: Union[GatherRows, SortedRows, StreamRows],
                                                   live is None)
     live = count if live is None else live
     if a.dtype == torch.int8:
+        if q_window is not None:
+            return _windowed_q(bins, a, b, rows, live, count, num_bins, mask,
+                               offset, q_window)
         return hist_rows_q(bins, a, b, rows, live, num_bins, mask, offset)
     return hist_rows(bins, a, b, rows, live, num_bins, mask, offset, scale)

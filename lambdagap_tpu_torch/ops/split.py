@@ -448,8 +448,8 @@ def per_feature_best(hist, parent_g, parent_h, parent_c, parent_output,
     if has_categorical:
         if hist.shape[-2] > CAT_WORDS * 32:
             raise NotImplementedError(
-                "categorical splits with more than 256 bins per feature "
-                "(ROADMAP.md, port queue)")
+                "categorical splits with more than 256 bins per feature: "
+                "the JAX package fails there too (ROADMAP.md, Queue 3)")
         cat = _categorical_best(hist, pg, ph, pc, po, num_bins,
                                 feature_mask & is_categorical, p,
                                 constraints, rand_thresholds)

@@ -62,7 +62,8 @@ def test_dataset_equals_jax(max_bin, extra):
     cats = [3, 4]
     jds = JaxDataset.from_matrix(X, JaxConfig.from_params(params), label=y,
                                  categorical_features=cats)
-    pds = BinnedDataset.from_matrix(X, Config.from_params(params), label=y,
+    pcfg = Config.from_params({**params, "device_type": "cpu"})
+    pds = BinnedDataset.from_matrix(X, pcfg, label=y,
                                     categorical_features=cats)
     assert pds.used_features == jds.used_features
     assert pds.feature_num_bins == jds.feature_num_bins
@@ -79,7 +80,7 @@ def test_dataset_equals_jax(max_bin, extra):
     Xv = _matrix(seed=1, n=700)
     jv = JaxDataset.from_matrix(Xv, JaxConfig.from_params(params),
                                 reference=jds)
-    pv = BinnedDataset.from_matrix(Xv, Config.from_params(params),
+    pv = BinnedDataset.from_matrix(Xv, pcfg,
                                    reference=pds)
     np.testing.assert_array_equal(pv.binned, jv.binned)
 
@@ -110,7 +111,8 @@ def test_efb_groups_equal_jax(sparse):
         X[np.arange(n), which] = rng.rand(n) + 0.5
     else:
         X = rng.randn(n, F)
-    ds = BinnedDataset.from_matrix(X, Config.from_params({"verbose": -1}))
+    ds = BinnedDataset.from_matrix(
+        X, Config.from_params({"verbose": -1, "device_type": "cpu"}))
     nb = np.asarray(ds.feature_num_bins, np.int32)
     db = ds.feature_arrays()["default_bins"]
     got = bundling.build_bundle(ds.binned, nb, db, 0.0)

@@ -206,7 +206,10 @@ def test_sparse_input_and_file_refusal(tmp_path):
     assert np.array_equal(port.predict(sp.csr_matrix(Xs), pred_contrib=True),
                           dense)
     assert np.array_equal(port.predict(sp.csr_matrix(Xs)), port.predict(Xs))
+    # a data file: column 0 is the label, stripped before predicting
     path = tmp_path / "rows.tsv"
-    np.savetxt(path, Xs, delimiter="\t")
-    with pytest.raises(NotImplementedError, match="data file"):
-        port.predict(str(path))
+    np.savetxt(path, np.column_stack([np.arange(len(Xs)), Xs]),
+               delimiter="\t")
+    assert np.array_equal(port.predict(str(path)), port.predict(Xs))
+    np.testing.assert_allclose(port.predict(str(path)), bst.predict(str(path)),
+                               rtol=1e-6, atol=1e-6)

@@ -46,7 +46,8 @@ def _table(seed=17, n=2000, groups=2, width=5, dense=3, levels=None):
 
 def _bundles(X, **cfg):
     ds = BinnedDataset.from_matrix(
-        X, lgt.Config.from_params({"verbose": -1, **cfg}))
+        X, lgt.Config.from_params({"verbose": -1, "device_type": "cpu",
+                                   **cfg}))
     nb = np.asarray(ds.feature_num_bins, np.int32)
     db = ds.feature_arrays()["default_bins"]
     return ds, nb, db

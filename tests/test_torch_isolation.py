@@ -10,8 +10,12 @@ bundling included), and trains and scores out of core (a streamed
 ``ShardedBinnedDataset``, ``predict_stream``), then trains DART under a
 ``reset_parameter`` schedule, continues it with ``init_model`` and
 cross-validates (``cv``), then trains, serves and explains linear leaves
-(``ops/linear.py``, ``models/linear_leaf.py``). Asking for the card where
-there is none raises instead of quietly running on the CPU.
+(``ops/linear.py``, ``models/linear_leaf.py``), then loads a CSV two
+rounds at a time, predicts and streams it, caches it (``data/loader.py``),
+trains on a CSR matrix, tails a batch directory (``data/tail.py``) and
+trains quantized past a lowered int32 limit (K2 windows; B's and K2's
+plain versions on the CPU). Asking for the card where there is none
+raises instead of quietly running on the CPU; so does binning a Dataset.
 """
 import torch_cpu_threads  # noqa: F401  (first: one torch thread)
 import ast
@@ -97,6 +101,29 @@ with lin.as_server(raw_score=True) as server:
     assert np.array_equal(server.predict(Xt), lin_raw)
 phi = lin.predict(Xt, pred_contrib=True)
 assert np.allclose(phi.sum(1), lin_raw, rtol=1e-5, atol=1e-6)
+import os, tempfile
+import scipy.sparse as sps
+from lambdagap_tpu_torch.data import loader, tail
+from lambdagap_tpu_torch.ops import bin_cuda, hist_cuda
+td = tempfile.mkdtemp()
+path = os.path.join(td, "d.csv")
+np.savetxt(path, np.column_stack([yt, Xt]), delimiter=",")
+fb = lgt.train(api, lgt.Dataset(path, params={{"two_round": True}}), 2)
+assert np.array_equal(fb.predict(path), fb.predict(Xt))
+assert np.array_equal(fb.predict_stream(path, window_rows=128),
+                      fb.predict(Xt))
+loader.save_binary(fb._booster.train_set, os.path.join(td, "d.bin"))
+cache = loader.load_binary(os.path.join(td, "d.bin.npz"))
+assert np.array_equal(cache.binned, fb._booster.train_set.binned)
+sb = lgt.train(api, lgt.Dataset(sps.csr_matrix(Xt), label=yt), 2)
+assert np.array_equal(sb.predict(sps.csr_matrix(Xt)), sb.predict(Xt))
+tail.write_batch(td, "b0", Xt, yt)
+assert len(tail.SequenceTail(td).poll()) == 1
+assert bin_cuda.BIN_LAUNCHES.launches == 0
+hist_cuda.K2_ACCUM_LIMIT = 128 * 4
+qb = lgt.train({{**api, "use_quantized_grad": True}},
+               lgt.Dataset(Xt, label=yt), 2)
+assert qb._booster.learner.q_window == 128
 bad = sorted(m for m in sys.modules
              if (m == "jax" or m.startswith("jax.")
                  or m == "lambdagap_tpu" or m.startswith("lambdagap_tpu."))
@@ -161,6 +188,16 @@ def test_cuda_default_without_a_card_raises():
         lgt.Booster(model_str=b.model_to_string(), params={})
     with pytest.raises(RuntimeError, match="device_type=cpu"):
         lgt.Booster(model_str=b.model_to_string())
+
+
+def test_dataset_construction_on_the_default_device_raises_without_a_card():
+    """A Dataset bins on the config's device (kernel B): the default
+    device_type=cuda raises where there is no card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default bins on it")
+    X = np.random.RandomState(0).randn(100, 3)
+    with pytest.raises(RuntimeError, match="device_type=cpu"):
+        lgt.Dataset(X, label=X[:, 0]).construct()
 
 
 def test_stream_kernels_and_rings_never_fall_back_to_the_cpu():

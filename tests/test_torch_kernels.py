@@ -1593,3 +1593,110 @@ def test_served_dart_model_fused_launch_equals_plain_version(cuda_device):
     np.testing.assert_array_equal(served, got[0].cpu().numpy())
     np.testing.assert_allclose(served, ref.predict(X[:4096], raw_score=True),
                                rtol=1e-6, atol=1e-6)
+
+
+def _bin_matrix_rows(n, F, seed, wide=False):
+    """Rows for B: normal columns with NaN, +-inf and exact zeros; column
+    1 a small-int categorical; with ``wide`` column 0 holds 50,000
+    distinct values (a 20,000-bin feature, beyond the shared-memory
+    stage)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, F)
+    X[rng.rand(n, F) < 0.05] = np.nan
+    X[rng.rand(n, F) < 0.01] = np.inf
+    X[rng.rand(n, F) < 0.01] = -np.inf
+    X[rng.rand(n, F) < 0.2] = 0.0
+    X[:, 1] = rng.randint(0, 7, n)
+    if wide:
+        X[:, 0] = rng.randint(0, 50000, n) / 7.0
+    return X
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    dict(n=50000, F=28, max_bin=255, dtype=np.float32),
+    dict(n=50000, F=28, max_bin=255, dtype=np.float64, zero_as_missing=True),
+    dict(n=20000, F=136, max_bin=255, dtype=np.float32),
+    dict(n=30000, F=12, max_bin=511, dtype=np.float64),
+    dict(n=120000, F=4, max_bin=20000, dtype=np.float32, wide=True),
+], ids=["higgs_f32", "higgs_f64_zero", "mslr", "u16", "wide_unstaged"])
+def test_bin_kernel_equals_plain_version_on_card(shape, cuda_device):
+    """Kernel B (``ops/bin_cuda.bin_rows``) is ``torch.equal`` to its plain
+    version and to the host mapper's bins, reruns bit-identically and
+    counts one launch a call; a Dataset built on the card bins every
+    numerical column with B (no host mapper call on one) and equals the
+    same Dataset built on the CPU."""
+    from lambdagap_tpu_torch.data.binning import BIN_NUMERICAL, BinMapper
+    from lambdagap_tpu_torch.data.dataset import BinnedDataset
+    from lambdagap_tpu_torch.ops import bin_cuda
+    X = _bin_matrix_rows(shape["n"], shape["F"], 7,
+                         shape.get("wide", False)).astype(shape["dtype"])
+    params = {"max_bin": shape["max_bin"], "min_data_in_bin": 1,
+              "verbose": -1,
+              "zero_as_missing": shape.get("zero_as_missing", False)}
+    cpu = BinnedDataset.from_matrix(X, lgt.Config.from_params(
+        {**params, **CPU}), categorical_features=[1])
+    table = cpu.bin_table()
+    x = torch.from_numpy(X).to(cuda_device)
+    out = torch.zeros((X.shape[0], len(cpu.used_features)),
+                      dtype=table.torch_dtype, device=cuda_device)
+    before = bin_cuda.BIN_LAUNCHES.launches
+    got = bin_cuda.bin_rows(x, table, out.clone())
+    again = bin_cuda.bin_rows(x, table, out.clone())
+    assert bin_cuda.BIN_LAUNCHES.launches - before == 2
+    plain = bin_cuda._bin_reference(x, table, out.clone())
+    torch.cuda.synchronize()
+    as16 = (lambda t: t.view(torch.int16)) if got.dtype == torch.uint16 \
+        else (lambda t: t)
+    assert torch.equal(as16(got), as16(plain))
+    assert torch.equal(as16(got), as16(again))
+    if shape.get("wide"):
+        assert table.on(cuda_device)["staged"].tolist()[0] == 0
+    numerical = []
+    orig = BinMapper.values_to_bins
+
+    def spy(self, values):
+        if self.bin_type == BIN_NUMERICAL:
+            numerical.append(1)
+        return orig(self, values)
+
+    BinMapper.values_to_bins = spy
+    try:
+        card = BinnedDataset.from_matrix(X, lgt.Config.from_params(params),
+                                         reference=cpu)
+    finally:
+        BinMapper.values_to_bins = orig
+    assert not numerical
+    np.testing.assert_array_equal(card.binned, cpu.binned)
+    host = got.cpu()
+    host = host.view(torch.int16).numpy().view(np.uint16) \
+        if got.dtype == torch.uint16 else host.numpy()
+    k_cat = cpu.used_features.index(1)
+    keep = [k for k in range(len(cpu.used_features)) if k != k_cat]
+    np.testing.assert_array_equal(host[:, keep], cpu.binned[:, keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["gather", "sorted"])
+def test_windowed_quantized_histograms_train_the_same_trees_on_card(
+        layout, cuda_device, monkeypatch):
+    """With K2's accumulator limit lowered in-process, every quantized
+    histogram is K2 launches over windows summed in int64: the model text
+    is byte-equal to the unwindowed run's, and K2 launches == the windows
+    built."""
+    from lambdagap_tpu_torch.ops import hist_cuda as hc
+    from lambdagap_tpu_torch.ops import histogram
+    rng = np.random.RandomState(5)
+    X = rng.randn(20000, 8)
+    y = (X[:, 0] + 0.5 * X[:, 1] > 0).astype(float)
+    p = {"objective": "binary", "verbose": -1, "num_leaves": 31,
+         "use_quantized_grad": True, "bagging_fraction": 0.8,
+         "bagging_freq": 1, "tree_layout": layout}
+    base = lgt.train(p, lgt.Dataset(X, label=y), 3).model_to_string()
+    monkeypatch.setattr(hc, "K2_ACCUM_LIMIT", 3000 * 4)
+    histogram.QUANT_WINDOWS.reset()
+    k2 = hc.HIST_Q_LAUNCHES.launches
+    windowed = lgt.train(p, lgt.Dataset(X, label=y), 3).model_to_string()
+    assert windowed == base
+    assert histogram.QUANT_WINDOWS.launches > 3 * 30
+    assert hc.HIST_Q_LAUNCHES.launches - k2 == histogram.QUANT_WINDOWS.launches

@@ -262,10 +262,17 @@ def test_throttle_snapshots_equal_jax(reg):
 
 def test_unported_sources_and_knobs_refuse_by_name(reg, tmp_path):
     jb, X = reg
+    # a data file is a source now (label column 0 stripped), scored a
+    # window at a time as predict(path) scores it
     path = tmp_path / "rows.csv"
-    np.savetxt(path, X[:10], delimiter=",")
-    with pytest.raises(NotImplementedError, match="data file"):
-        _port(jb).predict_stream(str(path))
+    np.savetxt(path, np.column_stack([np.zeros(300), X[:300]]),
+               delimiter=",")
+    port = _port(jb)
+    st = {}
+    got = port.predict_stream(str(path), window_rows=128, stats_out=st)
+    assert np.array_equal(got, port.predict(str(path)))
+    assert np.array_equal(got, port.predict(X[:300]))
+    assert st["windows"] == 3 and st["rows"] == 300
     with pytest.raises(NotImplementedError, match="mesh_shape"):
         _port(jb, mesh_shape="2x4").predict_stream(X)
     with pytest.raises(NotImplementedError,

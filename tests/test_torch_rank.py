@@ -327,14 +327,14 @@ def test_group_sizes_and_query_ids_give_the_same_boundaries():
     assert a.query_boundaries.dtype == np.int32 and a.num_queries == 5
     X = np.random.RandomState(0).randn(n, 3)
     d1 = lgt.Dataset(X, label=label, group=sizes).construct(
-        Config.from_params({"min_data_in_bin": 1}))
+        Config.from_params({"min_data_in_bin": 1, "device_type": "cpu"}))
     d2 = lgt.Dataset(X, label=label, group=qid).construct(
-        Config.from_params({"min_data_in_bin": 1}))
+        Config.from_params({"min_data_in_bin": 1, "device_type": "cpu"}))
     np.testing.assert_array_equal(d1.metadata.query_boundaries,
                                   d2.metadata.query_boundaries)
     ds = lgt.Dataset(X, label=label, group=sizes)
     np.testing.assert_array_equal(ds.get_group(), sizes)
-    ds.construct(Config())
+    ds.construct(Config.from_params({"device_type": "cpu"}))
     np.testing.assert_array_equal(ds.get_group(), sizes)
 
 

@@ -164,7 +164,7 @@ def test_sequence_dataset_bins_as_jax():
     ``from_sequences`` (sketch bins over every row, no row sample) and
     give the JAX package's mappers and binned matrix; a validation
     Sequence takes the training bins; a scipy sparse training matrix
-    refuses by name."""
+    bins through the same streaming path as the JAX package's."""
     X, y = _data(n=2500, cat=True)
     X[::11, 4] = np.nan
     cfg = {**CPU, "max_bin": 63, "verbose": -1}
@@ -182,9 +182,13 @@ def test_sequence_dataset_bins_as_jax():
                      params=cfg).construct()
     assert va.mappers is tr.construct().mappers
     scipy_sparse = pytest.importorskip("scipy.sparse")
-    with pytest.raises(NotImplementedError, match="_CSRSequence"):
-        lgt.Dataset(scipy_sparse.csr_matrix(X), label=y,
+    Xs = np.where(np.abs(np.nan_to_num(X)) < 0.5, 0.0, X)
+    t = lgt.Dataset(scipy_sparse.csr_matrix(Xs), label=y,
                     params=cfg).construct()
+    j = lgb.Dataset(scipy_sparse.csr_matrix(Xs), label=y,
+                    params=cfg).construct()
+    _assert_same_bins(t, j)
+    assert np.array_equal(t.binned, j.binned)
 
 
 @pytest.mark.parametrize("route", ["from_matrix", "from_sequences",
@@ -196,7 +200,7 @@ def test_sharded_dataset_equals_jax(route, tmp_path):
     X, y = _data(n=3500, d=5)
     X[::13, 2] = np.nan
     p = {"max_bin": 63, "stream_sketch_budget": 512}
-    tc, jc = lgt.Config.from_params(p), JaxConfig.from_params(p)
+    tc, jc = lgt.Config.from_params({**p, **CPU}), JaxConfig.from_params(p)
     if route == "from_matrix":
         t = ShardedBinnedDataset.from_matrix(X, tc, shard_rows=1024, label=y)
         j = JaxSharded.from_matrix(X, jc, shard_rows=1024, label=y)

@@ -595,18 +595,26 @@ def test_a_formed_bundle_trains_like_jax():
                                atol=1e-5)
 
 
-def test_quantized_level_sums_that_could_overflow_refuse_loudly():
-    """rows x num_grad_quant_bins at or past int32 max: the per-chunk
-    float32 fallback is not ported, so the learner refuses, naming the
-    knob."""
+def test_quantized_level_sums_that_could_overflow_refuse_loudly(monkeypatch):
+    """rows x num_grad_quant_bins at or past int32 max: the learner says
+    so loudly (a warning naming both counts) and builds every quantized
+    histogram from K2 windows of (2^31 - 1) // levels positions summed in
+    int64 (``tests/test_torch_tail.py`` holds the windows' trees); below
+    the limit it builds them in one launch."""
     from lambdagap_tpu_torch.models.fused_learner import FusedTreeLearner
+    from lambdagap_tpu_torch.utils import log as port_log
     X, y = _fused_data(seed=19)
-    ds = lgt.Dataset(X, label=y).construct()
-    ds.num_data = 2**31 // 64          # the learner reads the row count
     cfg = lgt.Config.from_params({**CPU, "use_quantized_grad": True,
                                   "num_grad_quant_bins": 64})
-    with pytest.raises(NotImplementedError, match="num_grad_quant_bins"):
-        FusedTreeLearner(ds, cfg, torch.device("cpu"))
+    ds = lgt.Dataset(X, label=y).construct(cfg)
+    assert FusedTreeLearner(ds, cfg, torch.device("cpu")).q_window is None
+    ds.num_data = 2**31 // 64          # the learner reads the row count
+    said = []
+    monkeypatch.setattr(port_log, "warning",
+                        lambda msg, *args: said.append(msg % args))
+    learner = FusedTreeLearner(ds, cfg, torch.device("cpu"))
+    assert learner.q_window == (2**31 - 1) // 64
+    assert any("int32" in m and "64 levels" in m for m in said), said
 
 
 def test_training_default_device_raises_without_a_card():
