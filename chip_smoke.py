@@ -326,10 +326,15 @@ T22. data beyond a dense matrix, and binning on the card. Every Dataset
    at most 2^24 values, and no host mapper call on a numerical column).
    (a) B at T3's shape (10.5 M x 28 f32 rows, T3's bins) and at T8's
    (2,266,357 x 136, bins from 200,000 rows): ``torch.equal`` to its plain
-   version, a rerun and the host mapper's bins on the first 2^18 rows;
-   its time beside its bound, the plain version and one batched
-   ``torch.searchsorted``, the H2D and D2H copies apart; the
-   construction seconds of the phases that bin; (b) 1,000,000 T3-shaped
+   version, a rerun and the host mapper's bins on the first 2^18 rows, and
+   on the float32 table's edge rows (each bound rounded down to float32
+   and its neighbours, signed zeros, subnormals, +-FLT_MAX, infinities,
+   NaN); its plan (one feature tile at both widths: the float32 table
+   staged whole), registers and spills; its time beside its bound, the
+   plain version and one batched ``torch.searchsorted``, the H2D and D2H
+   copies apart; T3's construction again in parts (the bin finding on the
+   host, the push, and within it B's and the copies' device time from
+   torch.profiler); the construction seconds of the phases that bin; (b) 1,000,000 T3-shaped
    rows written as CSV (a header, a weight column) and LibSVM with
    ``qid:`` (T8-like query sizes): one-round and two-round Datasets with
    equal bins and metadata, 2 rounds on the CSV Dataset byte-equal to the
@@ -4972,15 +4977,19 @@ def _as_int(t):
 def bin_kernel_check(tag: str, x_host: np.ndarray, ds, dev, smi: str) -> dict:
     """B at one shape: rows ``x_host`` (f32, the card's copy timed apart)
     through ``ds``'s bounds table; ``torch.equal`` to its plain version,
-    to a rerun and, on the first 2^20 rows, to the host mapper's bins;
-    its time beside the bound (rows read and bins written once), the plain
-    version, one batched ``torch.searchsorted`` over the bounds padded
-    with +inf, and the H2D / D2H copies."""
+    to a rerun and, on the first 2^18 rows, to the host mapper's bins; the
+    float32 table's edge rows (``bin_cuda.edge_rows``) equal to the plain
+    version and the host mapper; the launch plan (one feature tile: the
+    float32 table staged whole) and the compiled kernel's registers and
+    spills; its time beside the bound (rows read and bins written once),
+    the plain version, one batched ``torch.searchsorted`` over the bounds
+    padded with +inf, and the H2D / D2H copies."""
     import torch
     from lambdagap_tpu_torch.ops import bin_cuda as bc
     table = ds.bin_table()
     n, f = x_host.shape
     U = table.num_used
+    num = [int(k) for k in table.dst]
     pinned = torch.empty((n, f), dtype=torch.float32, pin_memory=True)
     pinned.numpy()[:] = x_host
     x = torch.empty((n, f), dtype=torch.float32, device=dev)
@@ -4998,11 +5007,26 @@ def bin_kernel_check(tag: str, x_host: np.ndarray, ds, dev, smi: str) -> dict:
     head = min(n, 1 << 18)
     host = np.stack([ds.mappers[j].values_to_bins(x_host[:head, j])
                      for j in ds.used_features], axis=1)
-    num = [int(k) for k in table.dst]
     check(np.array_equal(_as_int(got[:head]).cpu().numpy()[:, num],
                          host[:, num]),
           f"{tag}: B != the host mapper's bins on the first {head} rows")
     del again, ref
+    edges = bc.edge_rows(table, f)
+    xe = torch.from_numpy(edges).to(dev)
+    oe = torch.zeros((len(edges), U), dtype=table.torch_dtype, device=dev)
+    ge = _as_int(bc.bin_rows(xe, table, oe.clone()))
+    pe = _as_int(bc._bin_reference(xe, table, oe.clone()))
+    he = np.stack([ds.mappers[j].values_to_bins(edges[:, j])
+                   for j in ds.used_features], axis=1)
+    check(torch.equal(ge, pe) and np.array_equal(
+        ge.cpu().numpy()[:, num], he[:, num]),
+        f"{tag}: B on the float32 table's edge rows != its plain version "
+        "or the host mapper")
+    err = max(err, float((ge - pe).abs().max()))
+    plan = table.on(dev)["plans"][4]
+    regs, spill = bc.kernel_attributes(dev, 4, out.element_size())
+    check(plan["n_tiles"] == 1, f"{tag}: the float32 table took "
+          f"{plan['n_tiles']} feature tiles, not one")
     ms = cuda_ms(lambda: bc.bin_rows(x, table, out), reps=10, warm=2)
     plain_ms = cuda_ms(lambda: bc._bin_reference(x, table, out), reps=3,
                        warm=1)
@@ -5022,12 +5046,16 @@ def bin_kernel_check(tag: str, x_host: np.ndarray, ds, dev, smi: str) -> dict:
         + table.bounds.nbytes
     bound = nbytes / H100_BYTES_PER_S * 1e3
     print(f"T22(a) B [{tag}: {n} x {f} f32 -> {U} {str(out.dtype)[6:]} "
-          f"bins, {table.num_features} numerical, "
-          f"{t['n_tiles']} feature tile(s), {t['smem']} B shared]: "
+          f"bins, {table.num_features} numerical; plan: "
+          f"{plan['n_tiles']} feature tile(s), {plan['rows']}-row tiles, "
+          f"{plan['groups']} row group(s) of 256 threads a block, "
+          f"{plan['smem']} B shared a block, {plan['blocks_per_sm']} "
+          f"block(s) an SM; {regs} registers, {spill} B spilled]: "
           f"torch.equal to its plain version, a rerun and the host mapper's "
-          f"bins (first {head} rows); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, batched torch.searchsorted {lib_ms:.3f} ms, "
-          f"bound {bound:.4f} ms (bytes: {nbytes / 1e6:.1f} MB); H2D "
+          f"bins (first {head} rows), and on {len(edges)} edge rows; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, batched torch.searchsorted "
+          f"{lib_ms:.3f} ms, bound {bound:.4f} ms (bytes: "
+          f"{nbytes / 1e6:.1f} MB), kernel / bound {ms / bound:.2f}; H2D "
           f"{h2d:.3f} ms (pinned), D2H {d2h:.3f} ms [{smi}]")
     del x, out, got, pinned, host_out
     torch.cuda.empty_cache()
@@ -5036,15 +5064,115 @@ def bin_kernel_check(tag: str, x_host: np.ndarray, ds, dev, smi: str) -> dict:
             "h2d_ms": h2d, "d2h_ms": d2h}
 
 
+def construction_split(t3: dict, smi: str) -> dict:
+    """T22 (a): T3's construction (its training and validation sets) again,
+    in parts: the bin finding on the host (``BinnedDataset._find_bins``),
+    the push (``_push_data``: the pinned staging, the copies and B), and
+    within the push B's device time summed over its launches: from a pair
+    of CUDA events around each launch, which times every launch (the
+    check), and from torch.profiler's CUDA activity (CUPTI), which times
+    the copies too but may drop records, so its counts are printed beside
+    its sums. The bins equal T3's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import lambdagap_tpu_torch as lgt
+    from lambdagap_tpu_torch.data.dataset import BinnedDataset
+    from lambdagap_tpu_torch.ops import bin_cuda as bc
+    cfg = lgt.Config.from_params(t3["params"])
+    spans = {"_find_bins": 0.0, "_push_data": 0.0}
+    orig = {name: getattr(BinnedDataset, name) for name in spans}
+
+    def timed(name):
+        def run(self, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig[name](self, *a, **kw)
+            finally:
+                spans[name] += time.perf_counter() - t0
+        return run
+
+    pairs = []                          # (start, end) event of each launch
+    load = bc._load
+
+    class EventTimedLib:
+        """B's library with a CUDA event recorded on the launching stream
+        just before and just after each ``lg_bin_rows``."""
+
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            return getattr(self._lib, name)
+
+        def lg_bin_rows(self, *args):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            rc = self._lib.lg_bin_rows(*args)
+            ev[1].record()
+            pairs.append(ev)
+            return rc
+
+    for name in spans:
+        setattr(BinnedDataset, name, timed(name))
+    bc._load = lambda dev: EventTimedLib(load(dev))
+    bc.BIN_LAUNCHES.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr = BinnedDataset.from_matrix(t3["Xtr"], cfg)
+            BinnedDataset.from_matrix(t3["Xva"], cfg, reference=tr)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+    finally:
+        bc._load = load
+        for name, fn in orig.items():
+            setattr(BinnedDataset, name, fn)
+    launches = bc.BIN_LAUNCHES.launches
+    ev_ms = sum(a.elapsed_time(b) for a, b in pairs)
+    sums = {k: [0.0, 0] for k in ("bin_kernel", "Memcpy HtoD",
+                                  "Memcpy DtoH")}
+    for e in prof.key_averages():
+        for k, v in sums.items():
+            if k in e.key:
+                v[0] += getattr(e, "device_time_total", 0.0) / 1e3
+                v[1] += e.count
+    check(launches == t3["bin_launches"] == len(pairs),
+          f"T22(a): the split construction made {launches} B launches "
+          f"({len(pairs)} timed by events) against T3's "
+          f"{t3['bin_launches']}")
+    check(np.array_equal(tr.binned, t3["train"].construct().binned),
+          "T22(a): the split construction's bins != T3's")
+    b_ms, h_ms, d_ms = (sums[k][0] for k in sums)
+    print(f"T22(a) T3 construction in parts (training + validation sets, "
+          f"{launches} B launches): wall {wall:.3f} s = bin finding on the "
+          f"host {spans['_find_bins']:.3f} s + push "
+          f"{spans['_push_data']:.3f} s + the rest "
+          f"{wall - sum(spans.values()):.3f} s; within the push, device "
+          f"time: B {ev_ms:.3f} ms summed over its {launches} launches "
+          f"(CUDA events around each), CUPTI: B {b_ms:.3f} ms over "
+          f"{sums['bin_kernel'][1]} traced launches, H2D copies "
+          f"{h_ms:.3f} ms ({sums['Memcpy HtoD'][1]} traced), D2H copies "
+          f"{d_ms:.3f} ms ({sums['Memcpy DtoH'][1]} traced); the push's "
+          f"other {spans['_push_data'] - (ev_ms + h_ms + d_ms) / 1e3:.3f} s "
+          f"is host work and waits (pinned staging, the bins' host copy) "
+          f"[{smi}]")
+    return {"wall_s": wall, "find_bins_s": spans["_find_bins"],
+            "push_s": spans["_push_data"], "b_ms": ev_ms,
+            "b_cupti_ms": b_ms, "b_cupti_launches": sums["bin_kernel"][1],
+            "h2d_ms": h_ms, "d2h_ms": d_ms, "launches": launches}
+
+
 def data_bin_phase(args, t3: dict, dev, smi: str) -> dict:
     """T22 (a): B at T3's shape (its training rows, on its bins) and at
-    T8's (2,266,357 x 136 rows, bins from a 200,000-row sample); the
-    construction seconds of the phases that bin beside the host binner's
-    (PERF.md section 5)."""
+    T8's (2,266,357 x 136 rows, bins from a 200,000-row sample); T3's
+    construction in parts; the construction seconds of the phases that bin
+    beside the host binner's (PERF.md section 5)."""
     import lambdagap_tpu_torch as lgt
     from lambdagap_tpu_torch.data.dataset import BinnedDataset
     from lambdagap_tpu_torch.ops import bin_cuda as bc
     k3 = bin_kernel_check("T3", t3["Xtr"], t3["train"].construct(), dev, smi)
+    split = construction_split(t3, smi)
     n8 = 2_266_357
     X8 = np.random.default_rng(args.seed + 222).standard_normal(
         (n8, MSLR_F), dtype=np.float32)
@@ -5070,7 +5198,7 @@ def data_bin_phase(args, t3: dict, dev, smi: str) -> dict:
           "section 5): " + ", ".join(f"{k} {v:.2f}"
                                      for k, v in CONSTRUCT_S.items())
           + f" [{smi}]")
-    return {"T3": k3, "T8": k8}
+    return {"T3": k3, "T8": k8, "split": split}
 
 
 # the 3-digit ASCII strings of 0..999 (000, 001, ...), for the writers

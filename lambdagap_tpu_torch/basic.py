@@ -459,7 +459,23 @@ class Booster:
         scores ([N], or [N, K] for K classes), ``train_data`` the binned
         training set, and the gradient and hessian come back flat and
         class-major (K*N values, class k's at ``k*N:(k+1)*N``), as the JAX
-        package reads them."""
+        package reads them. Under ``guard_nonfinite`` raise / skip_tree the
+        round's own scores are read before it returns, as the JAX
+        package's ``update`` reads them
+        (``lambdagap_tpu/guard/nonfinite.py:128-153``): a round that left
+        them non-finite raises here, or is dropped
+        (``last_iteration_skipped``)."""
+        stop = self._step(train_set, fobj)
+        if self._booster.guard_finish():
+            self._booster.last_iteration_skipped = True
+        return stop
+
+    def _step(self, train_set: Optional[Dataset] = None,
+              fobj=None) -> bool:
+        """:meth:`update` without the guard's read of the round's scores:
+        ``engine.train`` leaves that read to the next round's first record
+        read and to one read when training ends, so a round gains no
+        sync."""
         if train_set is not None and train_set is not self.train_set:
             raise NotImplementedError(
                 "Booster.update(train_set=) with another dataset is not "

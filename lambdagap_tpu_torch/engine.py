@@ -103,7 +103,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
                           evaluation_result_list=[])
         for cb in cbs_before:
             cb(env)
-        stop = booster.update()
+        # the guard's read of this round's scores is deferred (Booster._step)
+        stop = booster._step()
         evals = []
         if valid_contains_train:
             train_name = getattr(booster, "_train_name", "training")

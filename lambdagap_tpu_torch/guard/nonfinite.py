@@ -22,11 +22,13 @@ tree; ``SerialTreeLearner.train``, the root's read), so the guard adds no
 sync point to a round. A fused round whose tree never reads
 (``num_leaves=1``) reads the flag alone.
 
-The JAX package checks the scores after the round's update; the port
-checks them as the next round enters. The finiteness of the scores a round
-leaves behind is therefore read in the next round (and once at the end of
-``train``, :meth:`TrainGuard.finish`). When the next round finds them
-non-finite, the guard acts for the round that made them: ``raise`` before
+The JAX package checks the scores after the round's update. So does
+``Booster.update`` (:meth:`TrainGuard.finish` before it returns, one host
+read). ``engine.train`` checks them as the next round enters instead: the
+finiteness of the scores a round leaves behind is read with the next
+round's first record read (and once at the end of ``train``,
+:meth:`TrainGuard.finish`). When the next round finds them non-finite, the
+guard acts for the round that made them: ``raise`` before
 the new round adds a tree, with the booster in the state the JAX package
 raises from; ``skip_tree`` restores the state from before that round and
 the random streams from after it (as the JAX package leaves them), and the
@@ -169,8 +171,9 @@ class TrainGuard:
         return True
 
     def finish(self, gbdt) -> bool:
-        """The last round's scores, read once when training ends. True
-        when that round was dropped."""
+        """The last round's scores, read by ``Booster.update`` after its
+        round and by ``engine.train`` once when training ends. True when
+        that round was dropped."""
         if not (self.checks and self._unchecked):
             return False
         self._unchecked = False

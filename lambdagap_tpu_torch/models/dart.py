@@ -13,10 +13,10 @@ for all of them.
 DART changes the leaf values of trees already in the model; every such
 change drops the booster's predict caches and bumps its generation, so a
 served DART model never answers with stale leaves. Under
-``guard_nonfinite=skip_tree`` the guard may drop a round one round late
-(``guard/nonfinite.py``): the restore then also undoes that round's
-renormalization of the dropped trees (their leaf values, internal values
-and shrinkage, saved before the scaling) and its tree weights.
+``guard_nonfinite=skip_tree`` ``engine.train``'s guard may drop a round one
+round late (``guard/nonfinite.py``): the restore then also undoes that
+round's renormalization of the dropped trees (their leaf values, internal
+values and shrinkage, saved before the scaling) and its tree weights.
 """
 from __future__ import annotations
 

@@ -47,8 +47,9 @@ time through the first tree's bias when a validation set is attached;
 ROADMAP.md, Queue 3.)
 
 The non-finite guard (``guard/nonfinite.py``, ``guard_nonfinite``) checks
-every round with no sync of its own: its device flag rides the round's
-first record read in the learner. Options the port does not train yet,
+every round of ``engine.train`` with no sync of its own: its device flag
+rides the round's first record read in the learner. ``Booster.update``
+reads its own round's scores before it returns. Options the port does not train yet,
 and knobs of layers it does not carry, raise NotImplementedError naming
 the knob (:func:`_refuse_unported`). Every predict goes to the device engine:
 the JAX package's <=512-row native ``fastpred`` shortcut is not ported.
@@ -528,8 +529,9 @@ class GBDT:
             self.objective.key = okey
 
     def guard_finish(self) -> bool:
-        """The non-finite guard's read of the last round's scores, once
-        when training ends; True when that round was dropped."""
+        """The non-finite guard's read of the last round's scores:
+        ``Booster.update`` makes it after each round, ``engine.train`` once
+        when training ends. True when that round was dropped."""
         return self.guard.finish(self)
 
     def _train_host_trees(self, grad, hess, mask,

@@ -152,6 +152,152 @@ def test_bin_rows_checks_its_inputs():
         bin_cuda.bin_rows(torch.from_numpy(X).to("meta"), table)
 
 
+F32 = np.finfo(np.float32)
+
+
+def _searched(table, X, tables):
+    """Per numerical feature, the bins of ``X`` by a search over
+    ``tables(f)`` (sorted bounds: torch.searchsorted, side left; or B's
+    tree as ``("tree", tree, depth)``: B's descent), with the plain
+    version's NaN and clip rules; ``[n, Fn]``."""
+    out = np.zeros((X.shape[0], table.num_features), np.int64)
+    for f in range(table.num_features):
+        v = X[:, table.col[f]]
+        nan = np.isnan(v)
+        v = np.where(nan, v.dtype.type(0), v)
+        t = tables(f)
+        if isinstance(t, tuple):
+            how, tree, depth = t
+            k = np.ones(len(v), np.int64)
+            levels = depth
+            if how == "top" and depth >= 3:
+                # the kernel's first step: the count of the top three
+                # levels' seven nodes below v is the level-3 node 8 + c
+                k = 8 + (tree[1:8][None, :] < v[:, None]).sum(axis=1)
+                levels = depth - 3
+            for _ in range(levels):
+                k = 2 * k + (tree[k] < v)
+            idx = k - (1 << depth)
+        else:
+            idx = torch.searchsorted(torch.from_numpy(t),
+                                     torch.from_numpy(v)).numpy()
+        idx = np.minimum(idx, table.last[f])
+        if table.nan_bin[f] >= 0:
+            idx = np.where(nan, table.nan_bin[f], idx)
+        out[:, f] = idx
+    return out
+
+
+def _float32_table_checks(table, X32, plain, jax_binned):
+    """The float32 table's search (torch.searchsorted over RD32 of the
+    bounds, and B's descent over the float32 tree), the float64 tree's
+    descent on the rows widened, the plain version and the JAX package's
+    bins: all equal on the numerical columns."""
+    dst = table.dst
+    np.testing.assert_array_equal(plain[:, dst], jax_binned[:, dst])
+    want = plain[:, dst].astype(np.int64)
+    b32 = bin_cuda.round_down_f32(table.bounds)
+    lo, hi = table.off[:-1], table.off[1:]
+    np.testing.assert_array_equal(
+        _searched(table, X32, lambda f: b32[lo[f]:hi[f]]), want)
+    for how in ("tree", "top"):
+        tree = lambda t: lambda f: (how, t[table.toff[f]:table.toff[f + 1]],
+                                    int(table.depth[f]))
+        np.testing.assert_array_equal(
+            _searched(table, X32, tree(table.tree32)), want)
+        np.testing.assert_array_equal(
+            _searched(table, X32.astype(np.float64), tree(table.tree64)),
+            want)
+
+
+@pytest.mark.parametrize("extra", [{}, {"zero_as_missing": True},
+                                   {"use_missing": False}],
+                         ids=["nan", "zero_as_missing", "no_missing"])
+@pytest.mark.parametrize("max_bin", [63, 511])
+def test_float32_table_equals_float64_search_and_jax(max_bin, extra):
+    """B's float32 table (each bound rounded down to float32) counts the
+    same bounds as the float64 search for every float32 value: each
+    bound's RD32 and its neighbours, signed zeros, subnormals, +-FLT_MAX,
+    infinities and NaN, under each missing type; B's trees (float32 and
+    float64) give the same bins by B's descent."""
+    X = _matrix(n=3000).astype(np.float32)
+    X[:, 6] = np.random.RandomState(5).randn(3000).astype(np.float32) * 1e-42
+    params = {"max_bin": max_bin, "min_data_in_bin": 1, "verbose": -1,
+              **extra}
+    pds = BinnedDataset.from_matrix(
+        X, Config.from_params({**params, "device_type": "cpu"}),
+        categorical_features=[4])
+    jds = JaxDataset.from_matrix(X, JaxConfig.from_params(params),
+                                 categorical_features=[4])
+    table = pds.bin_table()
+    assert table.out_dtype == (np.uint8 if max_bin == 63 else np.uint16)
+    Xa = bin_cuda.edge_rows(table, X.shape[1])
+    pv = BinnedDataset.from_matrix(
+        Xa, Config.from_params({**params, "device_type": "cpu"}),
+        reference=pds)
+    jv = JaxDataset.from_matrix(Xa, JaxConfig.from_params(params),
+                                reference=jds)
+    _float32_table_checks(table, Xa, pv.binned, jv.binned)
+
+
+def test_float32_table_with_bounds_past_flt_max():
+    """Bounds from a float64 sample beyond float32's range (RD32 of a bound
+    past FLT_MAX is FLT_MAX, of one below -FLT_MAX -inf), searched by
+    float32 rows binned through ``reference=``: the float32 table, the
+    float64 search and the JAX package agree."""
+    rng = np.random.RandomState(11)
+    X = rng.randn(4000, 3)
+    X[:, 0] = rng.choice([-1e300, -1e39, -3.4e38, -1.0, 0.0, 1.0, 3.4e38,
+                          3.41e38, 1e39, 1e300], 4000)
+    X[:, 1] = rng.choice([-np.inf, -1e200, 2.0, 1e200, np.inf, np.nan],
+                         4000)
+    params = {"max_bin": 63, "min_data_in_bin": 1, "verbose": -1}
+    pds = BinnedDataset.from_matrix(
+        X, Config.from_params({**params, "device_type": "cpu"}))
+    jds = JaxDataset.from_matrix(X, JaxConfig.from_params(params))
+    table = pds.bin_table()
+    finite = table.bounds[np.isfinite(table.bounds)]
+    assert finite.max() > F32.max and finite.min() < -F32.max
+    Xa = bin_cuda.edge_rows(table, X.shape[1])
+    pv = BinnedDataset.from_matrix(
+        Xa, Config.from_params({**params, "device_type": "cpu"}),
+        reference=pds)
+    jv = JaxDataset.from_matrix(Xa, JaxConfig.from_params(params),
+                                reference=jds)
+    _float32_table_checks(table, Xa, pv.binned, jv.binned)
+
+
+def test_bin_plan_stages_mslr_width_float32_in_one_tile():
+    """At MSLR-WEB30K's 136 features and 255 bins the float32 trees fit one
+    block beside its row buffers (one pass over the rows); the float64
+    trees take two tiles; a 40,000-bin feature is a tile searched in device
+    memory. Checked against the card's opt-in 232,448 shared bytes."""
+    rng = np.random.RandomState(2)
+    X = rng.randn(20000, 136).astype(np.float32)
+    ds = BinnedDataset.from_matrix(X, Config.from_params(
+        {"max_bin": 255, "verbose": -1, "device_type": "cpu"}))
+    table = ds.bin_table()
+    assert (table.depth == 8).all()
+    cap = 232448
+    p32 = bin_cuda._feature_tiles(np.diff(table.toff), 64, 4, 1, cap)
+    assert p32[1] == [1] and p32[0] == [0, 136] and p32[2] <= cap
+    assert bin_cuda._feature_tiles(np.diff(table.toff), 128, 4, 1,
+                                   cap)[1] == [1, 1]
+    assert len(bin_cuda._feature_tiles(np.diff(table.toff), 64, 8, 1,
+                                       cap)[1]) == 2
+    sizes = np.array([256, 1 << 16, 256])
+    tiles, staged, _ = bin_cuda._feature_tiles(sizes, 128, 4, 2, cap)
+    assert tiles == [0, 1, 2, 3] and staged == [1, 0, 1]
+    # the plan keeps the one tile (a stand-in for the occupancy query: 228
+    # KB and 2,048 threads an SM)
+    occ = lambda threads, smem: min(233472 // (smem + 1024), 2048 // threads)
+    plan = table.plan(torch.device("cpu"), 4, cap, occ)
+    assert plan["n_tiles"] == 1 and plan["smem"] <= cap
+    assert plan["threads"] % (32 * plan["groups"]) == 0
+    assert plan["smem"] == bin_cuda._tile_bytes(
+        136, int(table.toff[-1]), True, plan["rows"], 4, 1, plan["groups"])
+
+
 @pytest.mark.parametrize("fused", ["1", "0"])
 def test_categorical_past_256_bins_fails_in_both_packages(fused):
     """A categorical feature binned past 256 bins: the JAX package's split

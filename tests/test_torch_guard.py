@@ -142,3 +142,48 @@ def test_the_last_round_is_checked_when_training_ends(policy):
         assert gb.guard_finish() is True
         assert len(gb.models) == 2 and gb.iter_ == 2
         assert np.isfinite(gb.scores.numpy()).all()
+
+
+def _update_loop(booster, error, rounds=5, blowup=2):
+    """A bare ``update()`` loop whose round ``blowup`` runs at a learning
+    rate of 1e39 (inf in float32: that round's leaf values, and so the
+    scores it leaves, are non-finite while its gradients are finite); the
+    rate is set back after it. Per call: the round's
+    ``last_iteration_skipped``, or "raise" where the call raised."""
+    seen = []
+    for i in range(rounds):
+        if i in (blowup, blowup + 1):
+            booster.reset_parameter(
+                {"learning_rate": 1e39 if i == blowup else 0.1})
+        try:
+            booster.update()
+        except error:
+            return seen + ["raise"]
+        seen.append(bool(booster._booster.last_iteration_skipped))
+    return seen
+
+
+@pytest.mark.parametrize("policy", ["raise", "skip_tree"])
+def test_bare_update_loop_checks_its_own_round_like_jax(policy):
+    """Scores driven non-finite by round 2's update: the JAX package's
+    ``update`` raises, or drops the round, in that same call; so does the
+    port's, with no later call needed to find them."""
+    X, y = _data()
+    params = {**BASE, "guard_nonfinite": policy}
+    bj = lgb.Booster(params={**params, **JAX_F32},
+                     train_set=lgb.Dataset(X, label=y))
+    bt = lgt.Booster(params={**params, **CPU},
+                     train_set=lgt.Dataset(X, label=y))
+    seen_j = _update_loop(bj, JaxNonFinite)
+    seen_t = _update_loop(bt, NonFiniteError)
+    if policy == "raise":
+        assert seen_j == seen_t == [False, False, "raise"]
+        return
+    assert seen_j == seen_t == [False, False, True, False, False]
+    gj, gt = bj._booster, bt._booster
+    assert len(gt.models) == len(gj.models) == 4
+    assert gt.iter_ == gj.iter_ == 4
+    assert np.isfinite(gt.scores.numpy()).all()
+    np.testing.assert_allclose(bt.predict(X, raw_score=True),
+                               bj.predict(X, raw_score=True), rtol=1e-4,
+                               atol=1e-5)

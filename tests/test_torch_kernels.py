@@ -1595,20 +1595,25 @@ def test_served_dart_model_fused_launch_equals_plain_version(cuda_device):
                                rtol=1e-6, atol=1e-6)
 
 
-def _bin_matrix_rows(n, F, seed, wide=False):
-    """Rows for B: normal columns with NaN, +-inf and exact zeros; column
-    1 a small-int categorical; with ``wide`` column 0 holds 50,000
-    distinct values (a 20,000-bin feature, beyond the shared-memory
-    stage)."""
+def _bin_matrix_rows(n, F, seed, wide=False, cat=True, few=False):
+    """Rows for B: normal columns with NaN, +-inf and exact zeros; with
+    ``cat`` column 1 a small-int categorical; with ``wide`` column 0 holds
+    50,000 distinct values (a feature of up to 50,000 bins); with ``few``
+    columns 2-4 hold 3 to 5 distinct values (trees shallower than the
+    others')."""
     rng = np.random.RandomState(seed)
     X = rng.randn(n, F)
     X[rng.rand(n, F) < 0.05] = np.nan
     X[rng.rand(n, F) < 0.01] = np.inf
     X[rng.rand(n, F) < 0.01] = -np.inf
     X[rng.rand(n, F) < 0.2] = 0.0
-    X[:, 1] = rng.randint(0, 7, n)
+    if cat:
+        X[:, 1] = rng.randint(0, 7, n)
     if wide:
         X[:, 0] = rng.randint(0, 50000, n) / 7.0
+    if few:
+        for j, k in ((2, 3), (3, 4), (4, 5)):
+            X[:, j] = rng.randint(0, k, n) * 0.5
     return X
 
 
@@ -1616,42 +1621,85 @@ def _bin_matrix_rows(n, F, seed, wide=False):
 @pytest.mark.parametrize("shape", [
     dict(n=50000, F=28, max_bin=255, dtype=np.float32),
     dict(n=50000, F=28, max_bin=255, dtype=np.float64, zero_as_missing=True),
-    dict(n=20000, F=136, max_bin=255, dtype=np.float32),
+    dict(n=20000, F=136, max_bin=255, dtype=np.float32, tiles=1),
     dict(n=30000, F=12, max_bin=511, dtype=np.float64),
-    dict(n=120000, F=4, max_bin=20000, dtype=np.float32, wide=True),
-], ids=["higgs_f32", "higgs_f64_zero", "mslr", "u16", "wide_unstaged"])
+    dict(n=120000, F=4, max_bin=60000, dtype=np.float32, wide=True,
+         staged=[0, 0, 0]),
+    dict(n=120000, F=4, max_bin=20000, dtype=np.float32, wide=True,
+         staged=[1, 1, 1]),
+    dict(n=20000, F=136, max_bin=255, dtype=np.float64, tiles=2),
+    dict(n=50001, F=28, max_bin=255, dtype=np.float32, cat=False, tiles=1),
+    dict(n=50000, F=28, max_bin=255, dtype=np.float32, cat=False,
+         edges=True),
+    dict(n=50000, F=28, max_bin=63, dtype=np.float32, edges=True),
+    dict(n=20000, F=136, max_bin=255, dtype=np.float32, cat=False,
+         edges=True),
+    dict(n=40000, F=28, max_bin=255, dtype=np.float32, cat=False,
+         offset=3),
+    dict(n=30000, F=7, max_bin=511, dtype=np.float32, offset=1),
+    dict(n=30000, F=12, max_bin=511, dtype=np.float32, cat=False,
+         few=True),
+], ids=["higgs_f32", "higgs_f64_zero", "mslr", "u16", "wide_unstaged",
+        "wide_staged", "mslr_f64", "whole_rows_partial_tile", "edges_f32",
+        "edges_f32_cat_63", "edges_mslr", "row_offset", "row_offset_u16",
+        "mixed_depths"])
 def test_bin_kernel_equals_plain_version_on_card(shape, cuda_device):
     """Kernel B (``ops/bin_cuda.bin_rows``) is ``torch.equal`` to its plain
     version and to the host mapper's bins, reruns bit-identically and
-    counts one launch a call; a Dataset built on the card bins every
-    numerical column with B (no host mapper call on one) and equals the
-    same Dataset built on the CPU."""
+    counts one launch a call, on: float32 and float64 rows, u8 and u16
+    bins, tables with a categorical column (bins stored column by column)
+    and without (whole rows of bins; a partial last row tile), MSLR's 136
+    features in one tile (float32) and two (float64), a feature too large
+    for shared memory (searched in device memory) and one that fits, the
+    float32 table's edge values (``edge_rows``: each bound rounded down
+    and its neighbours, signed zeros, subnormals, +-FLT_MAX, infinities,
+    NaN), and rows and bins read and written at an offset. A Dataset built
+    on the card bins every numerical column with B (no host mapper call on
+    one) and equals the same Dataset built on the CPU."""
     from lambdagap_tpu_torch.data.binning import BIN_NUMERICAL, BinMapper
     from lambdagap_tpu_torch.data.dataset import BinnedDataset
     from lambdagap_tpu_torch.ops import bin_cuda
-    X = _bin_matrix_rows(shape["n"], shape["F"], 7,
-                         shape.get("wide", False)).astype(shape["dtype"])
+    X = _bin_matrix_rows(shape["n"], shape["F"], 7, shape.get("wide", False),
+                         shape.get("cat", True),
+                         shape.get("few", False)).astype(shape["dtype"])
     params = {"max_bin": shape["max_bin"], "min_data_in_bin": 1,
               "verbose": -1,
               "zero_as_missing": shape.get("zero_as_missing", False)}
+    cat = [1] if shape.get("cat", True) else []
+    fit = BinnedDataset.from_matrix(X, lgt.Config.from_params(
+        {**params, **CPU}), categorical_features=cat)
+    table = fit.bin_table()
+    if shape.get("edges"):
+        X = bin_cuda.edge_rows(table, shape["F"])
     cpu = BinnedDataset.from_matrix(X, lgt.Config.from_params(
-        {**params, **CPU}), categorical_features=[1])
-    table = cpu.bin_table()
-    x = torch.from_numpy(X).to(cuda_device)
-    out = torch.zeros((X.shape[0], len(cpu.used_features)),
-                      dtype=table.torch_dtype, device=cuda_device)
+        {**params, **CPU}), reference=fit)
+    k = shape.get("offset", 0)
+    n, U = X.shape[0], len(fit.used_features)
+    x = torch.from_numpy(np.concatenate(
+        [np.zeros((k, X.shape[1]), X.dtype), X])).to(cuda_device)[k:]
+    out = torch.zeros((n + k, U), dtype=table.torch_dtype,
+                      device=cuda_device)
     before = bin_cuda.BIN_LAUNCHES.launches
-    got = bin_cuda.bin_rows(x, table, out.clone())
-    again = bin_cuda.bin_rows(x, table, out.clone())
+    got = bin_cuda.bin_rows(x, table, out.clone()[k:])
+    again = bin_cuda.bin_rows(x, table, out.clone()[k:])
     assert bin_cuda.BIN_LAUNCHES.launches - before == 2
-    plain = bin_cuda._bin_reference(x, table, out.clone())
+    plain = bin_cuda._bin_reference(x, table, out.clone()[k:])
     torch.cuda.synchronize()
     as16 = (lambda t: t.view(torch.int16)) if got.dtype == torch.uint16 \
         else (lambda t: t)
     assert torch.equal(as16(got), as16(plain))
     assert torch.equal(as16(got), as16(again))
-    if shape.get("wide"):
-        assert table.on(cuda_device)["staged"].tolist()[0] == 0
+    num = table.dst.tolist()
+    np.testing.assert_array_equal(
+        as16(got).cpu().numpy().view(cpu.binned.dtype)[:, num],
+        cpu.binned[:, num])
+    plan = table.on(cuda_device)["plans"][X.dtype.itemsize]
+    if "tiles" in shape:
+        assert plan["n_tiles"] == shape["tiles"]
+    if "staged" in shape:
+        assert plan["staged"].tolist() == shape["staged"]
+    if shape.get("few"):
+        assert len(set(table.depth.tolist())) > 1 and plan["n_tiles"] == 1
     numerical = []
     orig = BinMapper.values_to_bins
 
@@ -1663,7 +1711,7 @@ def test_bin_kernel_equals_plain_version_on_card(shape, cuda_device):
     BinMapper.values_to_bins = spy
     try:
         card = BinnedDataset.from_matrix(X, lgt.Config.from_params(params),
-                                         reference=cpu)
+                                         reference=fit)
     finally:
         BinMapper.values_to_bins = orig
     assert not numerical
